@@ -1,0 +1,157 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need an NVIDIA GPU and skip without one (the kernels have no
+CPU mode).  The file imports neither ``jax`` nor ``waveforms_tpu``, so it
+also runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+Inputs come from the port's own constructors with fixed seeds.  Each kernel
+is held to its plain PyTorch version on the CPU (which the other
+test_torch_* files hold to the JAX kernels) within 1e-6 of each channel's
+peak, and int16 codes to exactly the kernel's own f32 output quantized.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import waveforms_tpu_torch as wt
+from waveforms_tpu_torch import kernels
+from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
+                                              lower_schedule)
+from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
+                                                  synthesize_panels)
+from waveforms_tpu_torch.ops.synth import DeviceSchedule, synthesize_device
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-6
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device('cuda')
+
+
+def rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    peak = np.maximum(np.abs(b).max(axis=-1), 1e-30)
+    return float((np.abs(a - b).max(axis=-1) / peak).max())
+
+
+def _cases():
+    bf = (151e6, -83e6, 217e6)
+    rng = np.random.default_rng(9)
+    stack = wt.WaveVStack([(0.4 * wt.cosPulse(40e-9) >> o)
+                           for o in rng.uniform(0, 7e-6, 60)])
+    I, _ = wt.mixing(0.5 * wt.cosPulse(20e-9) >> 1e-7, freq=-20e6,
+                     DRAGScaling=1e-10)
+    return {
+        'shapes': ([wt.gaussian(1e-6), wt.cosPulse(1e-6),
+                    wt.square(1e-6, edge=0.2e-6), wt.sinc(20e6),
+                    wt.cosh(1e6) * wt.square(2e-6),
+                    wt.mollifier(1e-6, d=2), wt.gaussian(1e-6, d=2),
+                    wt.poly([0.5, 1e5, -1e11]) * wt.square(3e-6)],
+                   -2e-6, 2e-6, 1e9, 'auto'),
+        'mixing_drag': ([I, wt.drag(100e6, 20e-9, plateau=10e-9, delta=2e6,
+                                    block_freq=250e6, phase=0.4,
+                                    t0=3e-9) >> 0.1e-6],
+                        -0.1e-6, 0.4e-6, 2e9, 'auto'),
+        'chirps': ([wt.chirp(1e6, 50e6, 1e-5, 0.3, 'linear'),
+                    wt.chirp(1e6, 50e6, 1e-5, 0.3, 'hyperbolic')],
+                   0.0, 8e-6, 2e9, 'auto'),
+        'multitone_drag': ([wt.drag_sin(0.2e9, 22.3e-9, plateau=6.1e-9,
+                                        delta=3e6, block_freq=bf, phase=0.1),
+                            wt.drag_sinx(0.2e9, 22.3e-9, plateau=6.1e-9,
+                                         delta=3e6, block_freq=bf, phase=0.1,
+                                         tab=0.5)],
+                           -5e-9, 40e-9, 2e9, 'auto'),
+        'multi_bucket': ([stack, stack >> 1e-7], 0.0, 8.192e-6, 2e9, 4096),
+    }
+
+
+def _lowered(case):
+    chans, start, stop, fs, bs = _cases()[case]
+    return lower_schedule(chans, start, stop, fs, bucket_samples=bs)
+
+
+@pytest.mark.parametrize('case', list(_cases()))
+def test_dense_kernel_matches_plain(card, case):
+    low = _lowered(case)
+    n = kernels.synth_dense.launches
+    got = synthesize_device(DeviceSchedule(low, card))
+    torch.cuda.synchronize()
+    assert kernels.synth_dense.launches == n + 1
+    plain = synthesize_device(DeviceSchedule(low, 'cpu'))
+    assert rel(got.cpu(), plain) <= TOL
+
+
+@pytest.mark.parametrize('case', list(_cases()))
+def test_panel_kernel_matches_plain(card, case):
+    low = _lowered(case)
+    plan = build_panel_plan(low)
+    n = kernels.synth_panel.launches
+    got = synthesize_panels(DeviceSchedule(low, card), plan=plan)
+    torch.cuda.synchronize()
+    assert kernels.synth_panel.launches == n + 1
+    plain = synthesize_panels(DeviceSchedule(low, 'cpu'), plan=plan)
+    assert rel(got.cpu(), plain) <= TOL
+
+
+def test_exotic_chirp_opcodes(card):
+    """OP_EXPCHIRP/OP_HYPCHIRP set directly into the descriptors (the
+    lowering rewrites such chirps before they reach a sampled segment)."""
+    low = lower_schedule([wt.gaussian(1e-6)] * 2, -1e-6, 1e-6, 1e9)
+    for c, op in enumerate((OP_EXPCHIRP, OP_HYPCHIRP)):
+        low.op[c, 0, 0, 0, 0] = op
+        low.args[c, 0, 0, 0, 0, 1:4] = (2 * np.pi * 0.1, 1e-3, 0.3)
+    got = synthesize_device(DeviceSchedule(low, card)).cpu()
+    plain = synthesize_device(DeviceSchedule(low, 'cpu'))
+    assert torch.isfinite(got).all()
+    assert rel(got, plain) <= TOL
+
+
+@pytest.mark.parametrize('route', ['dense', 'panel'])
+def test_int16_codes_quantize_the_kernels_f32(card, route):
+    low = _lowered('shapes')
+    scales = np.linspace(16000.0, 32767.0, low.shape[0]).astype(np.float32)
+    dev = DeviceSchedule(low, card)
+    if route == 'dense':
+        f32 = synthesize_device(dev)
+        codes = synthesize_device(dev, out_dtype=torch.int16,
+                                  dac_scale=scales)
+    else:
+        plan = build_panel_plan(low)
+        f32 = synthesize_panels(dev, plan=plan)
+        codes = synthesize_panels(dev, plan=plan, out_dtype=torch.int16,
+                                  dac_scale=scales)
+    sc = torch.as_tensor(scales, device=card)[:, None]
+    expected = torch.clamp(torch.round(f32 * sc), -32768, 32767)
+    assert codes.dtype == torch.int16
+    assert torch.equal(codes, expected.to(torch.int16))
+
+
+def test_slice_goes_through_the_kernels(card):
+    chans, start, stop, fs, _ = _cases()['mixing_drag']
+    kernels.reset_launch_counts()
+    got = wt.synthesize(chans, start, stop, fs, device='cuda')
+    dense = wt.synthesize(chans, start, stop, fs, device='cuda',
+                          engine='cuda-dense')
+    assert kernels.launch_counts() == {'synth_dense': 1, 'synth_panel': 1}
+    plain = wt.synthesize(chans, start, stop, fs, device='cpu')
+    assert rel(got.cpu(), plain) <= TOL
+    assert rel(dense.cpu(), plain) <= TOL
+
+
+def test_wrapper_refuses_mixed_devices(card):
+    low = _lowered('shapes')
+    dev = DeviceSchedule(low, 'cpu')
+    out = torch.empty((low.shape[0], low.n_samples), device=card)
+    with pytest.raises(ValueError, match='expected cuda'):
+        kernels.synth_dense(dev, out, None)
+    with pytest.raises(ValueError, match='shape'):
+        kernels.synth_dense(DeviceSchedule(low, card), out[:, 1:], None)

@@ -1,0 +1,445 @@
+"""Plain PyTorch versions of the synthesis kernels.
+
+These compute, sample by sample, what the CUDA kernels in ``csrc/`` and
+the Pallas kernels of ``waveforms_tpu`` compute: for every sample, the sum
+over the segments that contain it (in the bucket's lo-sorted order) of
+``clip(sum_t amp_t * prod_f factor_f ** power_f)``, accumulated in f32.
+The 17 opcode formulas (:func:`op_builders`) follow
+``waveforms_tpu.ops.pallas_synth.op_builders`` term by term: carrier and
+chirp phases in int32 fixed-point turns plus an f32 residual, the
+Abramowitz-Stegun erf, round-half-even everywhere.
+
+int32 wraparound is the phase design.  Here the integer phase arithmetic
+runs in int64 and wraps to int32 explicitly (:func:`wrap32`); it never
+relies on int32 tensor overflow.
+
+The walks gather only the samples that a live segment covers, in chunks,
+so they run at full schedule size on the card (``chip_smoke.py`` holds the
+kernels against them there) and at test size on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .lowering import (DRAG_SIN_NC, DRAG_SINX_MAXQ, OP_COS, OP_COSH, OP_DRAG,
+                       OP_DRAG_SIN, OP_DRAG_SINX, OP_ERF, OP_EXP, OP_EXPCHIRP,
+                       OP_GAUSSIAN, OP_HYPCHIRP, OP_INTERP, OP_LINEAR,
+                       OP_LINEARCHIRP, OP_MOLLIFIER, OP_POLY_GAUSS, OP_SINC,
+                       OP_SINH, W_ARGS)
+
+__all__ = ['op_builders', 'dense_walk', 'panel_walk', 'wrap32']
+
+_F32 = torch.float32
+# f32 constants, exactly as the JAX kernel spells them (np.float32 values)
+_PHASE = float(np.float32(2 * np.pi / 2**32))   # int32 turn -> radians
+_INV_TWO_PI = float(np.float32(1.0 / (2 * np.pi)))
+_TWO_PI = float(np.float32(2 * np.pi))
+_PI = float(np.float32(np.pi))
+_TWO31 = float(np.float32(2**31))
+_EXP_CLAMP = 80.0
+_COS_POLY = [float(np.float32(v)) for v in
+             (-1 / 2, 1 / 24, -1 / 720, 1 / 40320, -1 / 3628800)]
+_SIN_POLY = [float(np.float32(v)) for v in
+             (-1 / 6, 1 / 120, -1 / 5040, 1 / 362880)]
+_ERF = [float(np.float32(v)) for v in
+        (0.3275911, 0.254829592, -0.284496736, 1.421413741, -1.453152027,
+         1.061405429)]
+
+# elements evaluated per gather step: bounds the temporaries of a walk
+CHUNK = 1 << 22
+
+
+def wrap32(x):
+    """int64 tensor -> the same values wrapped to the int32 range."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def _fma(a, b, c):
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add: the f64
+    product of two f32 values is exact.  The kernels' Horner steps compile
+    to FMAs (nvcc, and XLA for the JAX kernels); rounding twice instead
+    loses ~2e-6 of the peak on the 40-coefficient DRAG blend polynomials."""
+    return (a.double() * b.double() + c.double()).to(_F32)
+
+
+def _carrier_parts(di, q32, cq32, eps, ceps):
+    """Carrier phase as (int32 turns, f32 residual); see the JAX kernel's
+    ``_carrier_parts``."""
+    turns = wrap32(q32 * di + cq32)
+    return turns, eps * di.to(_F32) + ceps
+
+
+def _quadratic_parts(di, q_hh, q_hl, q_ll, q_lin, e_hh, e_hl, e_ll, e_lin):
+    """Chirp phase A*di^2 + B*di with di = dh*2^11 + dl (arithmetic shift),
+    every integer product wrapped to int32 as it forms."""
+    dh = di >> 11
+    dl = di - (dh << 11)
+    turns = wrap32(wrap32(wrap32(q_hh * dh) * dh)
+                   + wrap32(wrap32(q_hl * dh) * dl)
+                   + wrap32(wrap32(q_ll * dl) * dl)
+                   + wrap32(q_lin * di))
+    dhf = dh.to(_F32)
+    dlf = dl.to(_F32)
+    dif = di.to(_F32)
+    resid = ((e_hh * dhf + e_hl * dlf) * dhf + e_ll * dlf * dlf
+             + e_lin * dif)
+    return turns, resid
+
+
+def _const_phase_turns(phi):
+    """f32 radians -> (int32 turns, f32 residual), rounding twice and
+    wrapping the residual, term by term as the JAX kernel does."""
+    c = phi * _INV_TWO_PI
+    ci = torch.round((c - torch.round(c)) * _TWO31).to(torch.int64)
+    turns = wrap32(ci * 2)
+    resid = phi - turns.to(_F32) * _PHASE
+    return turns, resid - _TWO_PI * torch.round(resid * _INV_TWO_PI)
+
+
+def _sincos_turns(turns, resid):
+    """(sin, cos) of ``turns * 2pi/2^32 + resid``: quadrant from the top
+    two bits, Taylor polynomials on [-pi/4, pi/4)."""
+    q = wrap32(turns + (1 << 29))
+    quad = (q >> 30) & 3
+    r = (q & 0x3FFFFFFF) - (1 << 29)
+    x = r.to(_F32) * _PHASE + resid
+    x2 = x * x
+    c2, c4, c6, c8, c10 = _COS_POLY
+    s3, s5, s7, s9 = _SIN_POLY
+    cosx = 1.0 + x2 * (c2 + x2 * (c4 + x2 * (c6 + x2 * (c8 + x2 * c10))))
+    sinx = x * (1.0 + x2 * (s3 + x2 * (s5 + x2 * (s7 + x2 * s9))))
+    swap = (quad & 1) == 1
+    csign = torch.where((quad == 1) | (quad == 2), -1.0, 1.0)
+    ssign = torch.where(quad >= 2, -1.0, 1.0)
+    cos = torch.where(swap, sinx, cosx) * csign
+    sin = torch.where(swap, cosx, sinx) * ssign
+    return sin, cos
+
+
+def op_builders(di, arg, q32, eread):
+    """``{opcode: zero-arg builder}`` over one batch of elements.
+
+    ``di`` is the int64 sample delta (idx - shift_hi, wrapped to int32);
+    ``arg(k)`` returns the factor's f32 arg slot k, ``q32(j)`` its int32
+    phase slot j (as int64), ``eread(k)`` the ext word at ``int(arg(7)) + k``.
+    """
+    dif = di.to(_F32)
+
+    def u():
+        return dif - arg(0)
+
+    def op_linear():
+        return arg(1) * u()
+
+    def op_gaussian():
+        x = arg(1) * u()
+        return torch.exp(-(x * x))
+
+    def op_erf():
+        # Abramowitz-Stegun 7.1.26, the same form as the kernels
+        p, a1, a2, a3, a4, a5 = _ERF
+        x = arg(1) * u()
+        sign = torch.sign(x)
+        ax = torch.abs(x)
+        t = 1.0 / (1.0 + p * ax)
+        poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+        return sign * (1.0 - poly * torch.exp(-(ax * ax)))
+
+    def op_cos():
+        turns, resid = _carrier_parts(di, q32(0), q32(1), arg(2), arg(3))
+        return _sincos_turns(turns, resid)[1]
+
+    def op_sinc():
+        x = arg(1) * u()
+        px = _PI * x
+        small = torch.abs(px) < 1e-6
+        safe = torch.where(small, 1.0, px)
+        return torch.where(small, 1.0, torch.sin(safe) / safe)
+
+    def op_exp():
+        return torch.exp(torch.clamp(arg(1) * u(), -_EXP_CLAMP, _EXP_CLAMP))
+
+    def op_linearchirp():
+        turns, resid = _quadratic_parts(
+            di, q32(0), q32(1), q32(2), q32(3),
+            arg(2), arg(3), arg(4), arg(5))
+        cturns, ceps = _const_phase_turns(arg(6))
+        return _sincos_turns(wrap32(turns + cturns), resid + ceps)[0]
+
+    def op_expchirp():
+        x = torch.clamp(arg(2) * u(), -_EXP_CLAMP, _EXP_CLAMP)
+        return torch.sin(arg(3) + arg(1) * torch.exp(x))
+
+    def op_hypchirp():
+        x = torch.clamp(1.0 + arg(2) * u(), min=1e-30)
+        return torch.sin(arg(3) + arg(1) * torch.log(x))
+
+    def op_cosh():
+        e = torch.exp(torch.clamp(arg(1) * u(), -_EXP_CLAMP, _EXP_CLAMP))
+        return 0.5 * (e + 1.0 / e)
+
+    def op_sinh():
+        e = torch.exp(torch.clamp(arg(1) * u(), -_EXP_CLAMP, _EXP_CLAMP))
+        return 0.5 * (e - 1.0 / e)
+
+    def op_drag():
+        x = arg(1) * u()
+        s = torch.sin(x)
+        env_x = s * s
+        turns, resid = _carrier_parts(di, q32(0), q32(1), arg(3), arg(4))
+        sin_t, cos_t = _sincos_turns(turns, resid)
+        env_y = arg(5) * torch.sin(2.0 * x)
+        return env_x * cos_t + env_y * sin_t
+
+    def _polyval_asc(x, first, count):
+        acc = torch.zeros_like(x)
+        for k in range(count - 1, -1, -1):
+            acc = _fma(acc, x, arg(first + k))
+        return acc
+
+    def op_poly_gauss():
+        x = arg(1) * u()
+        return arg(2) * _polyval_asc(x, 3, 9) * torch.exp(-(x * x))
+
+    def _drag_sin_like(with_blend):
+        o_dt = arg(1)
+        uu = u()
+        left_hi = arg(5) * 0.5
+        right_lo = left_hi + arg(6)
+        rise = uu <= left_hi
+        flat = ~rise & (uu < right_lo)
+        bt = torch.where(rise, uu, uu - arg(6))
+        s = torch.sin(o_dt * bt)
+        c = torch.cos(o_dt * bt)
+        ox = torch.zeros_like(uu)
+        oy = torch.zeros_like(uu)
+        sp = torch.ones_like(uu)
+        for p in range(DRAG_SIN_NC):
+            basis = sp * c if p % 2 else sp
+            ox = ox + eread(1 + p) * basis
+            oy = oy + eread(1 + DRAG_SIN_NC + p) * basis
+            sp = sp * s
+        ox = torch.where(flat, eread(1 + 2 * DRAG_SIN_NC), ox)
+        oy = torch.where(flat, eread(2 + 2 * DRAG_SIN_NC), oy)
+        if with_blend:
+            b0 = 3 + 2 * DRAG_SIN_NC
+            bh = eread(b0)
+
+            def horner(base, x):
+                acc = torch.zeros_like(x)
+                for k in range(DRAG_SINX_MAXQ - 1, -1, -1):
+                    acc = _fma(acc, x, eread(base + k))
+                return acc
+
+            stride = 1 + DRAG_SINX_MAXQ
+            dl_ = uu - left_hi
+            dr_ = uu - right_lo
+            in_l = (uu >= left_hi - bh) & (uu <= left_hi)
+            in_r = (uu >= right_lo) & (uu <= right_lo + bh)
+            ox = torch.where(in_l, horner(b0 + 2, dl_), ox)
+            oy = torch.where(in_l, horner(b0 + 2 + stride, dl_), oy)
+            ox = torch.where(in_r, horner(b0 + 2 + 2 * stride, dr_), ox)
+            oy = torch.where(in_r, horner(b0 + 2 + 3 * stride, dr_), oy)
+        turns, resid = _carrier_parts(di, q32(0), q32(1), arg(3), arg(4))
+        sin_t, cos_t = _sincos_turns(turns, resid)
+        return ox * cos_t + oy * sin_t
+
+    def op_mollifier():
+        x = arg(1) * u()
+        xx1 = x * x - 1.0
+        inside = xx1 < 0
+        safe = torch.where(inside, xx1, -1.0)
+        bump = torch.exp(1.0 / safe + 1.0)
+        d = arg(2)
+        denom = torch.where(inside, torch.pow(-safe, 2.0 * d), 1.0)
+        poly = torch.where(d > 0, _polyval_asc(x, 3, 9), 1.0)
+        return torch.where(inside, bump / denom * poly, 0.0)
+
+    return {
+        OP_LINEAR: op_linear,
+        OP_GAUSSIAN: op_gaussian,
+        OP_ERF: op_erf,
+        OP_COS: op_cos,
+        OP_SINC: op_sinc,
+        OP_EXP: op_exp,
+        OP_LINEARCHIRP: op_linearchirp,
+        OP_EXPCHIRP: op_expchirp,
+        OP_HYPCHIRP: op_hypchirp,
+        OP_COSH: op_cosh,
+        OP_SINH: op_sinh,
+        OP_DRAG: op_drag,
+        OP_POLY_GAUSS: op_poly_gauss,
+        OP_MOLLIFIER: op_mollifier,
+        OP_INTERP: op_linear,   # reserved: never emitted
+        OP_DRAG_SIN: lambda: _drag_sin_like(False),
+        OP_DRAG_SINX: lambda: _drag_sin_like(True),
+    }
+
+
+def _raise_power(v, p):
+    """v ** p by repeated multiplication (p == 1 passes v through; a
+    negative p inverts the product), as the kernels do."""
+    ap = p.abs()
+    out = v
+    for i in range(1, int(ap.max()) if ap.numel() else 1):
+        out = torch.where(i < ap, out * v, out)
+    return torch.where(p < 0, 1.0 / out, out)
+
+
+def _factor_values(d, ff, idx, live):
+    """Factor ``ff`` (flat factor index per element) at sample ``idx``;
+    1.0 where ``live`` is False."""
+    op = torch.where(live, d.op.reshape(-1)[ff], -1)
+    out = torch.ones(idx.shape, dtype=_F32, device=idx.device)
+    args = d.args.reshape(-1)
+    q32 = d.q32.reshape(-1)
+    for code in torch.unique(op).tolist():
+        if code < 0:
+            continue
+        m = torch.nonzero(op == code).squeeze(1)
+        f = ff[m]
+        di = wrap32(idx[m] - d.shift_hi.reshape(-1)[f])
+
+        def arg(k, f=f):
+            return args[f * W_ARGS + k]
+
+        def q(j, f=f):
+            return q32[f * 4 + j].to(torch.int64)
+
+        def eread(k, arg=arg):
+            return d.ext[arg(7).to(torch.int64) + k]
+
+        v = op_builders(di, arg, q, eread)[code]()
+        out[m] = _raise_power(v, d.power.reshape(-1)[f])
+    return out
+
+
+def _segment_values(d, c, b, s, idx):
+    """``clip(sum_t amp_t * prod_f factor_f)`` of slot (c, b, s) at idx."""
+    C, NB, S, T, F = d.shape
+    row = (c * NB + b) * S + s
+    nt = d.nterm.reshape(-1)[row]
+    amp = d.amp.reshape(-1)
+    nfac = d.nfac.reshape(-1)
+    seg = torch.zeros(idx.shape, dtype=_F32, device=idx.device)
+    for t in range(T):
+        live_t = t < nt
+        if not bool(live_t.any()):
+            break
+        tf = row * T + t
+        prod = amp[tf]
+        nf = nfac[tf]
+        for f in range(F):
+            live_f = live_t & (f < nf)
+            if not bool(live_f.any()):
+                break
+            prod = prod * _factor_values(d, tf * F + f, idx, live_f)
+        seg = torch.where(live_t, seg + prod, seg)
+    cmin = d.clip[c, 0]
+    cmax = d.clip[c, 1]
+    return torch.minimum(torch.maximum(seg, cmin), cmax)
+
+
+def _accumulate(d, acc, c, b, s, a, e, dst):
+    """Add slot (c[r], b[r], s[r])'s value over samples [a[r], e[r]) into
+    ``acc[c[r], dst[r] + (idx - a[r])]``, in chunks of elements.  Within
+    one call no output element is hit twice, so the adds do not race."""
+    n_out = acc.shape[1]
+    length = e - a
+    cum = torch.cumsum(length, 0)
+    total = int(cum[-1]) if cum.numel() else 0
+    first = cum - length
+    flat = acc.view(-1)
+    for e0 in range(0, total, CHUNK):
+        el = torch.arange(e0, min(e0 + CHUNK, total), device=acc.device)
+        r = torch.searchsorted(cum, el, right=True)
+        off = el - first[r]
+        cr = c[r]
+        vals = _segment_values(d, cr, b[r], s[r], a[r] + off)
+        flat.index_add_(0, cr * n_out + dst[r] + off, vals)
+
+
+def _store(acc, out, scale):
+    """f32 stores as is; int16 as clip(round_half_even(acc * scale))."""
+    if out.dtype == torch.int16:
+        code = torch.round(acc * scale.reshape(-1, 1))
+        out.copy_(torch.clamp(code, -32768.0, 32767.0).to(torch.int16))
+    elif acc is not out:
+        out.copy_(acc)
+    return out
+
+
+def dense_walk(d, out, scale=None):
+    """Plain version of the dense kernel: fill ``out`` (C, n_samples), f32
+    or int16 (``scale`` per channel), from DeviceSchedule ``d``.
+
+    Sample i reads bucket ``min(i // bucket_samples, NB - 1)``; slots are
+    added in ascending order, so each sample sums its segments in the
+    bucket's lo-sorted order, as the kernel does."""
+    C, NB, S, T, F = d.shape
+    n = d.n_samples
+    dev = d.seg_lo.device
+    acc = (out.zero_() if out.dtype == _F32
+           else torch.zeros((C, n), dtype=_F32, device=dev))
+    cc = torch.arange(C, device=dev).repeat_interleave(NB)
+    bb = torch.arange(NB, device=dev).repeat(C)
+    if NB > 1:
+        b_lo = bb * d.bucket_samples
+        b_hi = torch.clamp(b_lo + d.bucket_samples, max=n)
+        b_hi = torch.where(bb == NB - 1, n, b_hi)
+    else:
+        b_lo = torch.zeros_like(bb)
+        b_hi = torch.full_like(bb, n)
+    for s in range(S):
+        lo = d.seg_lo[:, :, s].reshape(-1).to(torch.int64)
+        hi = d.seg_hi[:, :, s].reshape(-1).to(torch.int64)
+        nt = d.nterm[:, :, s].reshape(-1)
+        a = torch.maximum(lo, b_lo)
+        e = torch.minimum(hi, b_hi)
+        live = (nt > 0) & (e > a)
+        if not bool(live.any()):
+            continue
+        a, e = a[live], e[live]
+        _accumulate(d, acc, cc[live], bb[live], torch.full_like(a, s), a, e,
+                    a)
+    return _store(acc, out, scale)
+
+
+def panel_walk(d, work, out, scale=None):
+    """Plain version of the panel kernel: zeros everywhere, and the live
+    subtiles of ``work`` (a :class:`..ops.sparse_synth.PanelWork`) walked
+    over their own segment ranges ``[work_s0, work_s1)``.  Fills ``out``
+    (C, window_samples), f32 or int16."""
+    C, NB, S, T, F = d.shape
+    dev = d.seg_lo.device
+    window = out.shape[1]
+    acc = (out.zero_() if out.dtype == _F32
+           else torch.zeros((C, window), dtype=_F32, device=dev))
+    if work.n_live:
+        k = torch.arange(work.n_live, device=dev)
+        slot = torch.searchsorted(work.start.to(torch.int64), k,
+                                  right=True) - 1
+        c = slot // (work.n_panels * NB)
+        b = slot % NB
+        tile = work.Rs * 128
+        base = work.work_t[:work.n_live].to(torch.int64) * tile
+        obase = work.work_o[:work.n_live].to(torch.int64) * tile
+        s0 = work.work_s0[:work.n_live].to(torch.int64)
+        s1 = work.work_s1[:work.n_live].to(torch.int64)
+        # samples past the window are not stored
+        end = torch.minimum(base + tile, base + (window - obase))
+        for kk in range(int((s1 - s0).max())):
+            s = s0 + kk
+            m = s < s1
+            sm = torch.where(m, s, 0)
+            row = (c * NB + b) * S + sm
+            a = torch.maximum(d.seg_lo.reshape(-1)[row].to(torch.int64), base)
+            e = torch.minimum(d.seg_hi.reshape(-1)[row].to(torch.int64), end)
+            live = m & (d.nterm.reshape(-1)[row] > 0) & (e > a)
+            if not bool(live.any()):
+                continue
+            _accumulate(d, acc, c[live], b[live], sm[live], a[live], e[live],
+                        (obase + a - base)[live])
+    return _store(acc, out, scale)

@@ -1,0 +1,300 @@
+"""Live-subtile plans and the panel synthesis path.
+
+The plans are the JAX package's, built the same way so that they compare
+array-equal with it: :func:`build_sparse_plan` enumerates the live
+``Rs x 128`` subtiles of each (channel, bucket) on the host, and
+:func:`build_panel_plan` regroups that worklist by (channel, panel,
+bucket).  :func:`synthesize_panels` runs the panel kernel
+(``csrc/synth_panel.cu`` on a CUDA device, its plain version
+:func:`.reference.panel_walk` on the CPU): zeros everywhere, and only the
+live subtiles evaluated.
+
+The TPU kernel kept its worklist in scalar memory under a budget; a GPU
+worklist lives in global memory, so that budget is gone.  The rule that
+narrowed stores (int16) need one bucket stays: with several buckets the
+kernel accumulates straddling subtiles in the output itself.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .lowering import LoweredSchedule, UnsupportedFactor
+from .synth import DeviceSchedule, normalize_out_dtype, validate_out_mode
+
+__all__ = ['SparsePlan', 'build_sparse_plan', 'PanelPlan', 'PanelWork',
+           'build_panel_plan', 'panels_eligible', 'synthesize_panels',
+           'PANEL_OCCUPANCY_THRESHOLD']
+
+DEFAULT_SUBTILE_ROWS = 32
+
+# Route engine='auto' to the panel kernel below this padded live-subtile
+# fraction.  The JAX package's value, measured on TPU v5e; unmeasured on
+# the H100.
+PANEL_OCCUPANCY_THRESHOLD = 0.35
+
+# Panel height in rows before the exact-fit shrink (the JAX package's value,
+# so that plans compare array-equal).
+PANEL_ROWS = 4096
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+@dataclass
+class SparsePlan:
+    """Host-enumerated live-subtile worklist (see build_sparse_plan)."""
+    Rs: int                 # subtile height in output rows
+    n_tiles: int            # OUTPUT subtiles (window; excl. scratch tile)
+    work_c: np.ndarray      # i32[K] channel
+    work_b: np.ndarray      # i32[K] descriptor bucket
+    work_t: np.ndarray      # i32[K] ABSOLUTE subtile index (sample base)
+    work_o: np.ndarray      # i32[K] OUTPUT subtile index (window-relative)
+    work_s0: np.ndarray     # i32[K] first segment
+    work_s1: np.ndarray     # i32[K] one past the last segment
+    n_live: int             # un-padded worklist length
+    window_samples: int     # samples this plan's output covers
+    n_channels: int         # channels covered by the worklist
+    bucket_samples: int = 0  # descriptor bucket size the plan was built for
+
+    @property
+    def occupied_fraction(self):
+        """Live subtiles / total subtiles across all channels."""
+        return self.n_live / max(self.n_tiles * self.n_channels, 1)
+
+
+def build_sparse_plan(low: LoweredSchedule,
+                      Rs: int = DEFAULT_SUBTILE_ROWS) -> SparsePlan:
+    """Enumerate live subtiles of a lowered schedule.
+
+    For every (channel, bucket) the segment list is lo-sorted; per subtile
+    the overlapping segment range [s0, s1) comes from two searchsorted
+    calls (running max of hi, and lo), and empty subtiles are dropped.
+    """
+    C, NB, S, T, F = low.shape
+    tile = Rs * 128
+    if NB > 1 and low.bucket_samples % tile:
+        raise UnsupportedFactor(
+            f"bucket_samples {low.bucket_samples} must be a multiple of "
+            f"the sparse subtile ({tile})")
+    n_rows = -(-low.n_samples // 128)
+    n_tiles = -(-n_rows // Rs)
+
+    cs, bs, ts, s0s, s1s = [], [], [], [], []
+    for c in range(C):
+        for b in range(NB):
+            lo = low.seg_lo[c, b]
+            hi = low.seg_hi[c, b]
+            nt = low.nterm[c, b]
+            if not nt.any():
+                continue
+            hmax = np.maximum.accumulate(hi)
+            t0 = (b * low.bucket_samples) // tile if NB > 1 else 0
+            t1 = min(-(-((b + 1) * low.bucket_samples) // tile)
+                     if NB > 1 else n_tiles, n_tiles)
+            if t1 <= t0:
+                continue
+            t_idx = np.arange(t0, t1, dtype=np.int64)
+            bases = t_idx * tile
+            s0 = np.searchsorted(hmax, bases, side='right')
+            s1 = np.searchsorted(lo, bases + tile, side='left')
+            live = s1 > s0
+            if not live.any():
+                continue
+            n = int(live.sum())
+            cs.append(np.full(n, c))
+            bs.append(np.full(n, b))
+            ts.append(t_idx[live])
+            s0s.append(s0[live])
+            s1s.append(s1[live])
+
+    if cs:
+        wc = np.concatenate(cs)
+        wb = np.concatenate(bs)
+        wt = np.concatenate(ts)
+        w0 = np.concatenate(s0s)
+        w1 = np.concatenate(s1s)
+    else:
+        wc = wb = wt = w0 = w1 = np.zeros(0, np.int64)
+    n_live = len(wc)
+
+    # pad to a power of two (the JAX package's kernel-cache rule, kept so
+    # the plans compare array-equal); padding targets the scratch tile
+    K = next_pow2(n_live)
+    pad = K - n_live
+    wc = np.concatenate([wc, np.zeros(pad, np.int64)])
+    wb = np.concatenate([wb, np.zeros(pad, np.int64)])
+    wo = wt = np.concatenate([wt, np.full(pad, n_tiles)])
+    w0 = np.concatenate([w0, np.zeros(pad, np.int64)])
+    w1 = np.concatenate([w1, np.zeros(pad, np.int64)])
+    return SparsePlan(Rs=Rs, n_tiles=n_tiles,
+                      work_c=wc.astype(np.int32),
+                      work_b=wb.astype(np.int32),
+                      work_t=wt.astype(np.int32),
+                      work_o=wo.astype(np.int32),
+                      work_s0=w0.astype(np.int32),
+                      work_s1=w1.astype(np.int32),
+                      n_live=n_live,
+                      window_samples=low.n_samples,
+                      n_channels=C,
+                      bucket_samples=low.bucket_samples)
+
+
+@dataclass
+class PanelPlan:
+    """Per-(channel, panel, bucket) segmented worklist (build_panel_plan)."""
+    Rs: int                  # subtile height in output rows
+    P: int                   # panel height in output rows (multiple of Rs)
+    n_panels: int            # panels per channel (of the window)
+    start: np.ndarray        # i32[C*NP*NB + 1] worklist slice offsets
+    work_t: np.ndarray       # i32[K] ABSOLUTE subtile index (sample base)
+    work_o: np.ndarray       # i32[K] OUTPUT subtile index (window-relative)
+    work_s0: np.ndarray      # i32[K] first segment
+    work_s1: np.ndarray      # i32[K] one past the last segment
+    n_live: int
+    n_channels: int
+    n_buckets: int
+    window_samples: int
+    bucket_samples: int = 0
+
+    @property
+    def occupied_fraction(self):
+        n_tiles = self.n_panels * (self.P // self.Rs)
+        return self.n_live / max(n_tiles * self.n_channels, 1)
+
+
+def build_panel_plan(low: LoweredSchedule, Rs: int = DEFAULT_SUBTILE_ROWS,
+                     base: SparsePlan | None = None) -> PanelPlan:
+    """Re-segment the live-subtile worklist by (channel, panel, bucket).
+
+    ``base`` reuses an already-built worklist.  Panels are the smallest
+    Rs-multiple height that covers the window in ``NP`` panels."""
+    if base is None:
+        base = build_sparse_plan(low, Rs=Rs)
+    elif base.Rs != Rs:
+        raise ValueError(f"base plan has Rs={base.Rs}, expected {Rs}")
+    C, NB, S, T, F = low.shape
+    n_rows_win = base.n_tiles * Rs
+    P = max(Rs, min(PANEL_ROWS, n_rows_win))
+    P = (P // Rs) * Rs
+    NP = -(-n_rows_win // P)
+    P = max(Rs, -(-(-(-n_rows_win // NP)) // Rs) * Rs)
+    live = slice(0, base.n_live)
+    wc = base.work_c[live].astype(np.int64)
+    wb = base.work_b[live].astype(np.int64)
+    wt = base.work_t[live].astype(np.int64)
+    wo = base.work_o[live].astype(np.int64)
+    ws0 = base.work_s0[live]
+    ws1 = base.work_s1[live]
+    pidx = (wo * Rs) // P
+    slot = (wc * NP + pidx) * NB + wb
+    order = np.argsort(slot, kind='stable')
+    n_slots = C * NP * NB
+    start = np.zeros(n_slots + 1, np.int64)
+    np.add.at(start, slot + 1, 1)
+    start = np.cumsum(start)
+    K = next_pow2(base.n_live)
+    pad = K - base.n_live
+
+    def col(a, fill=0):
+        return np.concatenate(
+            [np.asarray(a)[order],
+             np.full(pad, fill, np.int64)]).astype(np.int32)
+
+    return PanelPlan(
+        Rs=Rs, P=P, n_panels=NP,
+        start=start.astype(np.int32),
+        work_t=col(wt), work_o=col(wo), work_s0=col(ws0),
+        work_s1=col(ws1),
+        n_live=base.n_live, n_channels=C, n_buckets=NB,
+        window_samples=base.window_samples,
+        bucket_samples=base.bucket_samples)
+
+
+def panels_eligible(plan: PanelPlan, out_dtype) -> bool:
+    """Narrowed stores (int16) need a single bucket: with several, the
+    kernel adds bucket-straddling subtiles into the output itself."""
+    return (plan.n_buckets == 1
+            or normalize_out_dtype(out_dtype) == torch.float32)
+
+
+@dataclass
+class PanelWork:
+    """A PanelPlan's worklist as int32 tensors on the schedule's device."""
+    Rs: int
+    P: int
+    n_panels: int
+    n_live: int
+    start: torch.Tensor
+    work_t: torch.Tensor
+    work_o: torch.Tensor
+    work_s0: torch.Tensor
+    work_s1: torch.Tensor
+
+    @classmethod
+    def upload(cls, plan: PanelPlan, device) -> 'PanelWork':
+        def put(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.int32)).to(device)
+        return cls(Rs=plan.Rs, P=plan.P, n_panels=plan.n_panels,
+                   n_live=plan.n_live, start=put(plan.start),
+                   work_t=put(plan.work_t), work_o=put(plan.work_o),
+                   work_s0=put(plan.work_s0), work_s1=put(plan.work_s1))
+
+
+def _validate_panel_plan(plan: PanelPlan, dev: DeviceSchedule) -> None:
+    """A plan from another lowering would index the wrong descriptors."""
+    C, NB, S, T, F = dev.shape
+    if plan.n_channels != C or plan.n_buckets != NB:
+        raise ValueError(
+            f"panel plan covers {plan.n_channels}x{plan.n_buckets} "
+            f"channel-buckets, schedule has {C}x{NB} -- rebuild the plan "
+            "from this schedule's lowering")
+    if plan.bucket_samples and plan.bucket_samples != dev.bucket_samples:
+        raise ValueError(
+            f"panel plan bucket_samples {plan.bucket_samples} != "
+            f"schedule's {dev.bucket_samples}")
+    if plan.window_samples > dev.n_samples:
+        raise ValueError(
+            f"panel plan window ({plan.window_samples} samples) exceeds "
+            f"the schedule ({dev.n_samples})")
+    if plan.n_live:
+        live = slice(0, plan.n_live)
+        n_rows = -(-dev.n_samples // 128)
+        n_tiles_abs = -(-n_rows // plan.Rs)
+        if (int(plan.work_s1[live].max()) > S
+                or int(plan.work_t[live].max()) >= n_tiles_abs):
+            raise ValueError(
+                "panel plan indexes outside this schedule's descriptor "
+                f"blocks (shape {dev.shape}, {n_tiles_abs} subtiles) -- "
+                "it was built from a different lowering")
+
+
+def synthesize_panels(dev: DeviceSchedule,
+                      low: LoweredSchedule | None = None,
+                      plan: PanelPlan | None = None,
+                      Rs: int = DEFAULT_SUBTILE_ROWS,
+                      out_dtype=None,
+                      dac_scale=32767.0) -> torch.Tensor:
+    """Run the panel kernel on ``dev`` -> (C, window_samples) on
+    ``dev.device`` (f32, or int16 DAC codes)."""
+    from .. import kernels
+    C = dev.shape[0]
+    dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device)
+    if plan is None:
+        if low is None:
+            raise ValueError("synthesize_panels needs `low` or `plan`")
+        plan = build_panel_plan(low, Rs=Rs)
+    _validate_panel_plan(plan, dev)
+    if not panels_eligible(plan, dt):
+        raise UnsupportedFactor(
+            "int16 panel output needs a single-bucket schedule -- use the "
+            "dense path")
+    out = torch.empty((C, plan.window_samples), dtype=dt, device=dev.device)
+    return kernels.synth_panel(dev, PanelWork.upload(plan, dev.device), out,
+                               scale)

@@ -1,0 +1,76 @@
+"""The three bench schedules of the repository, built with the port.
+
+The same constructions, seeds and widths as ``bench.py``'s
+``build_schedule``, ``build_mid_schedule`` and ``build_dense_schedule``
+(128 channels at 2 GS/s), so the port runs what the JAX package's bench
+runs without importing it.  :data:`STRATA` names each with its span.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core import zero
+from .models import chirp, cosPulse, gaussian, mixing, square
+
+__all__ = ['FS', 'build_schedule', 'build_mid_schedule',
+           'build_dense_schedule', 'STRATA']
+
+FS = 2e9
+
+
+def build_schedule(n_channels=128, seed=0):
+    """Flagship: 64 XY channels of 4 DRAG-mixed 20 ns cosPulses and 64 Z
+    channels of 3 edge-smoothed 80 ns squares, over 1 ms."""
+    rng = np.random.default_rng(seed)
+    chans = []
+    for c in range(n_channels):
+        if c % 2 == 0:
+            x = zero()
+            for _ in range(4):
+                I, _ = mixing(0.5 * cosPulse(20e-9) >> rng.uniform(0, 0.9e-3),
+                              freq=-150e6 - 2e6 * c,
+                              phase=rng.uniform(0, 2 * np.pi),
+                              DRAGScaling=1e-10)
+                x += I
+            chans.append(x)
+        else:
+            z = zero()
+            for _ in range(3):
+                z += 0.3 * (square(80e-9, edge=10e-9)
+                            >> rng.uniform(0, 0.9e-3))
+            chans.append(z)
+    return chans
+
+
+def build_dense_schedule(n_channels=128, duration=1e-3):
+    """Occupancy 1: every sample inside a chirp x gaussian."""
+    chans = []
+    for c in range(n_channels):
+        f1 = 300e6 + 1e6 * c
+        env = gaussian(3 * duration) >> (duration / 2)
+        chans.append(env * chirp(1e6, f1, duration, 0.0, 'linear'))
+    return chans
+
+
+def build_mid_schedule(n_channels=128, duration=524.288e-6, seed=2):
+    """~1% occupancy: 25 x 200 ns mixed pulses per channel."""
+    rng = np.random.default_rng(seed)
+    chans = []
+    for c in range(n_channels):
+        x = zero()
+        for _ in range(25):
+            I, _ = mixing(
+                0.5 * cosPulse(200e-9) >> rng.uniform(0, duration * 0.9),
+                freq=-150e6 - 2e6 * c, DRAGScaling=1e-10)
+            x += I
+        chans.append(x)
+    return chans
+
+
+#: stratum -> (builder, stop in seconds); every stratum starts at 0
+STRATA = {
+    'flagship': (build_schedule, 1e-3),
+    'mid': (build_mid_schedule, 524.288e-6),
+    'dense': (build_dense_schedule, 1e-3),
+}
