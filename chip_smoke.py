@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--record PATH]
 
 Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
 
 1. the card's name and power limit (nvidia-smi) and the toolchain;
-2. small schedules (4 channels, a few us; one with several buckets; one per
-   opcode): each kernel against its plain PyTorch version on the card, and
-   both against the float64 numpy oracle;
-3. the three bench strata at full size (128 channels, 2 GS/s):
-   flagship f32 and int16, mid, dense, through
-   ``waveforms_tpu_torch.synthesize(..., engine='auto', device='cuda')``,
-   with the kernel launch counts of that run;
+2. small schedules (a few channels, a few us): every kernel -- dense (K1),
+   panel (K2), worklist (K7), stack (K5) -- against its plain PyTorch
+   version on the card and on the CPU, and against the float64 numpy
+   oracle, in f32 and int16; one schedule per opcode, several buckets, the
+   stack route's vstack / overlapping-DRAG / wide-residual / clipped /
+   multi-tone DRAG / bucketed shapes with int16 quantized in the kernel and
+   after the residual, and pair mode (``part='complex'``) on K1, K2, K7;
+3. the strata at full size (128 channels, 2 GS/s), each main path through
+   ``waveforms_tpu_torch.synthesize(..., device='cuda')`` with the launch
+   counts set to 0 just before it and read just after:
+   flagship f32 and int16, mid and dense (``engine='auto'``), ladder120 f32
+   and int16 (``auto``, the stack route), flagship ``part='complex'``
+   (``auto``, the panel kernel in pair mode) and flagship f32 with
+   ``engine='cuda-sparse'`` (the worklist kernel);
 4. for each stratum: kernel against plain version over the whole output,
    the oracle on 3 channels at full length, and the kernel's and the plain
-   version's times (CUDA events, warm-up, median of 5) beside a plain
-   ``fill_`` of the same output (the store roofline the panel kernel meets).
+   version's times (CUDA events, warm-up, median of 11) beside a plain
+   ``fill_`` of the same output (the store roofline), with the host
+   layers' seconds; on ladder120 also K1 (``engine='cuda-dense'``, the
+   route the port took before the stack route) on the same schedule, and
+   on the dense stratum K1 in pair mode.
 
-Each phase prints one JSON line.  The line before the last is the kernel
+Each phase prints one JSON line (``--record PATH`` also writes them all to
+one JSON file).  The line before the last is the kernel
 summary; the last line is ``{"ok": true, "device": {...}}`` and is printed
 only when every phase passed.  Exits non-zero without a result when no
 CUDA device is visible or the port is not importable.
@@ -34,35 +45,56 @@ import time
 TOL_PLAIN = 1e-6      # kernel vs plain version, f32, of the channel's peak
 TOL_ORACLE = 2e-6     # vs the float64 oracle (the JAX suite's RTOL)
 TOL_CODES = 1         # int16 codes
-REPS = 5
+REPS = 11
+RECORDS = []
 
 
 def log(record):
+    RECORDS.append(record)
     print(json.dumps(record), flush=True)
 
 
 def rel_err(a, b):
-    """Max over channels of max|a - b| / max|b| (per-channel peak)."""
+    """Max over channels of max|a - b| / max|b| (per-channel peak; complex
+    values by modulus)."""
     import numpy as np
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
+    a = np.asarray(a)
+    b = np.asarray(b)
+    dt = np.complex128 if np.iscomplexobj(a) or np.iscomplexobj(b) \
+        else np.float64
+    a = a.astype(dt)
+    b = b.astype(dt)
     peak = np.maximum(np.abs(b).max(axis=-1), 1e-30)
     return float((np.abs(a - b).max(axis=-1) / peak).max())
 
 
 def rel_err_t(a, b):
     """rel_err on the card (full-size outputs stay there)."""
-    a = a.double()
-    b = b.double()
+    import torch
+    dt = torch.complex128 if a.is_complex() else torch.float64
+    a = a.to(dt)
+    b = b.to(dt)
     peak = b.abs().amax(dim=-1).clamp_min(1e-30)
     return float(((a - b).abs().amax(dim=-1) / peak).max())
 
 
-def cuda_ms(fn, reps=REPS):
-    """Median device time of fn over reps runs, after one warm-up."""
+def code_err(a, b):
+    import numpy as np
+    return int(np.abs(np.asarray(a).astype(int) - np.asarray(b)).max())
+
+
+def cuda_ms(fn, reps=REPS, warm_s=0.05):
+    """Median device time of fn over reps runs, after warming up for at
+    least ``warm_s`` seconds: the card lowers its clocks while the host
+    works alone (the oracle, the plain versions' set-up), and a 0.2 ms
+    kernel timed right after that reads up to 1.5x slow."""
     import torch
-    fn()
-    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= warm_s:
+            break
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -128,6 +160,66 @@ def small_cases():
     ]
 
 
+def stack_cases():
+    """(name, channels, stop, bucket_samples): the stack route's shapes of
+    tests/test_stack_synth.py, at 2 GS/s from 0."""
+    import numpy as np
+
+    from waveforms_tpu_torch import (WaveVStack, cos, cosPulse, cut, drag,
+                                     drag_sin, gaussian, zero)
+    rng = np.random.default_rng(7)
+    vstack = WaveVStack([(0.5 * cosPulse(50e-9) >> o)
+                         for o in rng.uniform(0, 9e-6, 200)])
+    overlap = zero()
+    for _ in range(40):
+        overlap += drag(100e6, 300e-9, plateau=200e-9, delta=2e6,
+                        block_freq=None, phase=rng.uniform(0, 6),
+                        t0=0.0) >> rng.uniform(0, 0.6e-6)
+    carrier = 0.1 * cos(2 * np.pi * 150e6) + 0.05
+    for _ in range(30):
+        carrier += 0.4 * (cosPulse(40e-9) >> rng.uniform(0, 7e-6))
+    pulses = zero()
+    for _ in range(80):
+        pulses += 0.3 * (cosPulse(40e-9) >> rng.uniform(0, 7e-6))
+    ds = zero()
+    p = drag_sin(5e9, 20e-9, plateau=10e-9, delta=1e6)
+    for _ in range(70):
+        ds += p >> rng.uniform(0, 7e-6)
+    return [
+        ('vstack', [vstack, vstack >> 1e-7], 10e-6, 'auto'),
+        ('overlap_drag', [overlap], 1.1e-6, 'auto'),
+        ('mixed_wide', [carrier, gaussian(7e-6) >> 3.5e-6], 8.192e-6,
+         'auto'),
+        ('clipped', [cut(2.0 * (gaussian(2e-6) >> 4e-6), max=1.2), pulses],
+         8.192e-6, 'auto'),
+        ('multitone_drag', [ds], 8.192e-6, 'auto'),
+        ('bucketed', [vstack], 8.192e-6, 2048),
+    ]
+
+
+def pair_cases():
+    """(name, channels, start, stop, bucket_samples): complex schedules for
+    pair mode (tests/test_pallas_synth.py and test_sparse_synth.py)."""
+    import numpy as np
+
+    from waveforms_tpu_torch import cos, cosPulse, gaussian, mixing, zero
+    I, Q = mixing(0.5 * cosPulse(50e-9), freq=-80e6, DRAGScaling=1e-10)
+    fused = [(1 + 0.5j) * gaussian(2e-7) * cos(2 * np.pi * 150e6),
+             I + 1j * Q]
+    rng = np.random.default_rng(3)
+    iq = []
+    for c in range(4):
+        x = zero()
+        for _ in range(6):
+            x += ((0.4 + 0.6j) * gaussian(3e-8)
+                  * cos(2 * np.pi * (5e7 + 1e6 * c))
+                  >> float(rng.uniform(1e-7, 8e-6)))
+        iq.append(x)
+    return [('pair_fused', fused, -1e-7, 1e-7, 'auto'),
+            ('pair_pulses', iq, 0.0, 8.192e-6, 'auto'),
+            ('pair_two_buckets', iq, 0.0, 8.192e-6, 4096)]
+
+
 def exotic_chirp_schedule():
     """A lowered schedule whose factors are OP_EXPCHIRP and OP_HYPCHIRP.
 
@@ -150,6 +242,49 @@ def exotic_chirp_schedule():
     return low
 
 
+def walk_kernel(route):
+    from waveforms_tpu_torch import kernels
+    return {'dense': kernels.synth_dense, 'panel': kernels.synth_panel,
+            'sparse': kernels.synth_sparse}[route]
+
+
+def walk_args(route, dev, plans):
+    """The wrapper's leading arguments for a descriptor-walk route."""
+    from waveforms_tpu_torch.ops.sparse_synth import PanelWork, SparseWork
+    if route == 'dense':
+        return (dev,)
+    if route == 'panel':
+        return (dev, PanelWork.upload(plans['panel'], dev.device))
+    return (dev, SparseWork.upload(plans['sparse'], dev.device))
+
+
+def walk_out(route, dev, plans, dtype):
+    """A fresh output for a walk route (zeroed: the worklist kernel's
+    background)."""
+    import torch
+    C = dev.shape[0]
+    n = (dev.n_samples if route == 'dense'
+         else plans[route].window_samples)
+    return torch.zeros((C, n), dtype=dtype, device=dev.device)
+
+
+def run_walk(route, devs, plans, dtype, scale):
+    """(kernel on the card, plain version on the card, plain version on the
+    CPU) for one descriptor-walk route and output type."""
+    import torch
+    kern = walk_kernel(route)
+    outs = []
+    for device in ('cuda', 'cpu', 'cuda'):
+        d = devs[device]
+        sc = None if scale is None else scale.to(device)
+        out = walk_out(route, d, plans, dtype)
+        fn = kern if len(outs) == 0 else kern.plain
+        outs.append(fn(*walk_args(route, d, plans), out, sc))
+    torch.cuda.synchronize()
+    k, pc, p = (o.cpu().numpy() for o in outs)
+    return k, p, pc
+
+
 def check_small(fail):
     """Phase 2: every kernel against its plain version and the oracle."""
     import numpy as np
@@ -158,53 +293,33 @@ def check_small(fail):
     from waveforms_tpu_torch import kernels, synthesize
     from waveforms_tpu_torch.engine import _quantize_host
     from waveforms_tpu_torch.ops.lowering import lower_schedule
-    from waveforms_tpu_torch.ops.sparse_synth import PanelWork, \
-        build_panel_plan
+    from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
+                                                      build_sparse_plan)
+    from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
+                                                     build_stack_tables,
+                                                     synthesize_stack)
     from waveforms_tpu_torch.ops.synth import DeviceSchedule
 
-    def run_pair(devs, plan, route, dtype, scale):
-        """(kernel on the card, plain version on the card, plain version
-        on the CPU) for one route and output type."""
-        dev = devs['cuda']
-        C = dev.shape[0]
-        n = dev.n_samples if route == 'dense' else plan.window_samples
-        outs = []
-        for device in ('cuda', 'cpu'):
-            d = devs[device]
-            sc = None if scale is None else scale.to(device)
-            out = torch.empty((C, n), dtype=dtype, device=device)
-            if route == 'dense':
-                outs.append(kernels.synth_dense(d, out, sc))
-            else:
-                outs.append(kernels.synth_panel(
-                    d, PanelWork.upload(plan, device), out, sc))
-        torch.cuda.synchronize()
-        # the plain version on the card too, on the same tensors
-        out = torch.empty_like(outs[0])
-        sc = None if scale is None else scale.to('cuda')
-        if route == 'dense':
-            kernels.synth_dense.plain(dev, out, sc)
-        else:
-            kernels.synth_panel.plain(dev, PanelWork.upload(plan, 'cuda'),
-                                      out, sc)
-        return outs[0].cpu().numpy(), out.cpu().numpy(), outs[1].numpy()
+    def plans_of(low):
+        return {'panel': build_panel_plan(low),
+                'sparse': build_sparse_plan(low)}
 
     for name, chans, start, stop, fs, bs, tol, tol_plain in small_cases():
         low = lower_schedule(chans, start, stop, fs, bucket_samples=bs)
         devs = {d: DeviceSchedule(low, d) for d in ('cuda', 'cpu')}
         ora = synthesize(chans, start, stop, fs, engine='numpy')
-        plan = build_panel_plan(low)
+        plans = plans_of(low)
         rec = {'phase': 'small', 'case': name, 'shape': list(low.shape),
                'ops': sorted(int(o) for o in np.unique(
                    low.op[np.arange(low.shape[4]) < low.nfac[..., None]]))}
-        for route in ('dense', 'panel'):
+        for route in ('dense', 'panel', 'sparse'):
             for dtype in (torch.float32, torch.int16):
                 if dtype == torch.int16 and (route == 'panel'
                                              and low.shape[1] > 1):
                     continue
                 scale = (None if dtype == torch.float32 else
                          torch.full((low.shape[0],), 30000.0))
-                k, p, pc = run_pair(devs, plan, route, dtype, scale)
+                k, p, pc = run_walk(route, devs, plans, dtype, scale)
                 key = f"{route}_{'f32' if scale is None else 'i16'}"
                 if scale is None:
                     e_plain = rel_err(k, p)
@@ -214,9 +329,9 @@ def check_small(fail):
                           and e_ora <= tol)
                 else:
                     codes = _quantize_host(ora, np.int16, 30000.0)
-                    e_plain = int(np.abs(k.astype(int) - p).max())
-                    e_cpu = int(np.abs(pc.astype(int) - p).max())
-                    e_ora = int(np.abs(k.astype(int) - codes).max())
+                    e_plain = code_err(k, p)
+                    e_cpu = code_err(pc, p)
+                    e_ora = code_err(k, codes)
                     ok = max(e_plain, e_cpu, e_ora) <= TOL_CODES
                 rec[key] = {'vs_plain': e_plain, 'cpu_vs_card_plain': e_cpu,
                             'vs_oracle': e_ora, 'ok': ok}
@@ -226,10 +341,10 @@ def check_small(fail):
 
     low = exotic_chirp_schedule()
     devs = {d: DeviceSchedule(low, d) for d in ('cuda', 'cpu')}
-    plan = build_panel_plan(low)
+    plans = plans_of(low)
     rec = {'phase': 'small', 'case': 'expchirp_hypchirp', 'ops': [7, 8]}
-    for route in ('dense', 'panel'):
-        k, p, pc = run_pair(devs, plan, route, torch.float32, None)
+    for route in ('dense', 'panel', 'sparse'):
+        k, p, pc = run_walk(route, devs, plans, torch.float32, None)
         e = rel_err(k, p)
         ok = (e <= TOL_PLAIN and rel_err(pc, p) <= TOL_PLAIN
               and np.isfinite(k).all())
@@ -237,6 +352,95 @@ def check_small(fail):
         if not ok:
             fail.append(f"small expchirp_hypchirp {route}")
     log(rec)
+
+    # pair mode on the three descriptor walks: complex64 out
+    for name, chans, start, stop, bs in pair_cases():
+        low = lower_schedule(chans, start, stop, 2e9, part='complex',
+                             bucket_samples=bs)
+        devs = {d: DeviceSchedule(low, d) for d in ('cuda', 'cpu')}
+        ora = synthesize(chans, start, stop, 2e9, engine='numpy',
+                         part='complex')
+        plans = plans_of(low)
+        rec = {'phase': 'small_pair', 'case': name, 'shape': list(low.shape)}
+        for route in ('dense', 'panel', 'sparse'):
+            k, p, pc = run_walk(route, devs, plans, torch.complex64, None)
+            e_plain, e_cpu, e_ora = rel_err(k, p), rel_err(pc, p), \
+                rel_err(k, ora)
+            ok = bool(k.dtype == np.complex64 and e_plain <= TOL_PLAIN
+                      and e_cpu <= TOL_PLAIN and e_ora <= TOL_ORACLE)
+            rec[f'{route}_c64'] = {'vs_plain': e_plain,
+                                   'cpu_vs_card_plain': e_cpu,
+                                   'vs_oracle': e_ora, 'ok': ok}
+            if not ok:
+                fail.append(f"small_pair {name} {route}")
+        log(rec)
+
+    # the stack route: K5 (and K1 on the wide residual) in f32 and int16
+    for name, chans, stop, bs in stack_cases():
+        low = lower_schedule(chans, 0.0, stop, 2e9, bucket_samples=bs)
+        plan = build_stack_plan(low)
+        ora = synthesize(chans, 0.0, stop, 2e9, engine='numpy')
+        rec = {'phase': 'small_stack', 'case': name, 'shape': list(low.shape),
+               'n_narrow': plan.n_narrow, 'groups': len(plan.groups),
+               'blocks': plan.n_blocks_total,
+               'wide_residual': plan.wide is not None,
+               'pallas_ok': bool(low.pallas_ok)}
+        # K5 alone against its plain version on the card, on one table
+        t = build_stack_tables(plan, low, 'cuda')
+        kn = kernels.synth_stack(t, torch.empty((low.shape[0], low.n_samples),
+                                                device='cuda'), None)
+        pn = kernels.synth_stack.plain(t, torch.empty_like(kn), None)
+        rec['k5_vs_card_plain'] = rel_err(kn.cpu().numpy(),
+                                          pn.cpu().numpy())
+        ok_k5 = rec['k5_vs_card_plain'] <= TOL_PLAIN
+        # the whole route (K5 + K1 on the residual) against the CPU plain
+        # versions and the oracle
+        for dtype in (torch.float32, torch.int16):
+            kw = {} if dtype == torch.float32 else {
+                'out_dtype': torch.int16, 'dac_scale': 30000.0}
+            k = synthesize_stack(low, plan, device='cuda', **kw).cpu().numpy()
+            pc = synthesize_stack(low, plan, device='cpu', **kw).numpy()
+            if dtype == torch.float32:
+                e_plain, e_ora = rel_err(k, pc), rel_err(k, ora)
+                ok = (ok_k5 and e_plain <= TOL_PLAIN
+                      and e_ora <= TOL_ORACLE)
+                rec['f32'] = {'vs_plain': e_plain, 'vs_oracle': e_ora,
+                              'ok': ok}
+            else:
+                codes = _quantize_host(ora, np.int16, 30000.0)
+                e_plain, e_ora = code_err(k, pc), code_err(k, codes)
+                ok = bool(k.dtype == np.int16
+                          and max(e_plain, e_ora) <= TOL_CODES)
+                rec['i16'] = {'quantized': ('kernel' if plan.wide is None
+                                            else 'epilogue'),
+                              'vs_plain': e_plain, 'vs_oracle': e_ora,
+                              'ok': ok}
+            if not ok:
+                fail.append(f"small_stack {name} {dtype}")
+        log(rec)
+
+
+# (stratum, part, engine, dtype, expected route, kernels that must launch)
+CELLS = [
+    ('flagship', 'real', 'auto', 'float32', 'panel', ('synth_panel',)),
+    ('flagship', 'real', 'auto', 'int16', 'panel', ('synth_panel',)),
+    ('mid', 'real', 'auto', 'float32', 'panel', ('synth_panel',)),
+    ('dense', 'real', 'auto', 'float32', 'dense', ('synth_dense',)),
+    ('ladder120', 'real', 'auto', 'float32', 'stack', ('synth_stack',)),
+    ('ladder120', 'real', 'auto', 'int16', 'stack', ('synth_stack',)),
+    ('flagship', 'complex', 'auto', 'float32', 'panel', ('synth_panel',)),
+    ('flagship', 'real', 'cuda-sparse', 'float32', 'sparse',
+     ('synth_sparse',)),
+]
+# each kernel's time is taken at its own stratum
+KERNEL_CELL = {'synth_panel': 0, 'synth_dense': 3, 'synth_stack': 4,
+               'synth_sparse': 7}
+
+
+def cell_name(cell):
+    stratum, part, engine, dtype = cell[:4]
+    return '_'.join([stratum, dtype] + ([part] if part != 'real' else [])
+                    + ([engine] if engine != 'auto' else []))
 
 
 def run_strata(fail):
@@ -246,67 +450,94 @@ def run_strata(fail):
 
     import waveforms_tpu_torch as wt
     from waveforms_tpu_torch import kernels
-    from waveforms_tpu_torch.engine import _quantize_host, classify_route
+    from waveforms_tpu_torch.engine import _FORCE, _quantize_host, \
+        classify_route
     from waveforms_tpu_torch.ops.lowering import lower_schedule
-    from waveforms_tpu_torch.ops.sparse_synth import PanelWork
+    from waveforms_tpu_torch.ops.stack_synth import build_stack_tables
     from waveforms_tpu_torch.ops.synth import DeviceSchedule
     from waveforms_tpu_torch.schedules import FS, STRATA
 
-    cells = [('flagship', torch.float32), ('flagship', torch.int16),
-             ('mid', torch.float32), ('dense', torch.float32)]
-    expect = {'flagship': 'panel', 'mid': 'panel', 'dense': 'dense'}
     chans = {name: STRATA[name][0]() for name in STRATA}
+    dtypes = {'float32': torch.float32, 'int16': torch.int16}
 
-    # the main path, through the public entry point; counts from this run
-    kernels.reset_launch_counts()
-    outs = {}
-    walls = {}
-    for name, dtype in cells:
+    # the main paths, through the public entry point; each cell's counts are
+    # set to 0 just before it and read just after
+    outs, walls, counts = {}, {}, {}
+    for cell in CELLS:
+        stratum, part, engine, dtype, _, must = cell
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        outs[name, dtype] = wt.synthesize(chans[name], 0.0, STRATA[name][1],
-                                          FS, engine='auto', device='cuda',
-                                          out_dtype=dtype, dac_scale=32767.0)
+        outs[cell] = wt.synthesize(chans[stratum], 0.0, STRATA[stratum][1],
+                                   FS, engine=engine, part=part,
+                                   out_dtype=dtypes[dtype],
+                                   dac_scale=32767.0, device='cuda')
         torch.cuda.synchronize()
-        walls[name, dtype] = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    log({'phase': 'main_path', 'launches': counts,
-         'wall_s': {f'{n}_{str(d)[6:]}': w for (n, d), w in walls.items()}})
+        walls[cell] = time.perf_counter() - t0
+        counts[cell] = kernels.launch_counts()
+        for k in must:
+            if counts[cell][k] == 0:
+                fail.append(f"{k} never launched on main path "
+                            f"{cell_name(cell)}")
+    log({'phase': 'main_path',
+         'launches': {cell_name(c): counts[c] for c in CELLS},
+         'wall_s': {cell_name(c): walls[c] for c in CELLS}})
+    total = {k.name: sum(counts[c][k.name] for c in CELLS)
+             for k in kernels.KERNELS}
     for k in kernels.KERNELS:
-        if counts[k.name] == 0:
-            fail.append(f"{k.name} never launched on the main path")
+        if total[k.name] == 0:
+            fail.append(f"{k.name} never launched on the main paths")
 
     summary = {k.name: {'name': k.name, 'route': 'cuda', 'source': k.source,
-                        'replaces': k.replaces, 'launches': counts[k.name],
+                        'replaces': k.replaces, 'launches': total[k.name],
                         'max_abs_err': 0.0, 'ms': None, 'plain_ms': None}
                for k in kernels.KERNELS}
-    for name, dtype in cells:
-        stop = STRATA[name][1]
-        # the host layers of the same path, timed one by one
-        t0 = time.perf_counter()
-        low = lower_schedule(chans[name], 0.0, stop, FS)
+    lowered = {}
+    for i, cell in enumerate(CELLS):
+        stratum, part, engine, dname, expect, _ = cell
+        dtype = dtypes[dname]
+        stop = STRATA[stratum][1]
+        # the host layers of the same path, timed one by one; each stratum
+        # is lowered once and reused across its output types
+        rec_host = {}
+        if (stratum, part) not in lowered:
+            t0 = time.perf_counter()
+            low = lower_schedule(chans[stratum], 0.0, stop, FS, part=part)
+            lowered[stratum, part] = (low, time.perf_counter() - t0)
+        low, rec_host['lower'] = lowered[stratum, part]
         t1 = time.perf_counter()
-        kind, plan = classify_route(low, out_dtype=dtype)
+        kind, plan = classify_route(low, force=_FORCE.get(engine),
+                                    out_dtype=dtype)
+        rec_host['route_and_plan'] = time.perf_counter() - t1
         t2 = time.perf_counter()
-        dev = DeviceSchedule(low, 'cuda')
+        if kind == 'stack':
+            kern = kernels.synth_stack
+            args = (build_stack_tables(plan, low, 'cuda'),)
+        else:
+            dev = DeviceSchedule(low, 'cuda')
+            kern = walk_kernel(kind)
+            args = walk_args(kind, dev, {kind: plan})
         torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        out = outs[name, dtype]
+        rec_host['upload'] = time.perf_counter() - t2
+        rec_host['synthesize_wall'] = walls[cell]
+        out = outs.pop(cell)
         C, n = out.shape
         i16 = dtype == torch.int16
         scale = torch.full((C,), 32767.0, device='cuda') if i16 else None
-        kern = kernels.synth_panel if kind == 'panel' else kernels.synth_dense
-        args = ((dev, PanelWork.upload(plan, 'cuda')) if kind == 'panel'
-                else (dev,))
-        plain_out = torch.empty_like(out)
+        plain_out = torch.zeros_like(out)
         kern.plain(*args, plain_out, scale)
         torch.cuda.synchronize()
-        rec = {'phase': 'stratum', 'stratum': name, 'dtype': str(dtype)[6:],
+        rec = {'phase': 'stratum', 'stratum': stratum, 'cell': cell_name(cell),
+               'part': part, 'engine': engine, 'dtype': dname,
                'shape': list(low.shape), 'samples': [C, n], 'route': kind,
-               'route_ok': kind == expect[name],
-               'host_s': {'lower': t1 - t0, 'route_and_plan': t2 - t1,
-                          'upload': t3 - t2,
-                          'synthesize_wall': walls[name, dtype]},
-               'finite': bool(torch.isfinite(out.float()).all())}
+               'route_ok': kind == expect, 'out_dtype': str(out.dtype)[6:],
+               'launches': counts[cell], 'host_s': rec_host,
+               'finite': bool(torch.isfinite(
+                   torch.view_as_real(out) if out.is_complex()
+                   else out.float()).all())}
+        if kind == 'stack':
+            rec.update(n_narrow=plan.n_narrow, blocks=plan.n_blocks_total,
+                       advantage=plan.advantage,
+                       wide_residual=plan.wide is not None)
         if i16:
             rec['vs_plain_codes'] = int(
                 (out.int() - plain_out.int()).abs().max())
@@ -315,51 +546,109 @@ def run_strata(fail):
             rec['vs_plain'] = rel_err_t(out, plain_out)
             abs_err = float((out - plain_out).abs().max())
             rec['vs_plain_abs'] = abs_err
-            summary[kern.name]['max_abs_err'] = max(
-                summary[kern.name]['max_abs_err'], abs_err)
+            if i == KERNEL_CELL[kern.name]:
+                summary[kern.name]['max_abs_err'] = abs_err
             ok_plain = rec['vs_plain'] <= TOL_PLAIN
         del plain_out
         sel = [0, 1, C - 1]
-        t = np.arange(0.0, stop, 1 / FS)
-        ora = np.stack([np.asarray(chans[name][c](t)) for c in sel])
+        ora = wt.synthesize([chans[stratum][c] for c in sel], 0.0, stop, FS,
+                            engine='numpy', part=part)
         got = out[sel].cpu().numpy()
         if i16:
-            rec['vs_oracle_codes'] = int(np.abs(
-                got.astype(int) - _quantize_host(ora, np.int16, 32767.0)
-            ).max())
+            rec['vs_oracle_codes'] = code_err(
+                got, _quantize_host(ora, np.int16, 32767.0))
             ok_ora = rec['vs_oracle_codes'] <= TOL_CODES
         else:
             rec['vs_oracle'] = rel_err(got, ora)
             ok_ora = rec['vs_oracle'] <= TOL_ORACLE
 
-        scratch = torch.empty_like(out)
+        # the worklist kernel stores into a zeroed output: time it alone on
+        # one (its stores are idempotent) and with the zero fill, the path
+        scratch = torch.zeros_like(out)
         rec['kernel_ms'] = cuda_ms(lambda: kern(*args, scratch, scale))
         rec['plain_ms'] = cuda_ms(lambda: kern.plain(*args, scratch, scale))
         rec['fill_ms'] = cuda_ms(lambda: scratch.fill_(0))
-        del scratch
+        path_ms = rec['kernel_ms']
+        if kind == 'sparse':
+            rec['path_ms'] = path_ms = cuda_ms(
+                lambda: kern(*args, scratch.zero_(), scale))
         rec['kernel_gsps'] = C * n / rec['kernel_ms'] / 1e6
         rec['plain_gsps'] = C * n / rec['plain_ms'] / 1e6
         nbytes = out.numel() * out.element_size()
-        rec['store_gbps'] = nbytes / rec['kernel_ms'] / 1e6
+        rec['store_gbps'] = nbytes / path_ms / 1e6
         rec['fill_gbps'] = nbytes / rec['fill_ms'] / 1e6
-        rec['store_share'] = rec['fill_ms'] / rec['kernel_ms']
+        rec['store_share'] = rec['fill_ms'] / path_ms
+        if cell_name(cell) == 'ladder120_float32':
+            # K1 on the same schedule: the route the port took before the
+            # stack route (engine='cuda-dense')
+            dev = DeviceSchedule(low, 'cuda')
+            dense = kernels.synth_dense(dev, torch.empty_like(out), None)
+            rec['dense_vs_stack'] = rel_err_t(dense, out)
+            rec['dense_kernel_ms'] = cuda_ms(
+                lambda: kernels.synth_dense(dev, scratch, None))
+            rec['stack_speedup_vs_dense'] = (rec['dense_kernel_ms']
+                                             / rec['kernel_ms'])
+            del dense, dev
+            ok_plain = ok_plain and rec['dense_vs_stack'] <= TOL_PLAIN
+        del scratch
+        if cell_name(cell) == 'dense_float32':
+            rec['pair'] = dense_pair(fail)
         rec['ok'] = bool(rec['route_ok'] and rec['finite'] and ok_plain
                          and ok_ora)
         log(rec)
         if not rec['ok']:
-            fail.append(f"stratum {name} {rec['dtype']}")
-        # each kernel's time is taken at its main-path stratum
-        if (name, dtype) in (('flagship', torch.float32),
-                             ('dense', torch.float32)):
+            fail.append(f"stratum {cell_name(cell)}")
+        if i == KERNEL_CELL[kern.name]:
             summary[kern.name]['ms'] = rec['kernel_ms']
             summary[kern.name]['plain_ms'] = rec['plain_ms']
         del out
-        outs.pop((name, dtype))
         torch.cuda.empty_cache()
     return list(summary.values())
 
 
+def dense_pair(fail):
+    """K1 in pair mode on the dense stratum (part='complex'): kernel vs
+    plain version, oracle on 3 channels, times."""
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.synth import DeviceSchedule
+    from waveforms_tpu_torch.schedules import FS, STRATA
+
+    builder, stop = STRATA['dense']
+    chans = builder()
+    dev = DeviceSchedule(lower_schedule(chans, 0.0, stop, FS,
+                                        part='complex'), 'cuda')
+    C, n = dev.shape[0], dev.n_samples
+    out = torch.empty((C, n), dtype=torch.complex64, device='cuda')
+    plain = torch.empty_like(out)
+    kernels.synth_dense(dev, out, None)
+    kernels.synth_dense.plain(dev, plain, None)
+    sel = [0, 1, C - 1]
+    ora = wt.synthesize([chans[c] for c in sel], 0.0, stop, FS,
+                        engine='numpy', part='complex')
+    rec = {'vs_plain': rel_err_t(out, plain),
+           'vs_oracle': rel_err(out[sel].cpu().numpy(), ora)}
+    del plain
+    rec['kernel_ms'] = cuda_ms(lambda: kernels.synth_dense(dev, out, None))
+    rec['plain_ms'] = cuda_ms(
+        lambda: kernels.synth_dense.plain(dev, out, None))
+    rec['fill_ms'] = cuda_ms(lambda: out.fill_(0))
+    rec['ok'] = bool(rec['vs_plain'] <= TOL_PLAIN
+                     and rec['vs_oracle'] <= TOL_ORACLE)
+    if not rec['ok']:
+        fail.append("dense pair mode")
+    return rec
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--record', help="write every phase's record to this "
+                    "JSON file")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -409,6 +698,7 @@ def main():
 
     summary = None
     for phase in (check_small, run_strata):
+        t0 = time.perf_counter()
         try:
             res = phase(fail)
             if phase is run_strata:
@@ -418,7 +708,14 @@ def main():
             log({'phase': phase.__name__, 'ok': False,
                  'error': traceback.format_exc()[-4000:]})
             fail.append(f"{phase.__name__}: {exc!r}")
+        log({'phase': f'{phase.__name__}_done',
+             'seconds': time.perf_counter() - t0})
 
+    if args.record:
+        os.makedirs(os.path.dirname(os.path.abspath(args.record)),
+                    exist_ok=True)
+        with open(args.record, 'w') as f:
+            json.dump(RECORDS, f, indent=1)
     if fail or summary is None:
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
         return 1

@@ -9,7 +9,9 @@ also runs where only PyTorch is installed:
 Inputs come from the port's own constructors with fixed seeds.  Each kernel
 is held to its plain PyTorch version on the CPU (which the other
 test_torch_* files hold to the JAX kernels) within 1e-6 of each channel's
-peak, and int16 codes to exactly the kernel's own f32 output quantized.
+peak (pair mode: of each plane's peak), and int16 codes to exactly the
+kernel's own f32 output quantized, or within one code of the plain
+version's.
 """
 
 import numpy as np
@@ -21,7 +23,11 @@ from waveforms_tpu_torch import kernels
 from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
                                               lower_schedule)
 from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
-                                                  synthesize_panels)
+                                                  build_sparse_plan,
+                                                  synthesize_panels,
+                                                  synthesize_sparse)
+from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
+                                                 synthesize_stack)
 from waveforms_tpu_torch.ops.synth import DeviceSchedule, synthesize_device
 
 pytestmark = pytest.mark.cuda
@@ -141,7 +147,8 @@ def test_slice_goes_through_the_kernels(card):
     got = wt.synthesize(chans, start, stop, fs, device='cuda')
     dense = wt.synthesize(chans, start, stop, fs, device='cuda',
                           engine='cuda-dense')
-    assert kernels.launch_counts() == {'synth_dense': 1, 'synth_panel': 1}
+    assert kernels.launch_counts() == {'synth_dense': 1, 'synth_panel': 1,
+                                       'synth_sparse': 0, 'synth_stack': 0}
     plain = wt.synthesize(chans, start, stop, fs, device='cpu')
     assert rel(got.cpu(), plain) <= TOL
     assert rel(dense.cpu(), plain) <= TOL
@@ -155,3 +162,117 @@ def test_wrapper_refuses_mixed_devices(card):
         kernels.synth_dense(dev, out, None)
     with pytest.raises(ValueError, match='shape'):
         kernels.synth_dense(DeviceSchedule(low, card), out[:, 1:], None)
+
+
+def _stack_cases():
+    """Stack-route schedules (tests/test_stack_synth.py's shapes, cut to
+    a few channels): pure vstack, narrow pulses over a wide carrier (K1
+    residual), a clipped channel, multi-tone DRAG (ext), several buckets."""
+    rng = np.random.default_rng(5)
+    vstack = wt.WaveVStack([(0.5 * wt.cosPulse(50e-9) >> o)
+                            for o in rng.uniform(0, 7e-6, 150)])
+    carrier = 0.1 * wt.cos(2 * np.pi * 150e6) + 0.05
+    for _ in range(30):
+        carrier += 0.4 * (wt.cosPulse(40e-9) >> rng.uniform(0, 7e-6))
+    pulses = wt.zero()
+    for _ in range(80):
+        pulses += 0.3 * (wt.cosPulse(40e-9) >> rng.uniform(0, 7e-6))
+    ds = wt.zero()
+    p = wt.drag_sin(5e9, 20e-9, plateau=10e-9, delta=1e6)
+    for _ in range(70):
+        ds += p >> rng.uniform(0, 7e-6)
+    return {
+        'vstack': ([vstack, vstack >> 1e-7], 'auto'),
+        'mixed_wide': ([carrier, wt.gaussian(7e-6) >> 3.5e-6], 'auto'),
+        'clipped': ([wt.cut(2.0 * (wt.gaussian(2e-6) >> 4e-6), max=1.2),
+                     pulses], 'auto'),
+        'multitone_drag': ([ds], 'auto'),
+        'bucketed': ([vstack], 4096),
+    }
+
+
+def _stack_lowered(case):
+    chans, bs = _stack_cases()[case]
+    low = lower_schedule(chans, 0.0, 8.192e-6, 2e9, bucket_samples=bs)
+    return low, build_stack_plan(low)
+
+
+@pytest.mark.parametrize('case', list(_stack_cases()))
+def test_stack_kernel_matches_plain(card, case):
+    low, plan = _stack_lowered(case)
+    assert plan is not None
+    n = kernels.synth_stack.launches
+    got = synthesize_stack(low, plan, device=card)
+    torch.cuda.synchronize()
+    assert kernels.synth_stack.launches == n + 1
+    plain = synthesize_stack(low, plan, device='cpu')
+    assert rel(got.cpu(), plain) <= TOL
+
+
+@pytest.mark.parametrize('case', ['vstack', 'mixed_wide'])
+def test_stack_int16_in_kernel_and_epilogue(card, case):
+    """Without a residual the kernel stores the codes itself; with one the
+    f32 sum is quantized after it.  Codes equal the kernel's own f32 output
+    quantized, and are within one code of the plain version's."""
+    low, plan = _stack_lowered(case)
+    assert (plan.wide is None) == (case == 'vstack')
+    f32 = synthesize_stack(low, plan, device=card)
+    codes = synthesize_stack(low, plan, out_dtype=torch.int16,
+                             dac_scale=30000.0, device=card)
+    expected = torch.clamp(torch.round(f32 * 30000.0), -32768, 32767)
+    assert codes.dtype == torch.int16
+    assert torch.equal(codes, expected.to(torch.int16))
+    plain = synthesize_stack(low, plan, out_dtype=torch.int16,
+                             dac_scale=30000.0, device='cpu')
+    assert (codes.cpu().int() - plain.int()).abs().max() <= 1
+
+
+@pytest.mark.parametrize('case', list(_cases()))
+def test_sparse_kernel_matches_plain(card, case):
+    low = _lowered(case)
+    plan = build_sparse_plan(low)
+    n = kernels.synth_sparse.launches
+    got = synthesize_sparse(DeviceSchedule(low, card), plan=plan)
+    torch.cuda.synchronize()
+    assert kernels.synth_sparse.launches == n + 1
+    plain = synthesize_sparse(DeviceSchedule(low, 'cpu'), plan=plan)
+    assert rel(got.cpu(), plain) <= TOL
+    codes = synthesize_sparse(DeviceSchedule(low, card), plan=plan,
+                              out_dtype=torch.int16, dac_scale=30000.0)
+    expected = torch.clamp(torch.round(got * 30000.0), -32768, 32767)
+    assert torch.equal(codes, expected.to(torch.int16))
+
+
+def _pair_lowered():
+    rng = np.random.default_rng(3)
+    chans = []
+    for c in range(4):
+        x = wt.zero()
+        for _ in range(6):
+            x += ((0.3 + 0.4j) * wt.gaussian(3e-8)
+                  * wt.cos(2 * np.pi * (5e7 + 1e6 * c))
+                  >> float(rng.uniform(1e-7, 8e-6)))
+        chans.append(x)
+    return [lower_schedule(chans, 0.0, 8.192e-6, 2e9, part='complex',
+                           bucket_samples=bs) for bs in ('auto', 4096)]
+
+
+@pytest.mark.parametrize('route', ['dense', 'panel', 'sparse'])
+@pytest.mark.parametrize('bucketed', [False, True])
+def test_pair_mode_matches_plain(card, route, bucketed):
+    low = _pair_lowered()[bucketed]
+    assert low.amp_im is not None and (low.n_buckets > 1) == bucketed
+
+    def run(device):
+        dev = DeviceSchedule(low, device)
+        if route == 'dense':
+            return synthesize_device(dev)
+        if route == 'panel':
+            return synthesize_panels(dev, plan=build_panel_plan(low))
+        return synthesize_sparse(dev, plan=build_sparse_plan(low))
+
+    got = run(card)
+    assert got.dtype == torch.complex64
+    plain = run('cpu')
+    for part in (torch.real, torch.imag):
+        assert rel(part(got).cpu(), part(plain)) <= TOL

@@ -1,0 +1,213 @@
+"""The stack route: the port's planner and the stack kernel's plain version
+against the JAX package's stack path.
+
+The same lowered schedule (lowered by the JAX package, copied into the
+port's ``LoweredSchedule``) goes through ``waveforms_tpu.ops.stack_synth``
+(``build_stack_plan``; ``synthesize_stack(..., interpret=True)`` as
+tests/test_stack_synth.py runs it on the CPU) and through the port's
+``ops/stack_synth.py`` on ``device='cpu'``, where the stack kernel
+(``csrc/synth_stack.cu``) runs as its plain version
+``ops.reference.stack_eval`` and the wide residual through the dense
+kernel's plain version.
+
+Tolerances: plans array-equal; samples within 1e-6 of each channel's peak
+of the JAX result (both f32, same formulas, different summation order) and
+the JAX suite's 2e-6 of the float64 oracle; int16 codes within one code of
+JAX's (the f32 sums they quantize may differ in the last bit).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import waveforms_tpu as wj
+import waveforms_tpu.ops.stack_synth as sj
+from waveforms_tpu.ops.lowering import lower_schedule as lower_j
+from waveforms_tpu_torch import kernels
+from waveforms_tpu_torch.convert import lowered_from_jax
+from waveforms_tpu_torch.ops.stack_synth import (CHUNK_ROWS,
+                                                 build_stack_plan,
+                                                 build_stack_tables,
+                                                 synthesize_stack)
+from test_torch_lowering import ARRAYS
+from test_torch_synth import RTOL, TOL_JAX, oracle, rel
+
+FS = 2e9
+GROUP_FIELDS = ('amp', 'lo', 'hi', 'row0', 'chan', 'shift', 'q32', 'args')
+
+
+def cases():
+    """(channels, stop, bucket_samples, part): the schedules of
+    tests/test_stack_synth.py, cut to a few channels and ~10 us."""
+    rng = np.random.default_rng(7)
+    vstack = wj.WaveVStack([(0.5 * wj.cosPulse(50e-9) >> o)
+                            for o in rng.uniform(0, 9e-6, 200)])
+    overlap = wj.zero()
+    for _ in range(40):
+        overlap += wj.drag(100e6, 300e-9, plateau=200e-9, delta=2e6,
+                           block_freq=None, phase=rng.uniform(0, 6),
+                           t0=0.0) >> rng.uniform(0, 0.6e-6)
+    carrier = 0.1 * wj.cos(2 * np.pi * 150e6) + 0.05
+    for _ in range(30):
+        carrier += 0.4 * (wj.cosPulse(40e-9) >> rng.uniform(0, 7e-6))
+    pulses = wj.zero()
+    for _ in range(20):
+        pulses += 0.3 * (wj.cosPulse(40e-9) >> rng.uniform(0, 7e-6))
+    bucketed = wj.WaveVStack([(0.4 * wj.cosPulse(400e-9) >> o)
+                              for o in rng.uniform(0, 7e-6, 50)])
+    ds = wj.zero()
+    p = wj.drag_sin(5e9, 20e-9, plateau=10e-9, delta=1e6)
+    for _ in range(15):
+        ds += p >> rng.uniform(0, 7e-6)
+    mixed = wj.zero()
+    for _ in range(25):
+        I, _ = wj.mixing(0.5 * wj.cosPulse(20e-9) >> rng.uniform(0, 7e-6),
+                         freq=-150e6, DRAGScaling=1e-10)
+        mixed += I
+    imag = wj.WaveVStack([((0.3 + 0.7j) * wj.cosPulse(60e-9) >> o)
+                          for o in rng.uniform(0, 7e-6, 40)])
+    return {
+        'vstack': ([vstack, vstack >> 1e-7], 10e-6, 'auto', 'real'),
+        'overlap_drag': ([overlap], 1.1e-6, 'auto', 'real'),
+        'mixed_wide': ([carrier, wj.gaussian(7e-6) >> 3.5e-6], 8.192e-6,
+                       'auto', 'real'),
+        'bucketed': ([bucketed], 8.192e-6, 2048, 'real'),
+        'clipped': ([wj.cut(2.0 * (wj.gaussian(2e-6) >> 4e-6), max=1.2),
+                     pulses], 8.192e-6, 'auto', 'real'),
+        'multitone_drag': ([ds], 8.192e-6, 'auto', 'real'),
+        'mixing_drag': ([mixed], 8.192e-6, 'auto', 'real'),
+        'imag': ([imag], 8.192e-6, 'auto', 'imag'),
+    }
+
+
+def lowered(case):
+    chans, stop, bs, part = cases()[case]
+    low = lower_j(chans, 0.0, stop, FS, bucket_samples=bs, part=part)
+    return chans, stop, part, low, lowered_from_jax(low)
+
+
+def host_oracle(chans, stop, part):
+    if part == 'real':
+        return oracle(chans, 0.0, stop, FS)
+    t = np.arange(0.0, stop, 1 / FS)
+    return np.stack([np.imag(np.asarray(w.simplify()(t))) for w in chans])
+
+
+@pytest.mark.parametrize('case', list(cases()))
+def test_build_stack_plan_matches_jax(case):
+    _, _, _, low, low_t = lowered(case)
+    before = {n: np.copy(getattr(low_t, n)) for n in ARRAYS}
+    plan_j = sj.build_stack_plan(low)
+    plan_t = build_stack_plan(low_t)
+    assert plan_j is not None and plan_t is not None
+    for name in ('n_narrow', 'n_blocks_total', 'kernel_samples',
+                 'batch_samples', 'n_rows', 'n_channels', 'n_samples'):
+        assert getattr(plan_t, name) == getattr(plan_j, name), name
+    assert plan_t.advantage == plan_j.advantage
+    assert len(plan_t.groups) == len(plan_j.groups)
+    for gt, gj in zip(plan_t.groups, plan_j.groups):
+        assert (gt.ops, gt.powers, gt.term_nfac) == (gj.ops, gj.powers,
+                                                     gj.term_nfac)
+        for name in GROUP_FIELDS:
+            np.testing.assert_array_equal(getattr(gt, name),
+                                          getattr(gj, name), err_msg=name)
+    assert (plan_t.wide is None) == (plan_j.wide is None)
+    if plan_t.wide is not None:
+        for name in ARRAYS:
+            np.testing.assert_array_equal(getattr(plan_t.wide, name),
+                                          getattr(plan_j.wide, name),
+                                          err_msg=name)
+    # the residual is a copy: the caller's schedule is not permuted
+    for name in ARRAYS:
+        np.testing.assert_array_equal(getattr(low_t, name), before[name],
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize('case', list(cases()))
+def test_stack_tables_hold_jax_blocks(case):
+    """The kernel's CSR block list holds each group's blocks as the JAX
+    package's ``_chunk_assign`` places them, each in its own (channel,
+    CHUNK_ROWS-row chunk)."""
+    _, _, _, low, low_t = lowered(case)
+    plan_j = sj.build_stack_plan(low)
+    plan_t = build_stack_plan(low_t)
+    t = build_stack_tables(plan_t, low_t)
+    bi, br = t.blk_inst.numpy(), t.blk_row.numpy()
+    start = t.chunk_start.numpy()
+    assert start[0] == 0 and start[-1] == t.n_blocks == plan_t.n_blocks_total
+    q = np.repeat(np.arange(len(start) - 1), np.diff(start))
+    chan = t.inst.numpy()[bi, 0]
+    np.testing.assert_array_equal(q, chan * t.n_chunks + br // CHUNK_ROWS)
+    n_chunks_j = -(-plan_j.n_channels * plan_j.n_rows // 128)
+    m0 = 0
+    for g in plan_j.groups:
+        src, rb, _, _, _ = sj._chunk_assign(g, plan_j.n_rows, n_chunks_j, 1)
+        want = sorted(zip(src[src >= 0] + m0, rb[src >= 0]))
+        mine = (bi >= m0) & (bi < m0 + len(g.amp))
+        assert sorted(zip(bi[mine], br[mine])) == want
+        m0 += len(g.amp)
+
+
+@pytest.mark.parametrize('case', list(cases()))
+def test_synthesize_stack_matches_jax_and_oracle(case):
+    chans, stop, part, low, low_t = lowered(case)
+    ref = np.asarray(sj.synthesize_stack(low, sj.build_stack_plan(low),
+                                         interpret=True))
+    n = kernels.synth_stack.launches
+    got = synthesize_stack(low_t, build_stack_plan(low_t), device='cpu')
+    assert kernels.synth_stack.launches == n        # plain version only
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert rel(got.numpy(), ref) <= TOL_JAX
+    assert rel(got.numpy(), host_oracle(chans, stop, part)) <= RTOL
+
+
+@pytest.mark.parametrize('case', ['vstack', 'mixed_wide'])
+def test_int16_codes_match_jax(case):
+    """Without a residual the kernel quantizes (a scalar dac_scale); with
+    one, the f32 sum is quantized after it -- in both packages."""
+    _, _, _, low, low_t = lowered(case)
+    plan_t = build_stack_plan(low_t)
+    assert (plan_t.wide is None) == (case == 'vstack')
+    ref = np.asarray(sj.synthesize_stack(low, sj.build_stack_plan(low),
+                                         interpret=True, out_dtype=jnp.int16,
+                                         dac_scale=30000.0))
+    got = synthesize_stack(low_t, plan_t, out_dtype=torch.int16,
+                           dac_scale=30000.0, device='cpu').numpy()
+    assert got.dtype == np.int16 and ref.dtype == np.int16
+    assert np.abs(got.astype(int) - ref).max() <= 1
+    f32 = synthesize_stack(low_t, plan_t, device='cpu')
+    want = torch.clamp(torch.round(f32 * 30000.0), -32768, 32767)
+    np.testing.assert_array_equal(got, want.to(torch.int16).numpy())
+
+
+def test_per_channel_scale_quantizes_after_the_kernel():
+    """A per-channel dac_scale is applied after the stack kernel, even
+    without a residual (the JAX package's rule)."""
+    _, _, _, _, low_t = lowered('vstack')
+    plan = build_stack_plan(low_t)
+    scales = np.array([20000.0, 30000.0], np.float32)
+    got = synthesize_stack(low_t, plan, out_dtype=np.int16,
+                           dac_scale=scales, device='cpu')
+    f32 = synthesize_stack(low_t, plan, device='cpu')
+    want = torch.clamp(torch.round(f32 * torch.as_tensor(scales)[:, None]),
+                       -32768, 32767).to(torch.int16)
+    assert torch.equal(got, want)
+
+
+def test_tables_are_cached_per_device():
+    _, _, _, _, low_t = lowered('vstack')
+    plan = build_stack_plan(low_t)
+    assert build_stack_tables(plan, low_t) is build_stack_tables(plan, low_t)
+
+
+def test_stack_refuses_what_it_cannot_batch():
+    from waveforms_tpu_torch import UnsupportedFactor
+    low_t = lowered_from_jax(lower_j([wj.gaussian(2e-6) >> 4e-6], 0.0,
+                                     8.192e-6, FS))
+    assert build_stack_plan(low_t) is None
+    with pytest.raises(UnsupportedFactor, match='batchable'):
+        synthesize_stack(low_t, device='cpu')
+    cx = lowered_from_jax(lower_j([(1 + 1j) * wj.cosPulse(5e-8)], 0.0,
+                                  1e-6, FS, part='complex'))
+    assert build_stack_plan(cx) is None

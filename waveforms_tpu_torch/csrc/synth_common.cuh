@@ -1,4 +1,5 @@
-// Shared device code of the synthesis kernels (synth_dense.cu, synth_panel.cu).
+// Shared device code of the synthesis kernels (synth_dense.cu, synth_panel.cu,
+// synth_sparse.cu, synth_stack.cu).
 //
 // The descriptor program is the one lowered by waveforms_tpu_torch/ops/lowering.py
 // and interpreted by the TPU kernels of waveforms_tpu/ops/pallas_synth.py
@@ -33,7 +34,8 @@ enum Opcode : int {
   OP_MOLLIFIER = 13, OP_INTERP = 14, OP_DRAG_SIN = 15, OP_DRAG_SINX = 16,
 };
 
-enum OutKind : int { OUT_F32 = 0, OUT_I16 = 1 };
+// f32; int16 DAC codes; complex64 (pair mode), stored as (re, im) f32 pairs
+enum OutKind : int { OUT_F32 = 0, OUT_I16 = 1, OUT_C64 = 2 };
 
 // f32 constants, bit-exact with the np.float32 values of the JAX kernel
 constexpr float PHASE = 0x1.921fb6p-30f;        // 2*pi / 2^32
@@ -53,7 +55,8 @@ constexpr float ERF_P = 0x1.4f740ap-2f, ERF_A1 = 0x1.04f20cp-2f,
 // Descriptor tensors of one schedule, as laid out by DeviceSchedule
 // (row-major, int32 / f32): seg_* and nterm (C, NB, S); nfac and amp
 // (C, NB, S, T); op, power, shift_hi (C, NB, S, T, F); q32 (..., 4);
-// args (..., W_ARGS); ext (E,); clip (C, 2).
+// args (..., W_ARGS); ext (E,); clip (C, 2); amp_im (C, NB, S, T), the
+// second amplitude plane of a pair-mode schedule, else null.
 struct Desc {
   const int* seg_lo;
   const int* seg_hi;
@@ -68,6 +71,7 @@ struct Desc {
   const float* args;
   const float* ext;
   const float* clip;
+  const float* amp_im;
   int C, NB, S, T, F;
   long long n_samples;
   long long bucket_samples;
@@ -307,54 +311,98 @@ __device__ __forceinline__ float raise_power(float v, int p) {
   return p < 0 ? 1.0f / out : out;
 }
 
+// One factor's value raised to its power: factor ff of the flat factor
+// arrays at sample idx (di wraps as int32, as the JAX kernel's idx - shift).
+__device__ __forceinline__ float factor_value(int op, int power, int shift,
+                                              const float* args,
+                                              const int* q32,
+                                              const float* ext,
+                                              long long idx) {
+  const int di = (int)((uint32_t)idx - (uint32_t)shift);
+  return raise_power(op_value(op, di, args, q32, ext), power);
+}
+
 // The segment walker (_tile_walker) for one sample: the sum over slots
 // [s0, s1) of (channel c, bucket b) that contain idx of
 // clip(sum_t amp_t * prod_f factor_f).  Slots are added in order, so the
 // f32 sum has the same order as the plain version's.
-static __device__ float walk_sample(const Desc& d, int c, int b, int s0,
-                                    int s1, long long idx) {
+//
+// PAIR (pair mode, part='complex'): the factor product of each term is
+// computed once, starting from 1.0 and not from amp, and scaled by both
+// amplitude planes: .x = clip(sum_t amp_t * prod), .y = clip(sum_t
+// amp_im_t * prod), each clipped on its own, in the JAX kernel's order.
+// Otherwise .x is the sample and .y is 0.
+template <bool PAIR>
+static __device__ float2 walk_sample(const Desc& d, int c, int b, int s0,
+                                     int s1, long long idx) {
   const long long row = ((long long)c * d.NB + b) * d.S;
   const float cmin = d.clip[2 * c];
   const float cmax = d.clip[2 * c + 1];
-  float acc = 0.0f;
+  float acc = 0.0f, acc_im = 0.0f;
   for (int s = s0; s < s1; ++s) {
     const int nt = d.nterm[row + s];
     if (nt <= 0 || idx < (long long)d.seg_lo[row + s] ||
         idx >= (long long)d.seg_hi[row + s])
       continue;
-    float seg = 0.0f;
+    float seg = 0.0f, seg_im = 0.0f;
     for (int t = 0; t < nt; ++t) {
       const long long tf = (row + s) * d.T + t;
-      float prod = d.amp[tf];
+      float prod = PAIR ? 1.0f : d.amp[tf];
       const int nf = d.nfac[tf];
       for (int f = 0; f < nf; ++f) {
         const long long ff = tf * d.F + f;
-        const int di = (int)((uint32_t)idx - (uint32_t)d.shift_hi[ff]);
-        const float v = op_value(d.op[ff], di, d.args + ff * W_ARGS,
-                                 d.q32 + ff * 4, d.ext);
-        prod = prod * raise_power(v, d.power[ff]);
+        prod = prod * factor_value(d.op[ff], d.power[ff], d.shift_hi[ff],
+                                   d.args + ff * W_ARGS, d.q32 + ff * 4,
+                                   d.ext, idx);
       }
-      seg = seg + prod;
+      if (PAIR) {
+        seg = seg + d.amp[tf] * prod;
+        seg_im = seg_im + d.amp_im[tf] * prod;
+      } else {
+        seg = seg + prod;
+      }
     }
     // clip with NaN propagation, as jnp.minimum(jnp.maximum(v, lo), hi)
     seg = seg < cmin ? cmin : seg;
     seg = seg > cmax ? cmax : seg;
     acc = acc + seg;
+    if (PAIR) {
+      seg_im = seg_im < cmin ? cmin : seg_im;
+      seg_im = seg_im > cmax ? cmax : seg_im;
+      acc_im = acc_im + seg_im;
+    }
   }
-  return acc;
+  return make_float2(acc, acc_im);
 }
 
-// f32 store, or the DAC code clip(round_half_even(acc * scale))
+// the DAC code clip(round_half_even(acc * scale))
+__device__ __forceinline__ short dac_code(float acc, float scale) {
+  float code = rintf(acc * scale);
+  code = code < -32768.0f ? -32768.0f : (code > 32767.0f ? 32767.0f : code);
+  return (short)code;
+}
+
+// f32 store, or the DAC code
 __device__ __forceinline__ void store_sample(void* out, long long pos,
                                              float acc, int out_kind,
                                              float scale) {
   if (out_kind == OUT_I16) {
-    float code = rintf(acc * scale);
-    code = code < -32768.0f ? -32768.0f : (code > 32767.0f ? 32767.0f : code);
-    static_cast<short*>(out)[pos] = (short)code;
+    static_cast<short*>(out)[pos] = dac_code(acc, scale);
   } else {
     static_cast<float*>(out)[pos] = acc;
   }
+}
+
+// A walked sample's store: the (re, im) pair in pair mode, else
+// store_sample of .x
+template <bool PAIR>
+__device__ __forceinline__ void store_walk(void* out, long long pos,
+                                           float2 acc, int out_kind,
+                                           float scale) {
+  if (PAIR)
+    static_cast<float2*>(out)[pos] = acc;
+  else
+    store_sample(out, pos, acc.x, out_kind, scale);
 }
 
 }  // namespace wfsynth

@@ -5,7 +5,9 @@
 // what that kernel computes, not its block structure: every sample of every
 // channel is the sum over its bucket's segments that contain it of
 // clip(sum_t amp_t * prod_f factor_f), accumulated in f32 and stored as f32
-// or as int16 DAC codes clip(round_half_even(acc * scale)).
+// or as int16 DAC codes clip(round_half_even(acc * scale)), or, in pair mode
+// (part='complex', the JAX kernel's pair=True), as complex64: one pass over
+// the factor products scaled by both amplitude planes (walk_sample<true>).
 //
 // Layout: one thread block per (sample tile, channel); the block finds its
 // segment range [s0, s1) by binary search over the bucket's running max of
@@ -44,6 +46,7 @@ __device__ __forceinline__ int lower_bound(const int* a, int n, long long key) {
   return lo;
 }
 
+template <bool PAIR>
 __global__ void synth_dense_kernel(Desc d, int tile, void* out, int out_kind,
                                    const float* scale) {
   const int c = blockIdx.y;
@@ -61,8 +64,8 @@ __global__ void synth_dense_kernel(Desc d, int tile, void* out, int out_kind,
   const float sc = out_kind == OUT_I16 ? scale[c] : 1.0f;
   const long long end = min(base + (long long)tile, d.n_samples);
   for (long long idx = base + threadIdx.x; idx < end; idx += blockDim.x) {
-    const float acc = walk_sample(d, c, b, s0, s1, idx);
-    store_sample(out, (long long)c * d.n_samples + idx, acc, out_kind, sc);
+    const float2 acc = walk_sample<PAIR>(d, c, b, s0, s1, idx);
+    store_walk<PAIR>(out, (long long)c * d.n_samples + idx, acc, out_kind, sc);
   }
 }
 
@@ -75,20 +78,24 @@ int wf_synth_dense(const int* seg_lo, const int* seg_hi, const int* seg_hmax,
                    const int* nterm, const int* nfac, const float* amp,
                    const int* op, const int* power, const int* shift_hi,
                    const int* q32, const float* args, const float* ext,
-                   const float* clip, int C, int NB, int S, int T, int F,
-                   long long n_samples, long long bucket_samples, int tile,
-                   void* out, int out_kind, const float* scale,
-                   void* stream) {
+                   const float* clip, const float* amp_im, int C, int NB,
+                   int S, int T, int F, long long n_samples,
+                   long long bucket_samples, int tile, void* out,
+                   int out_kind, const float* scale, void* stream) {
   wfsynth::Desc d{seg_lo, seg_hi, seg_hmax, nterm, nfac, amp, op, power,
-                  shift_hi, q32, args, ext, clip, C, NB, S, T, F,
+                  shift_hi, q32, args, ext, clip, amp_im, C, NB, S, T, F,
                   n_samples, bucket_samples};
   const int threads = 256;
   const long long n_tiles = (n_samples + tile - 1) / tile;
   if (n_tiles > 0 && C > 0) {
     dim3 grid((unsigned)n_tiles, (unsigned)C);
-    wfsynth::synth_dense_kernel<<<grid, threads, 0,
-                                  (cudaStream_t)stream>>>(d, tile, out,
-                                                          out_kind, scale);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (out_kind == wfsynth::OUT_C64)
+      wfsynth::synth_dense_kernel<true><<<grid, threads, 0, st>>>(
+          d, tile, out, out_kind, scale);
+    else
+      wfsynth::synth_dense_kernel<false><<<grid, threads, 0, st>>>(
+          d, tile, out, out_kind, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,9 @@
 // output sample is fixed by the sample's offset in its subtile, so the
 // multi-bucket straddles (read-modify-write, f32 only) of one subtile are
 // accumulated by one thread in bucket order -- no atomics.  The plan keeps
-// int16 output to single-bucket schedules, so codes are stored once.
+// int16 output to single-bucket schedules, so codes are stored once.  Pair
+// mode (complex64 output, walk_sample<true>) follows the f32 path with an
+// (re, im) pair per sample.
 //
 // What bounds it on the H100: the output store stream.  A pulse-sparse
 // schedule (the flagship: 128 ch x 2M samples, 457 live subtiles) is almost
@@ -29,6 +31,7 @@ namespace wfsynth {
 
 constexpr int CHUNK_SUBTILES = 8;
 
+template <bool PAIR>
 __global__ void synth_panel_kernel(Desc d, const int* __restrict__ start,
                                    const int* __restrict__ work_t,
                                    const int* __restrict__ work_o,
@@ -47,7 +50,7 @@ __global__ void synth_panel_kernel(Desc d, const int* __restrict__ start,
   const float sc = out_kind == OUT_I16 ? scale[c] : 1.0f;
 
   for (long long o = o0 + threadIdx.x; o < o1; o += blockDim.x)
-    store_sample(out, out_row + o, 0.0f, out_kind, sc);
+    store_walk<PAIR>(out, out_row + o, make_float2(0.0f, 0.0f), out_kind, sc);
   __syncthreads();
 
   for (int b = 0; b < d.NB; ++b) {
@@ -61,10 +64,17 @@ __global__ void synth_panel_kernel(Desc d, const int* __restrict__ start,
       const int s0 = work_s0[k], s1 = work_s1[k];
       for (long long i = threadIdx.x; i < tile && obase + i < window;
            i += blockDim.x) {
-        float acc = walk_sample(d, c, b, s0, s1, base + i);
+        float2 acc = walk_sample<PAIR>(d, c, b, s0, s1, base + i);
         const long long pos = out_row + obase + i;
-        if (d.NB > 1) acc = static_cast<float*>(out)[pos] + acc;
-        store_sample(out, pos, acc, out_kind, sc);
+        if (d.NB > 1) {
+          if (PAIR) {
+            const float2 prev = static_cast<float2*>(out)[pos];
+            acc = make_float2(prev.x + acc.x, prev.y + acc.y);
+          } else {
+            acc.x = static_cast<float*>(out)[pos] + acc.x;
+          }
+        }
+        store_walk<PAIR>(out, pos, acc, out_kind, sc);
       }
     }
   }
@@ -79,23 +89,30 @@ int wf_synth_panel(const int* seg_lo, const int* seg_hi, const int* nterm,
                    const int* nfac, const float* amp, const int* op,
                    const int* power, const int* shift_hi, const int* q32,
                    const float* args, const float* ext, const float* clip,
-                   int C, int NB, int S, int T, int F, long long n_samples,
+                   const float* amp_im, int C, int NB, int S, int T, int F,
+                   long long n_samples,
                    long long bucket_samples, const int* start,
                    const int* work_t, const int* work_o, const int* work_s0,
                    const int* work_s1, int Rs, int P, int NP,
                    long long window, void* out, int out_kind,
                    const float* scale, void* stream) {
   wfsynth::Desc d{seg_lo, seg_hi, nullptr, nterm, nfac, amp, op, power,
-                  shift_hi, q32, args, ext, clip, C, NB, S, T, F,
+                  shift_hi, q32, args, ext, clip, amp_im, C, NB, S, T, F,
                   n_samples, bucket_samples};
   const int threads = 256;
   const int chunks = (P / Rs + wfsynth::CHUNK_SUBTILES - 1) /
                      wfsynth::CHUNK_SUBTILES;
   if (C > 0 && NP > 0 && chunks > 0) {
     dim3 grid((unsigned)chunks, (unsigned)NP, (unsigned)C);
-    wfsynth::synth_panel_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        d, start, work_t, work_o, work_s0, work_s1, Rs, P, NP, window, out,
-        out_kind, scale);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (out_kind == wfsynth::OUT_C64)
+      wfsynth::synth_panel_kernel<true><<<grid, threads, 0, st>>>(
+          d, start, work_t, work_o, work_s0, work_s1, Rs, P, NP, window, out,
+          out_kind, scale);
+    else
+      wfsynth::synth_panel_kernel<false><<<grid, threads, 0, st>>>(
+          d, start, work_t, work_o, work_s0, work_s1, Rs, P, NP, window, out,
+          out_kind, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,133 @@
+// Pulse-instance stack kernel (K5).
+//
+// Replaces the TPU kernel built by waveforms_tpu/ops/stack_synth.py:
+// _build_kernel_runner (its inner `kernel`, with _strip_builder, _scatter_dot
+// and _emit_chunk).  It computes what that kernel computes: every narrow
+// pulse instance of a StackPlan, evaluated over the 128-sample blocks it
+// covers -- the sum over its terms of amp_t * prod_f factor_f ** power_f,
+// in _eval_blocks' order, masked to [lo, hi) -- added into the output, which
+// is stored as f32 or as int16 DAC codes clip(round_half_even(acc * scale)).
+//
+// Not carried over: the TPU added blocks into 128x128 output chunks through
+// a one-hot matrix product on its matrix unit (its answer to indexed
+// accumulation, which needed Precision.HIGHEST or a three-way bf16 split to
+// stay exact).  Here a direct add is exact and cheaper:
+//
+// Layout: one thread block of 128 threads per (channel, chunk of CHUNK_ROWS
+// 128-sample rows).  The host (ops/stack_synth.build_stack_tables) flattens
+// every group into one instance table padded to the widest term and factor
+// counts, and sorts the blocks by (channel, chunk) into CSR offsets, so one
+// launch covers the whole plan.  The thread block zeroes its CHUNK_ROWS x
+// 128 f32 tile in shared memory (32 KB), then walks its blocks in order:
+// thread `lane` evaluates sample `lane` of each block and adds it into its
+// own column.  Every tile sample has one owner thread, so there is no race,
+// no atomic, and the sum order is the table's -- deterministic.  Then the
+// tile is stored once, coalesced (16-byte f32 or 8-byte int16 vectors where
+// the row length allows), masked at the channel's end: every output sample
+// is written exactly once, so the zero fill is fused.  The multi-tone DRAG
+// opcodes read their coefficients from the schedule's ext buffer in global
+// memory, so the TPU's one-ext-factor-per-instance limit does not apply.
+//
+// What bounds it on the H100: the output store.  The 120-pulse ladder
+// (128 ch x 1,048,576 samples) evaluates 69,228 blocks (8.9 M samples) but
+// stores 537 MB as f32; 16,384 thread blocks keep every SM storing.
+#include "synth_common.cuh"
+
+namespace wfsynth {
+
+constexpr int CHUNK_ROWS = 64;      // == ops/stack_synth.CHUNK_ROWS
+constexpr int LANES = 128;          // samples per block == threads per block
+
+__global__ void __launch_bounds__(LANES)
+synth_stack_kernel(const int* __restrict__ inst, const float* __restrict__ amp,
+                   const int* __restrict__ term_nfac,
+                   const int* __restrict__ op, const int* __restrict__ power,
+                   const int* __restrict__ shift_hi,
+                   const int* __restrict__ q32,
+                   const float* __restrict__ args,
+                   const float* __restrict__ ext,
+                   const int* __restrict__ blk_inst,
+                   const int* __restrict__ blk_row,
+                   const int* __restrict__ chunk_start, int NT, int TF,
+                   int n_chunks, long long n_samples, void* out, int out_kind,
+                   const float* scale) {
+  __shared__ __align__(16) float acc[CHUNK_ROWS * LANES];
+  const int q = blockIdx.x;                 // (channel, chunk), channel-major
+  const int c = q / n_chunks;
+  const long long row0 = (long long)(q - c * n_chunks) * CHUNK_ROWS;
+  const int lane = threadIdx.x;
+
+  // zero and walk touch only this thread's column: no barrier between them
+  for (int r = 0; r < CHUNK_ROWS; ++r) acc[r * LANES + lane] = 0.0f;
+  const int k1 = chunk_start[q + 1];
+  for (int k = chunk_start[q]; k < k1; ++k) {
+    const int m = blk_inst[k];
+    const long long row = blk_row[k];
+    const long long idx = row * LANES + lane;
+    const int* im = inst + 4 * m;           // (channel, lo, hi, n_terms)
+    if (idx < im[1] || idx >= im[2]) continue;
+    const int nt = im[3];
+    float seg = 0.0f;
+    int f = 0;
+    for (int t = 0; t < nt; ++t) {
+      float prod = amp[m * NT + t];
+      const int nf = term_nfac[m * NT + t];
+      for (int j = 0; j < nf; ++j, ++f) {
+        const long long ff = (long long)m * TF + f;
+        prod = prod * factor_value(op[ff], power[ff], shift_hi[ff],
+                                   args + ff * W_ARGS, q32 + ff * 4, ext,
+                                   idx);
+      }
+      seg = t == 0 ? prod : seg + prod;
+    }
+    acc[(row - row0) * LANES + lane] += seg;
+  }
+  __syncthreads();
+
+  const long long s0 = row0 * LANES;
+  const long long count = min((long long)CHUNK_ROWS * LANES, n_samples - s0);
+  const long long base = (long long)c * n_samples + s0;
+  const float sc = out_kind == OUT_I16 ? scale[c] : 1.0f;
+  if ((n_samples & 3) == 0) {
+    // rows of a multiple of 4 samples: base and count are multiples of 4
+    const float4* a4 = reinterpret_cast<const float4*>(acc);
+    for (long long v = threadIdx.x; v < count / 4; v += blockDim.x) {
+      const float4 x = a4[v];
+      if (out_kind == OUT_I16) {
+        reinterpret_cast<short4*>(static_cast<short*>(out) + base)[v] =
+            make_short4(dac_code(x.x, sc), dac_code(x.y, sc),
+                        dac_code(x.z, sc), dac_code(x.w, sc));
+      } else {
+        reinterpret_cast<float4*>(static_cast<float*>(out) + base)[v] = x;
+      }
+    }
+  } else {
+    for (long long i = threadIdx.x; i < count; i += blockDim.x)
+      store_sample(out, base + i, acc[i], out_kind, sc);
+  }
+}
+
+}  // namespace wfsynth
+
+extern "C" {
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
+int wf_synth_stack(const int* inst, const float* amp, const int* term_nfac,
+                   const int* op, const int* power, const int* shift_hi,
+                   const int* q32, const float* args, const float* ext,
+                   const int* blk_inst, const int* blk_row,
+                   const int* chunk_start, int NT, int TF, int C,
+                   int n_chunks, long long n_samples, void* out, int out_kind,
+                   const float* scale, void* stream) {
+  const long long blocks = (long long)C * n_chunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (blocks > 0)
+    wfsynth::synth_stack_kernel<<<(unsigned)blocks, wfsynth::LANES, 0,
+                                  (cudaStream_t)stream>>>(
+        inst, amp, term_nfac, op, power, shift_hi, q32, args, ext, blk_inst,
+        blk_row, chunk_start, NT, TF, n_chunks, n_samples, out, out_kind,
+        scale);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -2,74 +2,127 @@
 
 Engines:
 
-* ``'auto'`` / ``'cuda'`` -- lower on the host, upload the descriptors to
-  ``device`` and run the dense or the panel kernel, by occupancy
-  (:func:`classify_route`).  On ``device='cuda'`` these are the hand-written
-  CUDA kernels; on ``device='cpu'`` their plain PyTorch versions.
-* ``'cuda-dense'`` / ``'cuda-panel'`` -- force one of the two kernels.
+* ``'auto'`` / ``'cuda'`` -- lower on the host, upload to ``device`` and run
+  the kernel that :func:`classify_route` picks: the panel, worklist
+  ('sparse'), stack or dense kernel.  On ``device='cuda'`` these are the
+  hand-written CUDA kernels; on ``device='cpu'`` their plain PyTorch
+  versions.
+* ``'cuda-dense'`` / ``'cuda-panel'`` / ``'cuda-sparse'`` / ``'cuda-stack'``
+  -- force one kernel, as the JAX package's ``'pallas-dense'`` /
+  ``'pallas-panel'`` / ``'pallas-sparse'`` / ``'pallas-stack'`` do.
 * ``'numpy'`` -- the host float64 oracle (``Waveform.__call__``), kept for
   tests.
 
-Not ported yet (they raise ``ValueError``): pair mode (``part='complex'``),
-bf16/f16 stores and ``precision='double'``.
+Not ported yet (they raise ``ValueError``): bf16/f16 stores and the double
+tier (``precision='double'`` on a kernel engine).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ops.lowering import UnsupportedFactor, lower_schedule
-from .ops.sparse_synth import (PANEL_OCCUPANCY_THRESHOLD, build_panel_plan,
+from .ops.sparse_synth import (PANEL_OCCUPANCY_THRESHOLD,
+                               SPARSE_OCCUPANCY_THRESHOLD, build_panel_plan,
                                build_sparse_plan, panels_eligible,
-                               synthesize_panels)
+                               synthesize_panels, synthesize_sparse)
+from .ops.stack_synth import (DEFAULT_ADVANTAGE, STACK_MIN_NARROW,
+                              STACK_OCC_FLOOR, build_stack_plan,
+                              synthesize_stack)
 from .ops.synth import (DeviceSchedule, default_rows_per_tile,
                         normalize_out_dtype, resolve_device,
                         synthesize_device)
 
 __all__ = ['synthesize', 'classify_route', 'ENGINES']
 
-ENGINES = ('auto', 'cuda', 'cuda-dense', 'cuda-panel', 'numpy')
+ENGINES = ('auto', 'cuda', 'cuda-dense', 'cuda-panel', 'cuda-sparse',
+           'cuda-stack', 'numpy')
+_FORCE = {'cuda-dense': 'dense', 'cuda-panel': 'panel',
+          'cuda-sparse': 'sparse', 'cuda-stack': 'stack'}
 
 
 def classify_route(low, force=None, out_dtype=None):
     """Pick the kernel for a lowered schedule -> ``(kind, plan)``, kind in
-    {'panel', 'dense'} (``plan`` is the PanelPlan for 'panel').
+    {'panel', 'sparse', 'stack', 'dense'}; ``plan`` is the PanelPlan,
+    SparsePlan or StackPlan of that kind, None for 'dense'.
 
-    The JAX package's occupancy rule (``waveforms_tpu.engine.
-    classify_pallas_route``), including its ``small`` rule, decides between
-    the two: the panel kernel below PANEL_OCCUPANCY_THRESHOLD of padded
-    live subtiles, or when the schedule spans at most two dense tiles per
-    channel; the dense kernel otherwise.  The threshold is the JAX
-    package's TPU value, unmeasured on the H100.  Schedules that the JAX
-    package sends to its stack or worklist ('sparse') kernels, which are
-    not ported yet, go to the panel or the dense kernel here; a plan that
-    the panel kernel cannot take (int16 with several buckets) goes dense.
+    The JAX package's rule (``waveforms_tpu.engine.classify_pallas_route``)
+    step by step, with its thresholds (TPU values, unmeasured on the
+    H100).  With occupancy the padded live-subtile fraction:
+
+    1. not ``small`` and occupancy >= STACK_OCC_FLOOR: the stack kernel if
+       the plan has >= STACK_MIN_NARROW narrow instances and an advantage
+       >= DEFAULT_ADVANTAGE;
+    2. ``small`` or occupancy < PANEL_OCCUPANCY_THRESHOLD: the panel
+       kernel, if it takes the plan (int16 needs one bucket);
+    3. occupancy < SPARSE_OCCUPANCY_THRESHOLD: the worklist kernel;
+    4. the stack kernel on the same condition as in 1, or for a schedule
+       over the TPU's descriptor budget whose plan has no wide residual;
+    5. the dense kernel.
+
+    Two differences from the JAX rule, both because the card keeps
+    descriptors and worklists in global memory:
+
+    * 'panel-windowed' is 'panel' here: there is no worklist budget to
+      window against, and the output is one buffer.
+    * ``low.pallas_ok`` (the TPU's scalar-memory budget) refuses no forced
+      engine here.  Under ``force=None`` it still routes as in JAX -- such
+      a schedule skips steps 1-3, as a many-overlap schedule that the
+      stack kernel serves best -- so that the routes agree.
     """
-    if force not in (None, 'dense', 'panel'):
+    if force not in (None, 'dense', 'panel', 'sparse', 'stack'):
         raise ValueError(f"unknown route {force!r}")
     if force == 'dense':
         return 'dense', None
-    try:
-        sparse_plan = build_sparse_plan(low)
-    except UnsupportedFactor:
-        if force == 'panel':
-            raise
-        return 'dense', None
-    # occupancy against the PADDED tile count of the JAX dense grid, as the
-    # JAX router computes it
-    NB = low.shape[1]
-    R = default_rows_per_tile(low.n_samples, low.bucket_samples, NB)
-    n_rows = -(-low.n_samples // 128)
-    padded_rows = -(-n_rows // R) * R
-    occ = sparse_plan.occupied_fraction * n_rows / padded_rows
-    small = padded_rows <= 2 * R
-    if force == 'panel' or small or occ < PANEL_OCCUPANCY_THRESHOLD:
-        plan = build_panel_plan(low, base=sparse_plan)
-        if panels_eligible(plan, normalize_out_dtype(out_dtype)):
-            return 'panel', plan
-        if force == 'panel':
+    memo = []                       # build_stack_plan is O(instances)
+
+    def stack_plan():
+        if not memo:
+            memo.append(build_stack_plan(low))
+        return memo[0]
+
+    def stack_wins(p):
+        return (p is not None and p.n_narrow >= STACK_MIN_NARROW
+                and p.advantage >= DEFAULT_ADVANTAGE)
+
+    sparse_plan = None
+    if force in ('sparse', 'panel') or (force is None and low.pallas_ok):
+        try:
+            sparse_plan = build_sparse_plan(low)
+        except UnsupportedFactor:
+            if force in ('sparse', 'panel'):
+                raise
+    if sparse_plan is not None:
+        # occupancy against the PADDED tile count of the JAX dense grid, as
+        # the JAX router computes it
+        NB = low.shape[1]
+        R = default_rows_per_tile(low.n_samples, low.bucket_samples, NB)
+        n_rows = -(-low.n_samples // 128)
+        padded_rows = -(-n_rows // R) * R
+        occ = sparse_plan.occupied_fraction * n_rows / padded_rows
+        small = padded_rows <= 2 * R
+        if (force is None and not small and occ >= STACK_OCC_FLOOR
+                and stack_wins(stack_plan())):
+            return 'stack', stack_plan()
+        if force == 'panel' or (force is None and (
+                small or occ < PANEL_OCCUPANCY_THRESHOLD)):
+            plan = build_panel_plan(low, base=sparse_plan)
+            if panels_eligible(plan, normalize_out_dtype(out_dtype)):
+                return 'panel', plan
+            if force == 'panel':
+                raise UnsupportedFactor(
+                    "int16 panel output needs a single-bucket schedule")
+        if force == 'sparse' or occ < SPARSE_OCCUPANCY_THRESHOLD:
+            return 'sparse', sparse_plan
+    if force in (None, 'stack'):
+        p = stack_plan()
+        if p is not None and (force == 'stack' or stack_wins(p) or (
+                not low.pallas_ok and p.wide is None)):
+            return 'stack', p
+        if force == 'stack':
             raise UnsupportedFactor(
-                "int16 panel output needs a single-bucket schedule")
+                "schedule has no batchable pulse instances")
     return 'dense', None
 
 
@@ -86,44 +139,67 @@ def _quantize_host(out, out_dtype, dac_scale):
 def _synthesize_numpy(channels, start, stop, sample_rate, part):
     from .core import WaveVStack
     t = np.arange(start, stop, 1 / sample_rate)
-    # WaveVStack.__call__ returns the REAL part; 'imag' goes through the
-    # stack's complex accumulation, as the descriptor engines lower it
+    # WaveVStack.__call__ returns the REAL part; 'imag' and 'complex' go
+    # through the stack's complex accumulation, as the descriptor engines
+    # lower it
     vals = [np.asarray((ch.simplify() if part != 'real'
                         and isinstance(ch, WaveVStack) else ch)(t))
             for ch in channels]
-    vals = [np.real(v) if part == 'real' else np.imag(v) for v in vals]
-    return np.stack(vals)
+    if part == 'complex':
+        return np.stack([v.astype(complex) for v in vals])
+    return np.stack([np.real(v) if part == 'real' else np.imag(v)
+                     for v in vals])
 
 
 def synthesize(channels, start: float, stop: float, sample_rate: float,
                engine: str = 'auto', bucket_samples='auto',
-               part: str = 'real', out_dtype=None, dac_scale=32767.0,
-               device='cuda'):
-    """Synthesize a list of channels -> (C, N).
+               part: str = 'real', precision: str = 'single',
+               out_dtype=None, dac_scale=32767.0, device='cuda'):
+    """Synthesize a list of channels -> (C, N), in the JAX package's
+    argument order (``waveforms_tpu.engine.synthesize``), then ``device``.
 
-    Returns a torch tensor on ``device`` for the kernel engines, f32 or, with
-    ``out_dtype=torch.int16`` (or ``np.int16``), DAC codes
+    Returns a torch tensor on ``device`` for the kernel engines: f32, or
+    with ``out_dtype=torch.int16`` (or ``np.int16``) DAC codes
     ``clip(round_half_even(x * dac_scale))`` with ``dac_scale`` a scalar or
-    per-channel vector.  ``engine='numpy'`` returns the float64 oracle as an
-    ndarray (quantized the same way for int16).  ``device='cuda'`` without a
-    GPU raises; nothing falls back to the CPU.
+    per-channel vector, or with ``part='complex'`` a complex64 tensor from
+    one pair-mode pass (f32 only).  ``precision='single'`` is the f32 tier;
+    ``'double'`` (the <= 1e-9 tier) is not ported yet and raises, except on
+    ``engine='numpy'``, which is float64 already.  ``engine='numpy'``
+    returns the float64 oracle as an ndarray (quantized the same way for
+    int16).  ``device='cuda'`` without a GPU raises; nothing falls back to
+    the CPU.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if part not in ('real', 'imag'):
-        raise ValueError(f"part={part!r}: pair mode (part='complex') is not "
-                         "ported yet")
+    if part not in ('real', 'imag', 'complex'):
+        raise ValueError(f"unknown part {part!r}")
+    if precision not in ('single', 'double'):
+        raise ValueError(f"unknown precision {precision!r}")
     dt = normalize_out_dtype(out_dtype)
+    if precision == 'double':
+        if out_dtype is not None and dt != torch.float32:
+            raise ValueError("out_dtype narrowing contradicts "
+                             "precision='double'")
+        if engine != 'numpy':
+            raise ValueError("precision='double': the double tier (the "
+                             "double-f32 kernels) is not ported yet")
+    if part == 'complex' and dt != torch.float32:
+        raise ValueError("part='complex' requires f32 output")
     if engine == 'numpy':
         out = _synthesize_numpy(channels, start, stop, sample_rate, part)
         return _quantize_host(out, dt, dac_scale)
     device = resolve_device(device)
     low = lower_schedule(channels, start, stop, sample_rate, part=part,
                          bucket_samples=bucket_samples)
-    force = {'cuda-dense': 'dense', 'cuda-panel': 'panel'}.get(engine)
-    kind, plan = classify_route(low, force=force, out_dtype=dt)
+    kind, plan = classify_route(low, force=_FORCE.get(engine), out_dtype=dt)
+    if kind == 'stack':
+        return synthesize_stack(low, plan, out_dtype=dt, dac_scale=dac_scale,
+                                device=device)
     dev = DeviceSchedule(low, device)
     if kind == 'panel':
         return synthesize_panels(dev, plan=plan, out_dtype=dt,
+                                 dac_scale=dac_scale)
+    if kind == 'sparse':
+        return synthesize_sparse(dev, plan=plan, out_dtype=dt,
                                  dac_scale=dac_scale)
     return synthesize_device(dev, out_dtype=dt, dac_scale=dac_scale)

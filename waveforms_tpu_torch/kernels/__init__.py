@@ -1,21 +1,28 @@
 """Build, bind and launch the hand-written CUDA kernels.
 
-The sources in ``waveforms_tpu_torch/csrc/`` compile with nvcc, at first
-use, into one shared library with a plain C interface, loaded with ctypes:
+The sources in ``waveforms_tpu_torch/csrc/`` compile with nvcc at first
+use, each into an object file, all at once in parallel, and link into one
+shared library with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC csrc/synth_dense.cu csrc/synth_panel.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c csrc/synth_<name>.cu     (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared *.o
 
 (no ``--use_fast_math``: it would change expf/sinf/division and flush
 denormals).  The library goes to ``build/waveforms_tpu_torch/`` beside the
 package, named by a hash of the sources, so an edited source rebuilds.
 
-One wrapper per kernel: :data:`synth_dense` (K1, the dense grid) and
-:data:`synth_panel` (K2, the panel walk).  A wrapper given tensors on the
-CPU runs the kernel's plain version (:mod:`..ops.reference`); given CUDA
-tensors it launches the kernel, checks the launch's ``cudaGetLastError()``
-and raises on any failure -- it never falls back.  Each wrapper counts its
-kernel launches in ``launches``.
+One wrapper per kernel: :data:`synth_dense` (K1, the dense grid),
+:data:`synth_panel` (K2, the panel walk), :data:`synth_sparse` (K7, the
+worklist walk) and :data:`synth_stack` (K5, pulse instances).  A wrapper
+given tensors on the CPU runs the kernel's plain version
+(:mod:`..ops.reference`); given CUDA tensors it launches the kernel, checks
+the launch's ``cudaGetLastError()`` and raises on any failure -- it never
+falls back.  Each wrapper counts its kernel launches in ``launches``.
+
+Output kinds: f32; int16 DAC codes with a per-channel f32 scale; and, for
+the three descriptor walks, complex64 in pair mode (a schedule with
+``amp_im``), written as interleaved (re, im) f32 pairs.
 """
 
 from __future__ import annotations
@@ -32,16 +39,19 @@ import torch
 
 from ..ops import reference
 
-__all__ = ['synth_dense', 'synth_panel', 'load_library', 'library_path',
-           'reset_launch_counts', 'launch_counts', 'KERNELS']
+__all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
+           'load_library', 'library_path', 'reset_launch_counts',
+           'launch_counts', 'KERNELS']
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
-SOURCES = ('synth_dense.cu', 'synth_panel.cu')
+SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
+           'synth_stack.cu')
 HEADERS = ('synth_common.cuh',)
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xptxas', '-v',
+                           '-Xcompiler', '-fPIC')
 
 # largest dense-kernel tile (samples per thread block)
 DENSE_TILE = 2048
@@ -77,20 +87,37 @@ def _nvcc() -> str:
 
 
 def _build(path: Path) -> str:
+    """Compile every source at once (one nvcc each), then link."""
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f'{path.name}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    stem = path.parent / f'{path.stem}.{os.getpid()}'
+    objs = [Path(f'{stem}.{Path(src).stem}.o') for src in SOURCES]
+    tmp = Path(f'{stem}.so.tmp')
+    nvcc = _nvcc()
+    log = []
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        failed = []
+        for src, p in zip(SOURCES, procs):
+            out, _ = p.communicate()
+            log.append(out)
+            if p.returncode != 0:
+                failed.append(f"{src} ({p.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        r = subprocess.run([nvcc, *ARCH_FLAGS, '-shared', '-o', str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{r.stdout}\n{r.stderr}")
         os.replace(tmp, path)       # atomic: concurrent builders never clash
     finally:
-        if tmp.exists():
-            tmp.unlink()
-    return r.stdout + r.stderr
+        for f in (*objs, tmp):
+            if f.exists():
+                f.unlink()
+    return '\n'.join(log)
 
 
 def load_library():
@@ -104,13 +131,19 @@ def load_library():
             build_log = _build(path)
         lib = ctypes.CDLL(str(path))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.wf_synth_dense.argtypes = ([P] * 13 + [I] * 5 + [L, L, I]
+        lib.wf_synth_dense.argtypes = ([P] * 14 + [I] * 5 + [L, L, I]
                                        + [P, I, P, P])
-        lib.wf_synth_dense.restype = I
-        lib.wf_synth_panel.argtypes = ([P] * 12 + [I] * 5 + [L, L]
+        lib.wf_synth_panel.argtypes = ([P] * 13 + [I] * 5 + [L, L]
                                        + [P] * 5 + [I, I, I, L]
                                        + [P, I, P, P])
-        lib.wf_synth_panel.restype = I
+        lib.wf_synth_sparse.argtypes = ([P] * 13 + [I] * 5 + [L, L]
+                                        + [P] * 6 + [I, I, I, L]
+                                        + [P, I, P, P])
+        lib.wf_synth_stack.argtypes = ([P] * 12 + [I] * 4 + [L]
+                                       + [P, I, P, P])
+        for fn in (lib.wf_synth_dense, lib.wf_synth_panel,
+                   lib.wf_synth_sparse, lib.wf_synth_stack):
+            fn.restype = I
         lib.wf_error_string.argtypes = [I]
         lib.wf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -133,9 +166,20 @@ def _descriptors(d, dense):
     return {n: getattr(d, n) for n in names}
 
 
-def _out_kind(out, scale, shape):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _out_kind(out, scale, shape, pair=False):
+    """0 f32, 1 int16 codes, 2 complex64 (pair mode); raises on anything
+    the kernels do not take."""
     if tuple(out.shape) != shape:
         raise ValueError(f"out has shape {tuple(out.shape)}, expected {shape}")
+    if pair != (out.dtype == torch.complex64):
+        raise ValueError("a pair-mode schedule (amp_im) needs a complex64 "
+                         "output, and a complex64 output needs one")
+    if out.dtype == torch.complex64:
+        return 2
     if out.dtype == torch.float32:
         return 0
     if out.dtype == torch.int16:
@@ -143,6 +187,23 @@ def _out_kind(out, scale, shape):
             raise ValueError("int16 output needs a per-channel f32 scale")
         return 1
     raise ValueError(f"unsupported output dtype {out.dtype}")
+
+
+def _checked(d, dense, out, scale, shape, **extra):
+    """Validate a descriptor-walk launch -> (out kind, descriptor
+    pointers incl. amp_im)."""
+    pair = d.amp_im is not None
+    kind = _out_kind(out, scale, shape, pair)
+    desc = _descriptors(d, dense)
+    tensors = dict(desc, out=out, **extra)
+    if kind == 1:
+        tensors['scale'] = scale
+    if pair:
+        tensors['amp_im'] = d.amp_im
+    _check_cuda(tensors, out.device)
+    if shape[0] > 65535:
+        raise ValueError("at most 65535 channels per launch")
+    return kind, [t.data_ptr() for t in desc.values()] + [_ptr(d.amp_im)]
 
 
 def _raise_on(code, name):
@@ -187,46 +248,74 @@ def _dense_tile(d):
     return tile
 
 
+def _stream(out):
+    return torch.cuda.current_stream(out.device).cuda_stream
+
+
 def _launch_dense(d, out, scale):
     C, NB, S, T, F = d.shape
-    kind = _out_kind(out, scale, (C, d.n_samples))
-    desc = _descriptors(d, dense=True)
-    _check_cuda(dict(desc, out=out, **({'scale': scale} if kind else {})),
-                out.device)
-    if C > 65535:
-        raise ValueError("at most 65535 channels per launch")
+    kind, desc = _checked(d, True, out, scale, (C, d.n_samples))
     lib = load_library()
     with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
         code = lib.wf_synth_dense(
-            *(t.data_ptr() for t in desc.values()), C, NB, S, T, F,
-            d.n_samples, d.bucket_samples, _dense_tile(d), out.data_ptr(),
-            kind, scale.data_ptr() if kind else None, stream)
+            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
+            _dense_tile(d), out.data_ptr(), kind, _ptr(scale), _stream(out))
     _raise_on(code, 'synth_dense')
 
 
 def _launch_panel(d, work, out, scale):
     C, NB, S, T, F = d.shape
-    kind = _out_kind(out, scale, (C, out.shape[1]))
-    desc = _descriptors(d, dense=False)
     plan = {n: getattr(work, n) for n in
             ('start', 'work_t', 'work_o', 'work_s0', 'work_s1')}
-    _check_cuda(dict(desc, out=out, **plan,
-                     **({'scale': scale} if kind else {})), out.device)
-    if C > 65535 or work.n_panels > 65535:
-        raise ValueError("at most 65535 channels and panels per launch")
-    if kind and NB > 1:
+    kind, desc = _checked(d, False, out, scale, (C, out.shape[1]), **plan)
+    if work.n_panels > 65535:
+        raise ValueError("at most 65535 panels per launch")
+    if kind == 1 and NB > 1:
         raise ValueError("int16 panel output needs a single bucket")
     lib = load_library()
     with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
         code = lib.wf_synth_panel(
-            *(t.data_ptr() for t in desc.values()), C, NB, S, T, F,
-            d.n_samples, d.bucket_samples,
+            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
             *(t.data_ptr() for t in plan.values()), work.Rs, work.P,
-            work.n_panels, out.shape[1], out.data_ptr(), kind,
-            scale.data_ptr() if kind else None, stream)
+            work.n_panels, out.shape[1], out.data_ptr(), kind, _ptr(scale),
+            _stream(out))
     _raise_on(code, 'synth_panel')
+
+
+def _launch_sparse(d, work, out, scale):
+    C, NB, S, T, F = d.shape
+    plan = {n: getattr(work, n) for n in
+            ('work_c', 'work_b', 'work_t', 'work_o', 'work_s0', 'work_s1')}
+    kind, desc = _checked(d, False, out, scale, (C, out.shape[1]), **plan)
+    if NB > 1 and d.bucket_samples % (work.Rs * 128):
+        raise ValueError("buckets must be whole subtiles, so that no output "
+                         "subtile has two worklist items")
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_synth_sparse(
+            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
+            *(t.data_ptr() for t in plan.values()), work.work_c.shape[0],
+            work.Rs, work.n_tiles, out.shape[1], out.data_ptr(), kind,
+            _ptr(scale), _stream(out))
+    _raise_on(code, 'synth_sparse')
+
+
+def _launch_stack(t, out, scale):
+    kind = _out_kind(out, scale, (t.n_channels, t.n_samples))
+    if kind == 2:
+        raise ValueError("the stack kernel has no pair mode")
+    tables = {n: getattr(t, n) for n in
+              ('inst', 'amp', 'term_nfac', 'op', 'power', 'shift_hi', 'q32',
+               'args', 'ext', 'blk_inst', 'blk_row', 'chunk_start')}
+    _check_cuda(dict(tables, out=out, **({'scale': scale} if kind else {})),
+                out.device)
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_synth_stack(
+            *(v.data_ptr() for v in tables.values()), t.NT, t.TF,
+            t.n_channels, t.n_chunks, t.n_samples, out.data_ptr(), kind,
+            _ptr(scale), _stream(out))
+    _raise_on(code, 'synth_stack')
 
 
 #: K1: ``synth_dense(dev, out, scale)`` fills out (C, n_samples)
@@ -241,7 +330,21 @@ synth_panel = _Kernel(
     'waveforms_tpu/ops/sparse_synth.py:476', reference.panel_walk,
     _launch_panel)
 
-KERNELS = (synth_dense, synth_panel)
+#: K7: ``synth_sparse(dev, work, out, scale)`` stores the live subtiles of
+#: a SparseWork into a zeroed out (C, window_samples)
+synth_sparse = _Kernel(
+    'synth_sparse', 'waveforms_tpu_torch/csrc/synth_sparse.cu',
+    'waveforms_tpu/ops/sparse_synth.py:199', reference.sparse_walk,
+    _launch_sparse)
+
+#: K5: ``synth_stack(tables, out, scale)`` fills out (C, n_samples) from
+#: StackTables
+synth_stack = _Kernel(
+    'synth_stack', 'waveforms_tpu_torch/csrc/synth_stack.cu',
+    'waveforms_tpu/ops/stack_synth.py:1145', reference.stack_eval,
+    _launch_stack)
+
+KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack)
 
 
 def reset_launch_counts():

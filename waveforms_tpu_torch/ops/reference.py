@@ -29,7 +29,8 @@ from .lowering import (DRAG_SIN_NC, DRAG_SINX_MAXQ, OP_COS, OP_COSH, OP_DRAG,
                        OP_LINEARCHIRP, OP_MOLLIFIER, OP_POLY_GAUSS, OP_SINC,
                        OP_SINH, W_ARGS)
 
-__all__ = ['op_builders', 'dense_walk', 'panel_walk', 'wrap32']
+__all__ = ['op_builders', 'dense_walk', 'panel_walk', 'sparse_walk',
+           'stack_eval', 'wrap32']
 
 _F32 = torch.float32
 # f32 constants, exactly as the JAX kernel spells them (np.float32 values)
@@ -290,7 +291,9 @@ def _raise_power(v, p):
 
 def _factor_values(d, ff, idx, live):
     """Factor ``ff`` (flat factor index per element) at sample ``idx``;
-    1.0 where ``live`` is False."""
+    1.0 where ``live`` is False.  ``d`` holds flat-indexable ``op``,
+    ``power``, ``shift_hi``, ``q32``, ``args`` and ``ext`` (a
+    DeviceSchedule or the stack kernel's instance tables)."""
     op = torch.where(live, d.op.reshape(-1)[ff], -1)
     out = torch.ones(idx.shape, dtype=_F32, device=idx.device)
     args = d.args.reshape(-1)
@@ -317,63 +320,92 @@ def _factor_values(d, ff, idx, live):
 
 
 def _segment_values(d, c, b, s, idx):
-    """``clip(sum_t amp_t * prod_f factor_f)`` of slot (c, b, s) at idx."""
+    """``clip(sum_t amp_t * prod_f factor_f)`` of slot (c, b, s) at idx, as
+    a list of one plane, or of two in pair mode (``d.amp_im`` set): there
+    the product starts at 1.0 and the two planes are ``sum_t amp_t * prod``
+    and ``sum_t amp_im_t * prod``, each clipped, as the JAX kernel's
+    ``_tile_walker`` computes them."""
     C, NB, S, T, F = d.shape
+    pair = d.amp_im is not None
     row = (c * NB + b) * S + s
     nt = d.nterm.reshape(-1)[row]
     amp = d.amp.reshape(-1)
+    amp_im = d.amp_im.reshape(-1) if pair else None
     nfac = d.nfac.reshape(-1)
-    seg = torch.zeros(idx.shape, dtype=_F32, device=idx.device)
+    segs = [torch.zeros(idx.shape, dtype=_F32, device=idx.device)
+            for _ in range(2 if pair else 1)]
     for t in range(T):
         live_t = t < nt
         if not bool(live_t.any()):
             break
         tf = row * T + t
-        prod = amp[tf]
+        prod = torch.ones_like(segs[0]) if pair else amp[tf]
         nf = nfac[tf]
         for f in range(F):
             live_f = live_t & (f < nf)
             if not bool(live_f.any()):
                 break
             prod = prod * _factor_values(d, tf * F + f, idx, live_f)
-        seg = torch.where(live_t, seg + prod, seg)
+        terms = (amp[tf] * prod, amp_im[tf] * prod) if pair else (prod,)
+        segs = [torch.where(live_t, sg + v, sg) for sg, v in zip(segs, terms)]
     cmin = d.clip[c, 0]
     cmax = d.clip[c, 1]
-    return torch.minimum(torch.maximum(seg, cmin), cmax)
+    return [torch.minimum(torch.maximum(sg, cmin), cmax) for sg in segs]
 
 
-def _accumulate(d, acc, c, b, s, a, e, dst):
+def _accumulate(d, accs, c, b, s, a, e, dst):
     """Add slot (c[r], b[r], s[r])'s value over samples [a[r], e[r]) into
-    ``acc[c[r], dst[r] + (idx - a[r])]``, in chunks of elements.  Within
-    one call no output element is hit twice, so the adds do not race."""
-    n_out = acc.shape[1]
+    ``acc[c[r], dst[r] + (idx - a[r])]`` for each plane of ``accs``, in
+    chunks of elements.  Within one call no output element is hit twice,
+    so the adds do not race."""
+    n_out = accs[0].shape[1]
     length = e - a
     cum = torch.cumsum(length, 0)
     total = int(cum[-1]) if cum.numel() else 0
     first = cum - length
-    flat = acc.view(-1)
     for e0 in range(0, total, CHUNK):
-        el = torch.arange(e0, min(e0 + CHUNK, total), device=acc.device)
+        el = torch.arange(e0, min(e0 + CHUNK, total), device=accs[0].device)
         r = torch.searchsorted(cum, el, right=True)
         off = el - first[r]
         cr = c[r]
         vals = _segment_values(d, cr, b[r], s[r], a[r] + off)
-        flat.index_add_(0, cr * n_out + dst[r] + off, vals)
+        for acc, v in zip(accs, vals):
+            acc.view(-1).index_add_(0, cr * n_out + dst[r] + off, v)
 
 
-def _store(acc, out, scale):
-    """f32 stores as is; int16 as clip(round_half_even(acc * scale))."""
-    if out.dtype == torch.int16:
-        code = torch.round(acc * scale.reshape(-1, 1))
-        out.copy_(torch.clamp(code, -32768.0, 32767.0).to(torch.int16))
-    elif acc is not out:
-        out.copy_(acc)
+def _planes(out, pair):
+    """Zeroed f32 accumulators for ``out``: ``out`` itself when it is f32,
+    else one (or, in pair mode, two) f32 planes of its shape."""
+    if out.dtype == _F32:
+        return [out.zero_()]
+    return [torch.zeros(out.shape, dtype=_F32, device=out.device)
+            for _ in range(2 if pair else 1)]
+
+
+def _stored(accs, dtype, scale):
+    """What the kernels store: f32 as is, int16 codes
+    clip(round_half_even(acc * scale)) (``scale`` broadcast to the
+    planes), complex64 re + i*im."""
+    if dtype == torch.int16:
+        code = torch.round(accs[0] * scale)
+        return torch.clamp(code, -32768.0, 32767.0).to(torch.int16)
+    if dtype == torch.complex64:
+        return torch.complex(accs[0], accs[1])
+    return accs[0]
+
+
+def _store(accs, out, scale):
+    v = _stored(accs, out.dtype,
+                None if scale is None else scale.reshape(-1, 1))
+    if v is not out:
+        out.copy_(v)
     return out
 
 
 def dense_walk(d, out, scale=None):
-    """Plain version of the dense kernel: fill ``out`` (C, n_samples), f32
-    or int16 (``scale`` per channel), from DeviceSchedule ``d``.
+    """Plain version of the dense kernel: fill ``out`` (C, n_samples), f32,
+    int16 (``scale`` per channel) or, in pair mode, complex64, from
+    DeviceSchedule ``d``.
 
     Sample i reads bucket ``min(i // bucket_samples, NB - 1)``; slots are
     added in ascending order, so each sample sums its segments in the
@@ -381,8 +413,7 @@ def dense_walk(d, out, scale=None):
     C, NB, S, T, F = d.shape
     n = d.n_samples
     dev = d.seg_lo.device
-    acc = (out.zero_() if out.dtype == _F32
-           else torch.zeros((C, n), dtype=_F32, device=dev))
+    accs = _planes(out, d.amp_im is not None)
     cc = torch.arange(C, device=dev).repeat_interleave(NB)
     bb = torch.arange(NB, device=dev).repeat(C)
     if NB > 1:
@@ -402,44 +433,126 @@ def dense_walk(d, out, scale=None):
         if not bool(live.any()):
             continue
         a, e = a[live], e[live]
-        _accumulate(d, acc, cc[live], bb[live], torch.full_like(a, s), a, e,
+        _accumulate(d, accs, cc[live], bb[live], torch.full_like(a, s), a, e,
                     a)
-    return _store(acc, out, scale)
+    return _store(accs, out, scale)
+
+
+def _walk_items(d, accs, c, b, base, obase, s0, s1, tile):
+    """Walk worklist items: item r evaluates samples [base[r], base[r] +
+    tile) of (channel c[r], bucket b[r]) over its segments [s0[r], s1[r])
+    and adds them at output offset obase[r]; samples past the output's
+    end are not evaluated."""
+    C, NB, S, T, F = d.shape
+    window = accs[0].shape[1]
+    end = torch.minimum(base + tile, base + (window - obase))
+    for kk in range(int((s1 - s0).max()) if s1.numel() else 0):
+        s = s0 + kk
+        m = s < s1
+        sm = torch.where(m, s, 0)
+        row = (c * NB + b) * S + sm
+        a = torch.maximum(d.seg_lo.reshape(-1)[row].to(torch.int64), base)
+        e = torch.minimum(d.seg_hi.reshape(-1)[row].to(torch.int64), end)
+        live = m & (d.nterm.reshape(-1)[row] > 0) & (e > a)
+        if not bool(live.any()):
+            continue
+        _accumulate(d, accs, c[live], b[live], sm[live], a[live], e[live],
+                    (obase + a - base)[live])
 
 
 def panel_walk(d, work, out, scale=None):
     """Plain version of the panel kernel: zeros everywhere, and the live
     subtiles of ``work`` (a :class:`..ops.sparse_synth.PanelWork`) walked
     over their own segment ranges ``[work_s0, work_s1)``.  Fills ``out``
-    (C, window_samples), f32 or int16."""
+    (C, window_samples), f32, int16 or, in pair mode, complex64."""
     C, NB, S, T, F = d.shape
     dev = d.seg_lo.device
-    window = out.shape[1]
-    acc = (out.zero_() if out.dtype == _F32
-           else torch.zeros((C, window), dtype=_F32, device=dev))
+    accs = _planes(out, d.amp_im is not None)
     if work.n_live:
         k = torch.arange(work.n_live, device=dev)
         slot = torch.searchsorted(work.start.to(torch.int64), k,
                                   right=True) - 1
-        c = slot // (work.n_panels * NB)
-        b = slot % NB
         tile = work.Rs * 128
-        base = work.work_t[:work.n_live].to(torch.int64) * tile
-        obase = work.work_o[:work.n_live].to(torch.int64) * tile
-        s0 = work.work_s0[:work.n_live].to(torch.int64)
-        s1 = work.work_s1[:work.n_live].to(torch.int64)
-        # samples past the window are not stored
-        end = torch.minimum(base + tile, base + (window - obase))
-        for kk in range(int((s1 - s0).max())):
-            s = s0 + kk
-            m = s < s1
-            sm = torch.where(m, s, 0)
-            row = (c * NB + b) * S + sm
-            a = torch.maximum(d.seg_lo.reshape(-1)[row].to(torch.int64), base)
-            e = torch.minimum(d.seg_hi.reshape(-1)[row].to(torch.int64), end)
-            live = m & (d.nterm.reshape(-1)[row] > 0) & (e > a)
-            if not bool(live.any()):
-                continue
-            _accumulate(d, acc, c[live], b[live], sm[live], a[live], e[live],
-                        (obase + a - base)[live])
-    return _store(acc, out, scale)
+        _walk_items(d, accs, slot // (work.n_panels * NB), slot % NB,
+                    work.work_t[:work.n_live].to(torch.int64) * tile,
+                    work.work_o[:work.n_live].to(torch.int64) * tile,
+                    work.work_s0[:work.n_live].to(torch.int64),
+                    work.work_s1[:work.n_live].to(torch.int64), tile)
+    return _store(accs, out, scale)
+
+
+def sparse_walk(d, work, out, scale=None):
+    """Plain version of the worklist kernel: each item of ``work`` (a
+    :class:`..ops.sparse_synth.SparseWork`) whose output subtile lies in
+    the window evaluates its Rs x 128 subtile over its segments
+    ``[work_s0, work_s1)`` and stores it into ``out`` (C, window_samples),
+    f32, int16 or, in pair mode, complex64.  Nothing else of ``out`` is
+    written: the caller passes it zeroed, as the kernel expects."""
+    dev = d.seg_lo.device
+    window = out.shape[1]
+    tile = work.Rs * 128
+    o = work.work_o.to(torch.int64)
+    live = torch.nonzero(o < work.n_tiles).squeeze(1)
+    if not live.numel():
+        return out
+    accs = [torch.zeros(out.shape, dtype=_F32, device=dev)
+            for _ in range(2 if d.amp_im is not None else 1)]
+    c = work.work_c.to(torch.int64)[live]
+    obase = o[live] * tile
+    _walk_items(d, accs, c, work.work_b.to(torch.int64)[live],
+                work.work_t.to(torch.int64)[live] * tile, obase,
+                work.work_s0.to(torch.int64)[live],
+                work.work_s1.to(torch.int64)[live], tile)
+    pos = (c * window + obase)[:, None] + torch.arange(tile, device=dev)
+    pos = pos[(obase[:, None] + torch.arange(tile, device=dev)) < window]
+    out.view(-1)[pos] = _stored([a.view(-1)[pos] for a in accs], out.dtype,
+                                None if scale is None else scale[pos // window])
+    return out
+
+
+def _instance_values(t, m, idx):
+    """Stack instance ``m`` (per element) at sample ``idx``: the sum over
+    its terms of ``amp_t * prod_f factor_f``, in the order of the JAX
+    package's ``_eval_blocks`` (unmasked)."""
+    nt = t.inst[:, 3][m]
+    TF = t.op.shape[1]
+    seg = torch.zeros(idx.shape, dtype=_F32, device=idx.device)
+    f0 = torch.zeros_like(m)
+    for tt in range(t.NT):
+        live_t = tt < nt
+        if not bool(live_t.any()):
+            break
+        prod = t.amp[m, tt]
+        nf = t.term_nfac[m, tt].to(torch.int64)
+        for k in range(int(nf.max())):
+            live_f = live_t & (k < nf)
+            ff = torch.where(live_f, m * TF + f0 + k, 0)
+            prod = prod * _factor_values(t, ff, idx, live_f)
+        seg = torch.where(live_t, prod if tt == 0 else seg + prod, seg)
+        f0 = f0 + nf
+    return seg
+
+
+def stack_eval(t, out, scale=None):
+    """Plain version of the stack kernel: fill ``out`` (C, n_samples), f32
+    or int16 (``scale`` per channel), with the sum of every block of the
+    instance tables ``t`` (a :class:`..ops.stack_synth.StackTables`): block
+    j adds instance ``blk_inst[j]``'s value, masked to its [lo, hi), over
+    the 128 samples of row ``blk_row[j]`` of its channel.  Blocks are added
+    in table order, as the kernel adds them per chunk."""
+    n = out.shape[1]
+    accs = _planes(out, False)
+    flat = accs[0].view(-1)
+    total = t.n_blocks * 128
+    for e0 in range(0, total, CHUNK):
+        el = torch.arange(e0, min(e0 + CHUNK, total), device=out.device)
+        j = el // 128
+        m = t.blk_inst[j].to(torch.int64)
+        idx = t.blk_row[j].to(torch.int64) * 128 + el % 128
+        inst = t.inst[m].to(torch.int64)
+        keep = (idx >= inst[:, 1]) & (idx < inst[:, 2])
+        if not bool(keep.any()):
+            continue
+        vals = _instance_values(t, m[keep], idx[keep])
+        flat.index_add_(0, inst[keep, 0] * n + idx[keep], vals)
+    return _store(accs, out, scale)

@@ -1,4 +1,4 @@
-"""Live-subtile plans and the panel synthesis path.
+"""Live-subtile plans, the panel path and the worklist path.
 
 The plans are the JAX package's, built the same way so that they compare
 array-equal with it: :func:`build_sparse_plan` enumerates the live
@@ -7,7 +7,10 @@ array-equal with it: :func:`build_sparse_plan` enumerates the live
 bucket).  :func:`synthesize_panels` runs the panel kernel
 (``csrc/synth_panel.cu`` on a CUDA device, its plain version
 :func:`.reference.panel_walk` on the CPU): zeros everywhere, and only the
-live subtiles evaluated.
+live subtiles evaluated.  :func:`synthesize_sparse` runs the worklist
+kernel (``csrc/synth_sparse.cu``, plain version
+:func:`.reference.sparse_walk`): one thread block per live subtile over a
+zeroed output.  Both take pair-mode schedules (complex64 output).
 
 The TPU kernel kept its worklist in scalar memory under a budget; a GPU
 worklist lives in global memory, so that budget is gone.  The rule that
@@ -25,9 +28,10 @@ import torch
 from .lowering import LoweredSchedule, UnsupportedFactor
 from .synth import DeviceSchedule, normalize_out_dtype, validate_out_mode
 
-__all__ = ['SparsePlan', 'build_sparse_plan', 'PanelPlan', 'PanelWork',
-           'build_panel_plan', 'panels_eligible', 'synthesize_panels',
-           'PANEL_OCCUPANCY_THRESHOLD']
+__all__ = ['SparsePlan', 'SparseWork', 'build_sparse_plan', 'PanelPlan',
+           'PanelWork', 'build_panel_plan', 'panels_eligible',
+           'synthesize_panels', 'synthesize_sparse',
+           'PANEL_OCCUPANCY_THRESHOLD', 'SPARSE_OCCUPANCY_THRESHOLD']
 
 DEFAULT_SUBTILE_ROWS = 32
 
@@ -35,6 +39,11 @@ DEFAULT_SUBTILE_ROWS = 32
 # fraction.  The JAX package's value, measured on TPU v5e; unmeasured on
 # the H100.
 PANEL_OCCUPANCY_THRESHOLD = 0.35
+
+# Below this padded live-subtile fraction, a schedule that the panel
+# kernel cannot take (int16 with several buckets) goes to the worklist
+# kernel.  The JAX package's value (TPU v5e); unmeasured on the H100.
+SPARSE_OCCUPANCY_THRESHOLD = 0.2
 
 # Panel height in rows before the exact-fit shrink (the JAX package's value,
 # so that plans compare array-equal).
@@ -282,19 +291,103 @@ def synthesize_panels(dev: DeviceSchedule,
                       out_dtype=None,
                       dac_scale=32767.0) -> torch.Tensor:
     """Run the panel kernel on ``dev`` -> (C, window_samples) on
-    ``dev.device`` (f32, or int16 DAC codes)."""
+    ``dev.device`` (f32, int16 DAC codes, or complex64 in pair mode)."""
     from .. import kernels
     C = dev.shape[0]
-    dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device)
+    dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device,
+                                  pair=dev.amp_im is not None)
     if plan is None:
         if low is None:
             raise ValueError("synthesize_panels needs `low` or `plan`")
         plan = build_panel_plan(low, Rs=Rs)
     _validate_panel_plan(plan, dev)
-    if not panels_eligible(plan, dt):
+    if not panels_eligible(plan, out_dtype):
         raise UnsupportedFactor(
             "int16 panel output needs a single-bucket schedule -- use the "
             "dense path")
     out = torch.empty((C, plan.window_samples), dtype=dt, device=dev.device)
     return kernels.synth_panel(dev, PanelWork.upload(plan, dev.device), out,
                                scale)
+
+
+@dataclass
+class SparseWork:
+    """A SparsePlan's worklist as int32 tensors on the schedule's device.
+    Padding items have ``work_o == n_tiles`` and write nothing."""
+    Rs: int
+    n_tiles: int
+    n_live: int
+    work_c: torch.Tensor
+    work_b: torch.Tensor
+    work_t: torch.Tensor
+    work_o: torch.Tensor
+    work_s0: torch.Tensor
+    work_s1: torch.Tensor
+
+    @classmethod
+    def upload(cls, plan: SparsePlan, device) -> 'SparseWork':
+        def put(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.int32)).to(device)
+        return cls(Rs=plan.Rs, n_tiles=plan.n_tiles, n_live=plan.n_live,
+                   work_c=put(plan.work_c), work_b=put(plan.work_b),
+                   work_t=put(plan.work_t), work_o=put(plan.work_o),
+                   work_s0=put(plan.work_s0), work_s1=put(plan.work_s1))
+
+
+def _validate_sparse_plan(plan: SparsePlan, dev: DeviceSchedule) -> None:
+    """A plan built from another lowering would index the wrong
+    descriptor blocks; check every cross-reference before launching."""
+    C, NB, S, T, F = dev.shape
+    if plan.n_channels != C:
+        raise ValueError(
+            f"sparse plan covers {plan.n_channels} channels, schedule has "
+            f"{C} -- rebuild the plan from this schedule's lowering")
+    if plan.bucket_samples and plan.bucket_samples != dev.bucket_samples:
+        raise ValueError(
+            f"sparse plan bucket_samples {plan.bucket_samples} != "
+            f"schedule's {dev.bucket_samples}")
+    if plan.window_samples > dev.n_samples:
+        raise ValueError(
+            f"sparse plan window ({plan.window_samples} samples) exceeds "
+            f"the schedule ({dev.n_samples})")
+    if plan.n_live:
+        live = slice(0, plan.n_live)
+        n_rows = -(-dev.n_samples // 128)
+        n_tiles_abs = -(-n_rows // plan.Rs)
+        if (int(plan.work_c[live].max()) >= C
+                or int(plan.work_b[live].max()) >= NB
+                or int(plan.work_s1[live].max()) > S
+                or int(plan.work_t[live].max()) >= n_tiles_abs):
+            raise ValueError(
+                "sparse plan indexes outside this schedule's descriptor "
+                f"blocks (shape {dev.shape}, {n_tiles_abs} subtiles) -- "
+                "it was built from a different lowering")
+
+
+def synthesize_sparse(dev: DeviceSchedule,
+                      low: LoweredSchedule | None = None,
+                      plan: SparsePlan | None = None,
+                      Rs: int = DEFAULT_SUBTILE_ROWS,
+                      out_dtype=None,
+                      dac_scale=32767.0) -> torch.Tensor:
+    """Run the worklist kernel on ``dev`` -> (C, window_samples) on
+    ``dev.device`` (f32, int16 DAC codes, or complex64 in pair mode).
+
+    The output starts zeroed (``torch.zeros``, the background that the
+    TPU kernel, too, takes from outside) and the kernel stores each live
+    subtile once: ``build_sparse_plan`` requires buckets that are whole
+    subtiles, so no subtile has two items and int16 needs no single-bucket
+    rule here."""
+    from .. import kernels
+    C = dev.shape[0]
+    dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device,
+                                  pair=dev.amp_im is not None)
+    if plan is None:
+        if low is None:
+            raise ValueError("synthesize_sparse needs `low` or `plan`")
+        plan = build_sparse_plan(low, Rs=Rs)
+    _validate_sparse_plan(plan, dev)
+    out = torch.zeros((C, plan.window_samples), dtype=dt, device=dev.device)
+    return kernels.synth_sparse(dev, SparseWork.upload(plan, dev.device),
+                                out, scale)

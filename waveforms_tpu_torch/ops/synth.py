@@ -4,7 +4,9 @@
 one torch device; :func:`synthesize_device` runs the dense grid kernel over
 them (:mod:`..kernels`).  On a CUDA device that is the hand-written kernel
 ``csrc/synth_dense.cu``; on the CPU it is the kernel's plain version
-(:func:`.reference.dense_walk`).
+(:func:`.reference.dense_walk`).  A schedule lowered with
+``part='complex'`` runs in pair mode: one pass over the factor products,
+two amplitude planes, a complex64 result.
 
 GPU descriptors live in global memory, so the TPU kernel's scalar-memory
 budgets (``LoweredSchedule.pallas_ok``) do not apply here.
@@ -76,10 +78,18 @@ def dac_scale_tensor(dtype, dac_scale, n_channels, device):
     return scale.contiguous().to(device)
 
 
-def validate_out_mode(out_dtype, n_channels, dac_scale, device):
+def validate_out_mode(out_dtype, n_channels, dac_scale, device,
+                      pair=False):
     """One output-mode gate for every entry point: returns
-    ``(torch dtype, scale or None)``."""
+    ``(torch dtype of the output, scale or None)``.  Pair mode (a schedule
+    lowered with ``part='complex'``) needs f32 accumulation and returns
+    ``torch.complex64``, as the JAX package's ``validate_out_mode``."""
     dt = normalize_out_dtype(out_dtype)
+    if pair:
+        if dt != torch.float32:
+            raise ValueError("pair-mode (complex) synthesis requires f32 "
+                             "output")
+        return torch.complex64, None
     return dt, dac_scale_tensor(dt, dac_scale, n_channels, device)
 
 
@@ -102,12 +112,11 @@ class DeviceSchedule:
     Shapes follow :class:`.lowering.LoweredSchedule` (contiguous, int32 or
     f32); ``seg_hmax`` is the running max of ``seg_hi`` per bucket list, the
     dense kernel's bisect key.  Opcodes stay the lowering's own numbers.
-    Pair mode (``part='complex'``, two amplitude planes) is not ported yet.
+    ``amp_im`` is the second amplitude plane of a ``part='complex'``
+    lowering (pair mode), else None.
     """
 
     def __init__(self, low: LoweredSchedule, device='cpu'):
-        if low.amp_im is not None:
-            raise ValueError("pair mode (part='complex') is not ported yet")
         self.device = resolve_device(device)
         self.shape = tuple(int(v) for v in low.shape)
         self.n_samples = int(low.n_samples)
@@ -136,6 +145,8 @@ class DeviceSchedule:
         self.args = put(low.args, np.float32)
         self.ext = put(ext, np.float32)
         self.clip = put(clip, np.float32)
+        self.amp_im = (None if low.amp_im is None
+                       else put(low.amp_im, np.float32))
 
 
 def synthesize_device(dev: DeviceSchedule, out_dtype=None,
@@ -144,10 +155,12 @@ def synthesize_device(dev: DeviceSchedule, out_dtype=None,
 
     ``out_dtype=torch.int16`` emits DAC codes
     ``clip(round_half_even(x * dac_scale))``; ``dac_scale`` is a scalar or a
-    per-channel vector.  Accumulation is f32 either way."""
+    per-channel vector.  A pair-mode schedule gives complex64.
+    Accumulation is f32 either way."""
     from .. import kernels
     C = dev.shape[0]
-    dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device)
+    dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device,
+                                  pair=dev.amp_im is not None)
     out = torch.empty((C, dev.n_samples), dtype=dt, device=dev.device)
     return kernels.synth_dense(dev, out, scale)
 

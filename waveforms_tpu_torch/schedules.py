@@ -1,12 +1,16 @@
-"""The three bench schedules of the repository, built with the port.
+"""The bench schedules of the repository, built with the port.
 
 The same constructions, seeds and widths as ``bench.py``'s
 ``build_schedule``, ``build_mid_schedule`` and ``build_dense_schedule``
-(128 channels at 2 GS/s), so the port runs what the JAX package's bench
-runs without importing it.  :data:`STRATA` names each with its span.
+(128 channels at 2 GS/s), and as the occupancy ladder of
+``tools/tpu_capture.py`` (``_ladder_chans``), so the port runs what the
+JAX package's benches run without importing it.  :data:`STRATA` names each
+with its span.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 
@@ -14,7 +18,7 @@ from .core import zero
 from .models import chirp, cosPulse, gaussian, mixing, square
 
 __all__ = ['FS', 'build_schedule', 'build_mid_schedule',
-           'build_dense_schedule', 'STRATA']
+           'build_dense_schedule', 'build_ladder_schedule', 'STRATA']
 
 FS = 2e9
 
@@ -68,9 +72,27 @@ def build_mid_schedule(n_channels=128, duration=524.288e-6, seed=2):
     return chans
 
 
+def build_ladder_schedule(n_pulses, n_channels=128, duration=524.288e-6,
+                          seed=5):
+    """Occupancy ladder: ``n_pulses`` 200 ns mixed pulses per channel over
+    a 524 us window (25 pulses ~ 10% subtile occupancy, 120 ~ 39%)."""
+    rng = np.random.default_rng(seed)
+    chans = []
+    for c in range(n_channels):
+        x = zero()
+        for _ in range(n_pulses):
+            I, _ = mixing(
+                0.5 * cosPulse(200e-9) >> rng.uniform(0, duration * 0.9),
+                freq=-150e6 - 2e6 * c, DRAGScaling=1e-10)
+            x += I
+        chans.append(x)
+    return chans
+
+
 #: stratum -> (builder, stop in seconds); every stratum starts at 0
 STRATA = {
     'flagship': (build_schedule, 1e-3),
     'mid': (build_mid_schedule, 524.288e-6),
     'dense': (build_dense_schedule, 1e-3),
+    'ladder120': (partial(build_ladder_schedule, 120), 524.288e-6),
 }
