@@ -13,23 +13,31 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    stack route's vstack / overlapping-DRAG / wide-residual / clipped /
    multi-tone DRAG / bucketed shapes with int16 quantized in the kernel and
    after the residual, and pair mode (``part='complex'``) on K1, K2, K7;
+   then the double tier (``precision='double'``): one schedule per
+   ``HI_OPS`` opcode, powers, clip rails, several buckets, a 2M-sample
+   carrier and exotic chirps through K3 (``engine='cuda-dense'``) and,
+   where single-bucket, K4, each against its plain float64 version on the
+   card (1e-12 of the channel's peak) and the oracle (the JAX suite's
+   limits), with the ``combine=False`` (hi, lo) planes;
 3. the strata at full size (128 channels, 2 GS/s), each main path through
    ``waveforms_tpu_torch.synthesize(..., device='cuda')`` with the launch
    counts set to 0 just before it and read just after:
    flagship f32 and int16, mid and dense (``engine='auto'``), ladder120 f32
    and int16 (``auto``, the stack route), flagship ``part='complex'``
-   (``auto``, the panel kernel in pair mode) and flagship f32 with
-   ``engine='cuda-sparse'`` (the worklist kernel);
+   (``auto``, the panel kernel in pair mode), flagship f32 with
+   ``engine='cuda-sparse'`` (the worklist kernel), and flagship, dense and
+   ladder120 with ``precision='double'`` (``auto``: K4, K3, K3);
 4. for each stratum: kernel against plain version over the whole output,
    the oracle on 3 channels at full length, and the kernel's and the plain
-   version's times (CUDA events, warm-up, median of 11) beside a plain
-   ``fill_`` of the same output (the store roofline), with the host
-   layers' seconds; on ladder120 also K1 (``engine='cuda-dense'``, the
-   route the port took before the stack route) on the same schedule, and
-   on the dense stratum K1 in pair mode.
+   version's times (CUDA events, warm-up, median of 11; of 3 for the
+   double tier's plain versions) beside a plain ``fill_`` of the same
+   output (the store roofline), with the host layers' seconds; on
+   ladder120 also K1 (``engine='cuda-dense'``, the route the port took
+   before the stack route) on the same schedule, and on the dense stratum
+   K1 in pair mode.
 
-Each phase prints one JSON line (``--record PATH`` also writes them all to
-one JSON file).  The line before the last is the kernel
+Each phase prints one compact JSON line (``--record PATH`` writes every
+record in full to one JSON file).  The line before the last is the kernel
 summary; the last line is ``{"ok": true, "device": {...}}`` and is printed
 only when every phase passed.  Exits non-zero without a result when no
 CUDA device is visible or the port is not importable.
@@ -37,6 +45,7 @@ CUDA device is visible or the port is not importable.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -45,13 +54,19 @@ import time
 TOL_PLAIN = 1e-6      # kernel vs plain version, f32, of the channel's peak
 TOL_ORACLE = 2e-6     # vs the float64 oracle (the JAX suite's RTOL)
 TOL_CODES = 1         # int16 codes
+TOL_PLAIN_HI = 1e-12  # double-tier kernel vs plain version, f64
+TOL_ORACLE_HI = 1e-9  # double tier vs the float64 oracle
+TOL_SPLIT = 1e-14     # hi + lo vs the f64 output (the split loses 2^-48)
 REPS = 11
+REPS_PLAIN_HI = 3     # the double tier's plain versions take seconds
 RECORDS = []
 
 
-def log(record):
+def log(record, brief=None):
+    """Keep ``record`` for --record; print ``brief`` (default: the record)
+    as one line."""
     RECORDS.append(record)
-    print(json.dumps(record), flush=True)
+    print(json.dumps(record if brief is None else brief), flush=True)
 
 
 def rel_err(a, b):
@@ -420,7 +435,141 @@ def check_small(fail):
         log(rec)
 
 
-# (stratum, part, engine, dtype, expected route, kernels that must launch)
+def hi_small_cases():
+    """(name, channels, start, stop, bucket_samples, oracle tolerance) for
+    the double tier, at 2 GS/s: one schedule per HI_OPS opcode (the
+    mollifier at d = 0..3), powers, clip rails, several buckets, the
+    2M-sample carrier and the exotic chirps of tests/test_hi_synth.py.
+    Tolerances above TOL_ORACLE_HI are that suite's own."""
+    import numpy as np
+
+    from waveforms_tpu_torch import (WaveVStack, chirp, cos, cosh, cosPulse,
+                                     drag, drag_sin, drag_sinx, exp,
+                                     gaussian, mollifier, poly, sinc, sinh,
+                                     square)
+    bf = (151e6, -83e6, 217e6)
+    clipped = (2.0 * gaussian(2e-6)) >> 4e-6
+    clipped.min, clipped.max = -1.0, 1.0
+    rng = np.random.default_rng(5)
+    stack = WaveVStack([(0.3 * cosPulse(40e-9) >> o)
+                        for o in rng.uniform(0, 7e-6, 60)])
+    span = 8.192e-6
+    t = TOL_ORACLE_HI
+    return [
+        ('linear', [poly([0.5, 1e5, -1e11]) * square(3e-6),
+                    square(1e-6, edge=0.2e-6, type='linear')],
+         -2e-6, 2e-6, 'auto', t),
+        ('gaussian', [gaussian(1e-6)], -2e-6, 2e-6, 'auto', t),
+        ('cos', [cos(2 * np.pi * 137.137e6, 0.3)], 0.0, span, 'auto', t),
+        ('exp', [exp(1e5) * square(2e-6)], -2e-6, 2e-6, 'auto', t),
+        ('sinc', [sinc(20e6)], -2e-6, 2e-6, 'auto', t),
+        ('drag', [drag(50e6, 100e-9, plateau=40e-9, delta=1e6,
+                       block_freq=None, phase=0.3) >> 2e-6],
+         0.0, span, 'auto', t),
+        ('linearchirp', [chirp(1e6, 50e6, 1e-5, 0.3, 'linear')], 0.0, span,
+         'auto', t),
+        ('erf', [square(2e-6, edge=1e-7, type='erf') >> 3e-6],
+         0.0, span, 'auto', t),
+        ('cosh', [cosh(1e6) * square(2e-6)], -2e-6, 2e-6, 'auto', t),
+        ('sinh', [sinh(1e6) * square(2e-6)], -2e-6, 2e-6, 'auto', t),
+        ('poly_gauss', [gaussian(6e-7, d=d) >> 3e-6 for d in (1, 2, 3)],
+         0.0, span, 'auto', t),
+        ('mollifier', [mollifier(2e-6, d=d) >> 3e-6 for d in (0, 1, 2, 3)],
+         0.0, span, 'auto', t),
+        ('drag_sin', [drag_sin(0.2e9, 22.3e-9, plateau=6.1e-9, delta=3e6,
+                               block_freq=bf, phase=0.1)],
+         -5e-9, 40e-9, 'auto', 2e-9),
+        ('drag_sinx', [drag_sinx(0.2e9, 22.3e-9, plateau=6.1e-9, delta=3e6,
+                                 block_freq=bf, phase=0.1, tab=0.5)],
+         -5e-9, 40e-9, 'auto', 2e-9),
+        ('powers', [(gaussian(1e-6) ** 3) >> 3e-6,
+                    (square(2e-6) * cosh(1e6) ** -1) >> 3e-6],
+         0.0, span, 'auto', t),
+        ('clip_rails', [clipped], 0.0, span, 'auto', 2e-7),
+        ('bucketed', [stack, stack >> 1e-7], 0.0, span, 4096, t),
+        ('carrier_2M', [cos(2 * np.pi * 123.456789e6, 0.7)], 0.0,
+         1.048576e-3, 'auto', 2e-9),
+        ('exotic_chirps', [chirp(1e6, 8e7, span, type=kind)
+                           * gaussian(4e-6) >> 4e-6
+                           for kind in ('exponential', 'hyperbolic')],
+         0.0, span, None, t),
+    ]
+
+
+def split_err(hi, lo, out):
+    """(hi == f32(out), max over channels of |hi + lo - out| / peak)."""
+    import torch
+    same = bool(torch.equal(hi, out.float()))
+    return same, rel_err_t(hi.double() + lo.double(), out)
+
+
+def check_small_hi(fail):
+    """Phase 2, double tier: K3 (through the entry point) and K4 against
+    their plain f64 versions on the card and the oracle, and the split
+    planes.  One line for the phase; per-case records in --record."""
+    import torch
+
+    from waveforms_tpu_torch import kernels, synthesize
+    from waveforms_tpu_torch.ops.hi_synth import (HiSchedule, synthesize_hi,
+                                                  synthesize_hi_panels)
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.sparse_synth import (PanelWork,
+                                                      build_panel_plan)
+    worst = {'k3_vs_plain': 0.0, 'k4_vs_plain': 0.0, 'split': 0.0}
+    bad = []
+    fs = 2e9
+    for name, chans, start, stop, bs, tol in hi_small_cases():
+        low = lower_schedule(chans, start, stop, fs, bucket_samples=bs,
+                             keep_f64=True)
+        ora = synthesize(chans, start, stop, fs, engine='numpy')
+        n3 = kernels.synth_dense_hi.launches
+        k3 = synthesize(chans, start, stop, fs, engine='cuda-dense',
+                        bucket_samples=bs, precision='double', device='cuda')
+        torch.cuda.synchronize()
+        n3 = kernels.synth_dense_hi.launches - n3
+        dev = HiSchedule(low, 'cuda')
+        p3 = kernels.synth_dense_hi.plain(dev, torch.empty_like(k3), None)
+        same, e_split = split_err(*synthesize_hi(dev, combine=False), k3)
+        rec = {'phase': 'small_hi', 'case': name, 'shape': list(low.shape),
+               'k3_launched': n3,
+               'k3_vs_plain': rel_err_t(k3, p3),
+               'k3_vs_oracle': rel_err(k3.cpu().numpy(), ora),
+               'k3_split_hi_is_f32': same, 'k3_split': e_split,
+               'tol_oracle': tol}
+        ok = (rec['k3_launched'] == 1 and k3.dtype == torch.float64
+              and rec['k3_vs_plain'] <= TOL_PLAIN_HI
+              and rec['k3_vs_oracle'] <= tol and same
+              and e_split <= TOL_SPLIT)
+        worst['k3_vs_plain'] = max(worst['k3_vs_plain'], rec['k3_vs_plain'])
+        worst['split'] = max(worst['split'], e_split)
+        if low.shape[1] == 1:
+            plan = build_panel_plan(low)
+            k4 = synthesize_hi_panels(dev, plan=plan)
+            p4 = kernels.synth_panel_hi.plain(
+                dev, PanelWork.upload(plan, 'cuda'), torch.empty_like(k4),
+                None)
+            same4, e4 = split_err(
+                *synthesize_hi_panels(dev, plan=plan, combine=False), k4)
+            rec.update(k4_vs_plain=rel_err_t(k4, p4),
+                       k4_vs_oracle=rel_err(k4.cpu().numpy(), ora),
+                       k4_split_hi_is_f32=same4, k4_split=e4)
+            ok = (ok and rec['k4_vs_plain'] <= TOL_PLAIN_HI
+                  and rec['k4_vs_oracle'] <= tol and same4
+                  and e4 <= TOL_SPLIT)
+            worst['k4_vs_plain'] = max(worst['k4_vs_plain'],
+                                       rec['k4_vs_plain'])
+            worst['split'] = max(worst['split'], e4)
+        rec['ok'] = bool(ok)
+        RECORDS.append(rec)
+        if not ok:
+            bad.append(name)
+            fail.append(f"small_hi {name}")
+    log({'phase': 'small_hi', 'cases': len(hi_small_cases()), 'worst': worst,
+         'failed': bad, 'ok': not bad})
+
+
+# (stratum, part, engine, dtype, expected route, kernels that must launch);
+# dtype 'float64' is precision='double'
 CELLS = [
     ('flagship', 'real', 'auto', 'float32', 'panel', ('synth_panel',)),
     ('flagship', 'real', 'auto', 'int16', 'panel', ('synth_panel',)),
@@ -431,10 +580,13 @@ CELLS = [
     ('flagship', 'complex', 'auto', 'float32', 'panel', ('synth_panel',)),
     ('flagship', 'real', 'cuda-sparse', 'float32', 'sparse',
      ('synth_sparse',)),
+    ('flagship', 'real', 'auto', 'float64', 'panel', ('synth_panel_hi',)),
+    ('dense', 'real', 'auto', 'float64', 'dense', ('synth_dense_hi',)),
+    ('ladder120', 'real', 'auto', 'float64', 'dense', ('synth_dense_hi',)),
 ]
 # each kernel's time is taken at its own stratum
 KERNEL_CELL = {'synth_panel': 0, 'synth_dense': 3, 'synth_stack': 4,
-               'synth_sparse': 7}
+               'synth_sparse': 7, 'synth_panel_hi': 8, 'synth_dense_hi': 9}
 
 
 def cell_name(cell):
@@ -458,7 +610,8 @@ def run_strata(fail):
     from waveforms_tpu_torch.schedules import FS, STRATA
 
     chans = {name: STRATA[name][0]() for name in STRATA}
-    dtypes = {'float32': torch.float32, 'int16': torch.int16}
+    dtypes = {'float32': torch.float32, 'int16': torch.int16,
+              'float64': None}
 
     # the main paths, through the public entry point; each cell's counts are
     # set to 0 just before it and read just after
@@ -470,6 +623,8 @@ def run_strata(fail):
         outs[cell] = wt.synthesize(chans[stratum], 0.0, STRATA[stratum][1],
                                    FS, engine=engine, part=part,
                                    out_dtype=dtypes[dtype],
+                                   precision=('double' if dtype == 'float64'
+                                              else 'single'),
                                    dac_scale=32767.0, device='cuda')
         torch.cuda.synchronize()
         walls[cell] = time.perf_counter() - t0
@@ -478,9 +633,12 @@ def run_strata(fail):
             if counts[cell][k] == 0:
                 fail.append(f"{k} never launched on main path "
                             f"{cell_name(cell)}")
-    log({'phase': 'main_path',
-         'launches': {cell_name(c): counts[c] for c in CELLS},
-         'wall_s': {cell_name(c): walls[c] for c in CELLS}})
+    rec = {'phase': 'main_path',
+           'launches': {cell_name(c): counts[c] for c in CELLS},
+           'wall_s': {cell_name(c): walls[c] for c in CELLS}}
+    log(rec, {'phase': 'main_path', 'launches': {
+        cell_name(c): {k: n for k, n in counts[c].items() if n}
+        for c in CELLS}})
     total = {k.name: sum(counts[c][k.name] for c in CELLS)
              for k in kernels.KERNELS}
     for k in kernels.KERNELS:
@@ -494,6 +652,18 @@ def run_strata(fail):
     lowered = {}
     for i, cell in enumerate(CELLS):
         stratum, part, engine, dname, expect, _ = cell
+        if dname == 'float64':
+            rec = hi_stratum(cell, outs.pop(cell), chans[stratum],
+                             walls[cell], counts[cell])
+            if not rec['ok']:
+                fail.append(f"stratum {cell_name(cell)}")
+            name = rec['kernel']
+            if i == KERNEL_CELL[name]:
+                summary[name].update(max_abs_err=rec['vs_plain_abs'],
+                                     ms=rec['kernel_ms'],
+                                     plain_ms=rec['plain_ms'])
+            torch.cuda.empty_cache()
+            continue
         dtype = dtypes[dname]
         stop = STRATA[stratum][1]
         # the host layers of the same path, timed one by one; each stratum
@@ -595,7 +765,7 @@ def run_strata(fail):
             rec['pair'] = dense_pair(fail)
         rec['ok'] = bool(rec['route_ok'] and rec['finite'] and ok_plain
                          and ok_ora)
-        log(rec)
+        log(rec, brief_stratum(rec))
         if not rec['ok']:
             fail.append(f"stratum {cell_name(cell)}")
         if i == KERNEL_CELL[kern.name]:
@@ -604,6 +774,90 @@ def run_strata(fail):
         del out
         torch.cuda.empty_cache()
     return list(summary.values())
+
+
+def brief_stratum(rec):
+    """The printed line of a stratum record: its checks and times."""
+    keys = ('cell', 'route', 'ok', 'vs_plain', 'vs_plain_codes', 'vs_oracle',
+            'vs_oracle_codes', 'kernel_ms', 'plain_ms', 'fill_ms',
+            'path_ms', 'store_share', 'dense_kernel_ms')
+    out = {'phase': 'stratum'}
+    out.update({k: rec[k] for k in keys if k in rec})
+    if 'pair' in rec:
+        out['pair'] = {k: rec['pair'][k] for k in
+                       ('ok', 'vs_plain', 'vs_oracle', 'kernel_ms')}
+    return out
+
+
+def hi_stratum(cell, out, chans, wall, counts):
+    """Phase 4 for a double-tier cell: ``out`` came from synthesize(...,
+    precision='double', device='cuda').  The host layers of the same path
+    timed one by one, the kernel against its plain f64 version over the
+    whole output, the oracle on 3 channels at full length, and the times."""
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.ops.hi_synth import HiSchedule, classify_hi_route
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.sparse_synth import PanelWork
+    from waveforms_tpu_torch.schedules import FS, STRATA
+
+    stratum, expect = cell[0], cell[4]
+    stop = STRATA[stratum][1]
+    host = {}
+    t0 = time.perf_counter()
+    low = lower_schedule(chans, 0.0, stop, FS, keep_f64=True)
+    host['lower_keep_f64'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kind, plan = classify_hi_route(low)
+    host['route_and_plan'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = HiSchedule(low, 'cuda')
+    if kind == 'panel':
+        kern = kernels.synth_panel_hi
+        args = (dev, PanelWork.upload(plan, 'cuda'))
+    else:
+        kern = kernels.synth_dense_hi
+        args = (dev,)
+    torch.cuda.synchronize()
+    host['upload'] = time.perf_counter() - t0
+    host['synthesize_wall'] = wall
+    C, n = out.shape
+    plain_out = torch.zeros_like(out)
+    kern.plain(*args, plain_out, None)
+    torch.cuda.synchronize()
+    rec = {'phase': 'stratum', 'stratum': stratum, 'cell': cell_name(cell),
+           'precision': 'double', 'shape': list(low.shape),
+           'samples': [C, n], 'route': kind, 'route_ok': kind == expect,
+           'kernel': kern.name, 'out_dtype': str(out.dtype)[6:],
+           'launches': counts, 'host_s': host,
+           'finite': bool(torch.isfinite(out).all()),
+           'vs_plain': rel_err_t(out, plain_out),
+           'vs_plain_abs': float((out - plain_out).abs().max())}
+    del plain_out
+    sel = [0, 1, C - 1]
+    ora = wt.synthesize([chans[c] for c in sel], 0.0, stop, FS,
+                        engine='numpy')
+    rec['vs_oracle'] = rel_err(out[sel].cpu().numpy(), ora)
+    scratch = torch.empty_like(out)
+    rec['kernel_ms'] = cuda_ms(lambda: kern(*args, scratch, None))
+    rec['plain_ms'] = cuda_ms(lambda: kern.plain(*args, scratch, None),
+                              reps=REPS_PLAIN_HI)
+    rec['fill_ms'] = cuda_ms(lambda: scratch.fill_(0))
+    nbytes = out.numel() * out.element_size()
+    rec['kernel_gsps'] = C * n / rec['kernel_ms'] / 1e6
+    rec['store_gbps'] = nbytes / rec['kernel_ms'] / 1e6
+    rec['fill_gbps'] = nbytes / rec['fill_ms'] / 1e6
+    rec['store_share'] = rec['fill_ms'] / rec['kernel_ms']
+    del scratch, out
+    rec['ok'] = bool(rec['route_ok'] and rec['finite']
+                     and rec['out_dtype'] == 'float64'
+                     and counts[kern.name] > 0
+                     and rec['vs_plain'] <= TOL_PLAIN_HI
+                     and rec['vs_oracle'] <= TOL_ORACLE_HI)
+    log(rec, brief_stratum(rec))
+    return rec
 
 
 def dense_pair(fail):
@@ -692,12 +946,15 @@ def main():
         log({'phase': 'build', 'ok': False, 'error': str(exc)[-4000:]})
         return 1
     ptxas = [ln.strip() for ln in kernels.build_log.splitlines()
-             if 'registers' in ln or 'spill' in ln]
-    log({'phase': 'build', 'ok': True, 'seconds': time.perf_counter() - t0,
-         'library': str(kernels.library_path().name), 'ptxas': ptxas})
+             if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
+    rec = {'phase': 'build', 'ok': True, 'seconds': time.perf_counter() - t0,
+           'library': str(kernels.library_path().name), 'ptxas': ptxas}
+    spills = [ln for ln in ptxas if re.search(r'[1-9][0-9]* bytes spill', ln)]
+    log(rec, {k: rec[k] for k in ('phase', 'ok', 'seconds', 'library')}
+        | {'ptxas_lines': len(ptxas), 'spilling': spills})
 
     summary = None
-    for phase in (check_small, run_strata):
+    for phase in (check_small, check_small_hi, run_strata):
         t0 = time.perf_counter()
         try:
             res = phase(fail)

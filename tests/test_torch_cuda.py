@@ -11,7 +11,8 @@ is held to its plain PyTorch version on the CPU (which the other
 test_torch_* files hold to the JAX kernels) within 1e-6 of each channel's
 peak (pair mode: of each plane's peak), and int16 codes to exactly the
 kernel's own f32 output quantized, or within one code of the plain
-version's.
+version's.  The double tier's float64 kernels (K3, K4) are held to their
+plain float64 versions within 1e-12 of each channel's peak.
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ import torch
 
 import waveforms_tpu_torch as wt
 from waveforms_tpu_torch import kernels
+from waveforms_tpu_torch.ops.hi_synth import (HiSchedule, synthesize_hi,
+                                              synthesize_hi_panels)
 from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
                                               lower_schedule)
 from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
@@ -148,7 +151,9 @@ def test_slice_goes_through_the_kernels(card):
     dense = wt.synthesize(chans, start, stop, fs, device='cuda',
                           engine='cuda-dense')
     assert kernels.launch_counts() == {'synth_dense': 1, 'synth_panel': 1,
-                                       'synth_sparse': 0, 'synth_stack': 0}
+                                       'synth_sparse': 0, 'synth_stack': 0,
+                                       'synth_dense_hi': 0,
+                                       'synth_panel_hi': 0}
     plain = wt.synthesize(chans, start, stop, fs, device='cpu')
     assert rel(got.cpu(), plain) <= TOL
     assert rel(dense.cpu(), plain) <= TOL
@@ -276,3 +281,113 @@ def test_pair_mode_matches_plain(card, route, bucketed):
     plain = run('cpu')
     for part in (torch.real, torch.imag):
         assert rel(part(got).cpu(), part(plain)) <= TOL
+
+
+TOL_HI = 1e-12
+
+
+def _hi_cases():
+    """Double-tier schedules at 2 GS/s: (channels, start, stop,
+    bucket_samples)."""
+    rng = np.random.default_rng(4)
+    pulses = []
+    for c in range(3):
+        x = wt.zero()
+        for _ in range(4):
+            x += ((wt.gaussian(3e-8) >> float(rng.uniform(0, 7e-6)))
+                  * wt.cos(2 * np.pi * (1e8 + 1e6 * c), 0.3))
+        pulses.append(x)
+    clipped = (2.0 * wt.gaussian(2e-6)) >> 4e-6
+    clipped.min, clipped.max = -1.0, 1.0
+    stack = wt.WaveVStack([(0.3 * wt.cosPulse(40e-9) >> o)
+                           for o in rng.uniform(0, 7e-6, 60)])
+    bf = (151e6, -83e6, 217e6)
+    return {
+        'pulses': (pulses, 0.0, 8.192e-6, 'auto'),
+        'shapes': ([wt.square(2e-6, edge=1e-7, type='erf') >> 3e-6,
+                    wt.sinc(8e6) >> 4e-6, wt.gaussian(6e-7, d=2) >> 3e-6,
+                    wt.mollifier(2e-6, d=3) >> 3e-6,
+                    (wt.sinh(2e6) * wt.gaussian(1e-6)) >> 3e-6,
+                    (wt.square(2e-6) * wt.cosh(1e6) ** -1) >> 3e-6,
+                    (wt.exp(-2e6) >> 1e-6) * wt.square(3e-6) >> 2e-6,
+                    clipped], 0.0, 8.192e-6, 'auto'),
+        'drag_chirp': ([wt.drag(50e6, 100e-9, plateau=40e-9, delta=1e6,
+                                block_freq=None, phase=0.3) >> 2e-6,
+                        wt.chirp(1e6, 50e6, 1e-5, 0.3, 'linear'),
+                        wt.chirp(1e6, 8e7, 8.192e-6, type='exponential')
+                        * wt.gaussian(4e-6) >> 4e-6],
+                       0.0, 8.192e-6, None),
+        'multitone_drag': ([wt.drag_sin(0.2e9, 22.3e-9, plateau=6.1e-9,
+                                        delta=3e6, block_freq=bf, phase=0.1),
+                            wt.drag_sinx(0.2e9, 22.3e-9, plateau=6.1e-9,
+                                         delta=3e6, block_freq=bf, phase=0.1,
+                                         tab=0.5)],
+                           -5e-9, 40e-9, 'auto'),
+        'bucketed': ([stack, stack >> 1e-7], 0.0, 8.192e-6, 4096),
+    }
+
+
+def _hi_lowered(case):
+    chans, start, stop, bs = _hi_cases()[case]
+    return lower_schedule(chans, start, stop, 2e9, bucket_samples=bs,
+                          keep_f64=True)
+
+
+@pytest.mark.parametrize('case', list(_hi_cases()))
+def test_hi_dense_kernel_matches_plain(card, case):
+    low = _hi_lowered(case)
+    n = kernels.synth_dense_hi.launches
+    got = synthesize_hi(HiSchedule(low, card))
+    torch.cuda.synchronize()
+    assert kernels.synth_dense_hi.launches == n + 1
+    assert got.dtype == torch.float64
+    plain = synthesize_hi(HiSchedule(low, 'cpu'))
+    assert rel(got.cpu(), plain) <= TOL_HI
+
+
+@pytest.mark.parametrize('case', [c for c in _hi_cases() if c != 'bucketed'])
+def test_hi_panel_kernel_matches_plain(card, case):
+    low = _hi_lowered(case)
+    plan = build_panel_plan(low)
+    n = kernels.synth_panel_hi.launches
+    got = synthesize_hi_panels(HiSchedule(low, card), plan=plan)
+    torch.cuda.synchronize()
+    assert kernels.synth_panel_hi.launches == n + 1
+    plain = synthesize_hi_panels(HiSchedule(low, 'cpu'), plan=plan)
+    assert rel(got.cpu(), plain) <= TOL_HI
+
+
+@pytest.mark.parametrize('route', ['dense', 'panel'])
+def test_hi_split_planes(card, route):
+    """combine=False on the card: hi == f32(out), and hi + lo within 1e-14
+    of the peak of the f64 output."""
+    low = _hi_lowered('pulses')
+    dev = HiSchedule(low, card)
+    if route == 'dense':
+        out = synthesize_hi(dev)
+        hi, lo = synthesize_hi(dev, combine=False)
+    else:
+        plan = build_panel_plan(low)
+        out = synthesize_hi_panels(dev, plan=plan)
+        hi, lo = synthesize_hi_panels(dev, plan=plan, combine=False)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert torch.equal(hi, out.float())
+    assert ((hi.double() + lo.double() - out).abs().max()
+            <= 1e-14 * out.abs().max())
+
+
+def test_double_slice_goes_through_the_hi_kernels(card):
+    chans, start, stop, _ = _hi_cases()['pulses']
+    kernels.reset_launch_counts()
+    got = wt.synthesize(chans, start, stop, 2e9, precision='double',
+                        device='cuda')
+    dense = wt.synthesize(chans, start, stop, 2e9, precision='double',
+                          engine='cuda-dense', device='cuda')
+    counts = kernels.launch_counts()
+    assert counts['synth_panel_hi'] == 1 and counts['synth_dense_hi'] == 1
+    assert sum(counts.values()) == 2
+    assert got.dtype == dense.dtype == torch.float64
+    plain = wt.synthesize(chans, start, stop, 2e9, precision='double',
+                          device='cpu')
+    assert rel(got.cpu(), plain) <= TOL_HI
+    assert rel(dense.cpu(), plain) <= TOL_HI

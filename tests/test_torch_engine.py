@@ -5,7 +5,7 @@ held against ``waveforms_tpu.synthesize(engine='pallas')`` (interpret mode
 on the CPU) and the float64 oracle.  Routing follows the JAX package's
 rule (route parity on the same lowered schedules), the entry point takes
 the JAX package's argument order, the package imports without JAX, and the
-parts not ported yet refuse loudly.
+parts not ported yet, or not supported on an engine, refuse loudly.
 """
 
 import os
@@ -146,7 +146,8 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize('kwargs, match', [
-    ({'precision': 'double'}, 'double tier'),
+    ({'precision': 'double', 'engine': 'cuda-stack'},
+     'unsupported on engine'),
     ({'out_dtype': torch.bfloat16}, 'bf16'),
     ({'out_dtype': np.float16}, 'not ported'),
     ({'out_dtype': np.int32}, 'int16 only'),
@@ -331,10 +332,21 @@ def test_signature_is_the_jax_order():
 
 @pytest.mark.parametrize('engine', ['auto', 'cuda-dense', 'cuda-stack'])
 def test_precision_double_is_not_ported(engine):
+    """precision='double' on the kernel engines: 'auto' and 'cuda-dense'
+    run the double tier and return float64 within 1e-9 of the oracle;
+    'cuda-stack', which has no double tier, raises as the JAX package's
+    forced pallas engines do."""
     chans = [wt.gaussian(1e-6)]
-    with pytest.raises(ValueError, match='double tier'):
-        wt.synthesize(chans, -1e-6, 1e-6, 1e9, engine=engine,
-                      precision='double', device='cpu')
+    want = wt.synthesize(chans, -1e-6, 1e-6, 1e9, engine='numpy')
+    if engine == 'cuda-stack':
+        with pytest.raises(ValueError, match='unsupported on engine'):
+            wt.synthesize(chans, -1e-6, 1e-6, 1e9, engine=engine,
+                          precision='double', device='cpu')
+    else:
+        got = wt.synthesize(chans, -1e-6, 1e-6, 1e9, engine=engine,
+                            precision='double', device='cpu')
+        assert got.dtype == torch.float64
+        assert rel(got.numpy(), want) <= 1e-9
     with pytest.raises(ValueError, match='unknown precision'):
         wt.synthesize(chans, -1e-6, 1e-6, 1e9, engine=engine,
                       precision='half', device='cpu')

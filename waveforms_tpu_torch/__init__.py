@@ -2,10 +2,12 @@
 
 The same lazy symbolic waveform IR and host lowering as ``waveforms_tpu``
 (carried over, numpy only), synthesized on an NVIDIA GPU by hand-written
-CUDA kernels over the flat descriptor tensors: a dense grid kernel and a
-panel kernel that walks only the live subtiles of pulse-sparse schedules.
-Every kernel has a plain PyTorch version beside it (:mod:`.ops.reference`),
-which runs for tensors on the CPU.
+CUDA kernels over the flat descriptor tensors: a dense grid kernel, a
+panel kernel and a worklist kernel that walk only the live subtiles of
+pulse-sparse schedules, a stack kernel over pulse instances, and the double
+tier's float64 dense and panel kernels (``precision='double'``).  Every
+kernel has a plain PyTorch version beside it (:mod:`.ops.reference`,
+:mod:`.ops.reference_hi`), which runs for tensors on the CPU.
 
 This package imports ``torch`` and numpy, never ``jax``.
 """
@@ -20,14 +22,19 @@ from .models import (D, chirp, cos, cosh, coshPulse, cosPulse, cut, drag,
                      general_cosine, hanning, interp, mixing, mollifier, poly,
                      samplingPoints, sign, sin, sinc, sinh, slepian, square,
                      step, t)
+from .ops.hi_synth import (HI_OPS, HiSchedule, classify_hi_route,
+                           synthesize_hi, synthesize_hi_panels,
+                           synthesize_hi_routed)
 from .ops.lowering import UnsupportedFactor
 
 __all__ = [
-    'D', 'UnsupportedFactor', 'Waveform', 'WaveVStack', 'chirp',
-    'classify_route', 'const', 'cos', 'cosh', 'coshPulse', 'cosPulse', 'cut',
+    'D', 'HI_OPS', 'HiSchedule', 'UnsupportedFactor', 'Waveform',
+    'WaveVStack', 'chirp', 'classify_hi_route', 'classify_route', 'const',
+    'cos', 'cosh', 'coshPulse', 'cosPulse', 'cut',
     'drag', 'drag_sin', 'drag_sinx', 'e', 'exp', 'function', 'gaussian',
     'general_cosine', 'hanning', 'interp', 'mixing', 'mollifier', 'one', 'pi',
     'poly', 'registerBaseFunc', 'registerDerivative', 'samplingPoints',
     'sign', 'sin', 'sinc', 'sinh', 'slepian', 'square', 'step', 'synthesize',
-    't', 'zero',
+    'synthesize_hi', 'synthesize_hi_panels', 'synthesize_hi_routed', 't',
+    'zero',
 ]

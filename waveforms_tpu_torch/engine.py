@@ -13,8 +13,14 @@ Engines:
 * ``'numpy'`` -- the host float64 oracle (``Waveform.__call__``), kept for
   tests.
 
-Not ported yet (they raise ``ValueError``): bf16/f16 stores and the double
-tier (``precision='double'`` on a kernel engine).
+``precision='double'`` runs the double tier (:mod:`.ops.hi_synth`, the
+float64 kernels K3 and K4): ``'auto'`` and ``'cuda'`` run
+``synthesize_hi_routed``, which routes as the JAX one does
+(``classify_hi_route``), ``'cuda-dense'`` forces the dense kernel, and the
+other forced engines refuse it, as the JAX package's forced pallas engines
+do.
+
+Not ported yet (they raise ``ValueError``): bf16/f16 stores.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.hi_synth import (check_hi_schedule, synthesize_hi,
+                           synthesize_hi_routed)
 from .ops.lowering import UnsupportedFactor, lower_schedule
 from .ops.sparse_synth import (PANEL_OCCUPANCY_THRESHOLD,
                                SPARSE_OCCUPANCY_THRESHOLD, build_panel_plan,
@@ -151,6 +159,29 @@ def _synthesize_numpy(channels, start, stop, sample_rate, part):
                      for v in vals])
 
 
+def _synthesize_double(channels, start, stop, sample_rate, engine,
+                       bucket_samples, part, device):
+    """The double tier on 'auto', 'cuda' or 'cuda-dense' -> float64 (C, N)
+    on ``device``.  Only the HiSchedule gates' UnsupportedFactor (complex
+    part, opcodes outside HI_OPS), raised before any upload, sends 'auto' to
+    the numpy oracle (returned as a tensor on ``device``), as the JAX engine
+    sends such a schedule to its host f64 engines; a build, launch or device
+    fault always propagates."""
+    device = resolve_device(device)
+    low = lower_schedule(channels, start, stop, sample_rate, part=part,
+                         bucket_samples=bucket_samples, keep_f64=True)
+    try:
+        check_hi_schedule(low)
+    except UnsupportedFactor:
+        if engine != 'auto':
+            raise
+        return torch.from_numpy(_synthesize_numpy(
+            channels, start, stop, sample_rate, part)).to(device)
+    if engine == 'cuda-dense':
+        return synthesize_hi(low, device=device)
+    return synthesize_hi_routed(low, device=device)
+
+
 def synthesize(channels, start: float, stop: float, sample_rate: float,
                engine: str = 'auto', bucket_samples='auto',
                part: str = 'real', precision: str = 'single',
@@ -163,11 +194,12 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
     ``clip(round_half_even(x * dac_scale))`` with ``dac_scale`` a scalar or
     per-channel vector, or with ``part='complex'`` a complex64 tensor from
     one pair-mode pass (f32 only).  ``precision='single'`` is the f32 tier;
-    ``'double'`` (the <= 1e-9 tier) is not ported yet and raises, except on
-    ``engine='numpy'``, which is float64 already.  ``engine='numpy'``
-    returns the float64 oracle as an ndarray (quantized the same way for
-    int16).  ``device='cuda'`` without a GPU raises; nothing falls back to
-    the CPU.
+    ``'double'`` is the <= 1e-9 tier and returns float64 (the double tier
+    computes real parts only: under ``engine='auto'`` a complex part, or an
+    opcode outside ``HI_OPS``, goes to the numpy oracle, and on the other
+    engines raises ``UnsupportedFactor``).  ``engine='numpy'`` returns the
+    float64 oracle as an ndarray (quantized the same way for int16).
+    ``device='cuda'`` without a GPU raises; nothing falls back to the CPU.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
@@ -180,9 +212,12 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
         if out_dtype is not None and dt != torch.float32:
             raise ValueError("out_dtype narrowing contradicts "
                              "precision='double'")
+        if engine in ('cuda-panel', 'cuda-sparse', 'cuda-stack'):
+            raise ValueError(
+                f"precision='double' is unsupported on engine {engine!r}")
         if engine != 'numpy':
-            raise ValueError("precision='double': the double tier (the "
-                             "double-f32 kernels) is not ported yet")
+            return _synthesize_double(channels, start, stop, sample_rate,
+                                      engine, bucket_samples, part, device)
     if part == 'complex' and dt != torch.float32:
         raise ValueError("part='complex' requires f32 output")
     if engine == 'numpy':

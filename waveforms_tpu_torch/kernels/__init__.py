@@ -14,15 +14,18 @@ package, named by a hash of the sources, so an edited source rebuilds.
 
 One wrapper per kernel: :data:`synth_dense` (K1, the dense grid),
 :data:`synth_panel` (K2, the panel walk), :data:`synth_sparse` (K7, the
-worklist walk) and :data:`synth_stack` (K5, pulse instances).  A wrapper
-given tensors on the CPU runs the kernel's plain version
-(:mod:`..ops.reference`); given CUDA tensors it launches the kernel, checks
-the launch's ``cudaGetLastError()`` and raises on any failure -- it never
-falls back.  Each wrapper counts its kernel launches in ``launches``.
+worklist walk), :data:`synth_stack` (K5, pulse instances), and the double
+tier's :data:`synth_dense_hi` (K3) and :data:`synth_panel_hi` (K4).  A
+wrapper given tensors on the CPU runs the kernel's plain version
+(:mod:`..ops.reference`, :mod:`..ops.reference_hi`); given CUDA tensors it
+launches the kernel, checks the launch's ``cudaGetLastError()`` and raises
+on any failure -- it never falls back.  Each wrapper counts its kernel
+launches in ``launches``.
 
 Output kinds: f32; int16 DAC codes with a per-channel f32 scale; and, for
 the three descriptor walks, complex64 in pair mode (a schedule with
-``amp_im``), written as interleaved (re, im) f32 pairs.
+``amp_im``), written as interleaved (re, im) f32 pairs.  The double-tier
+kernels store float64, or the f32 (hi, lo) planes of the f64 sums.
 """
 
 from __future__ import annotations
@@ -37,17 +40,17 @@ from pathlib import Path
 
 import torch
 
-from ..ops import reference
+from ..ops import reference, reference_hi
 
 __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
-           'load_library', 'library_path', 'reset_launch_counts',
+           'synth_dense_hi', 'synth_panel_hi', 'load_library', 'library_path', 'reset_launch_counts',
            'launch_counts', 'KERNELS']
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
-           'synth_stack.cu')
-HEADERS = ('synth_common.cuh',)
+           'synth_stack.cu', 'synth_dense_hi.cu', 'synth_panel_hi.cu')
+HEADERS = ('synth_common.cuh', 'synth_hi_common.cuh')
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xptxas', '-v',
@@ -141,8 +144,14 @@ def load_library():
                                         + [P, I, P, P])
         lib.wf_synth_stack.argtypes = ([P] * 12 + [I] * 4 + [L]
                                        + [P, I, P, P])
+        lib.wf_synth_dense_hi.argtypes = ([P] * 13 + [I] * 5 + [L, L, I]
+                                          + [P, P, I, P])
+        lib.wf_synth_panel_hi.argtypes = ([P] * 12 + [I] * 5 + [L, L]
+                                          + [P] * 5 + [I, I, I, L]
+                                          + [P, P, I, P])
         for fn in (lib.wf_synth_dense, lib.wf_synth_panel,
-                   lib.wf_synth_sparse, lib.wf_synth_stack):
+                   lib.wf_synth_sparse, lib.wf_synth_stack,
+                   lib.wf_synth_dense_hi, lib.wf_synth_panel_hi):
             fn.restype = I
         lib.wf_error_string.argtypes = [I]
         lib.wf_error_string.restype = ctypes.c_char_p
@@ -318,6 +327,64 @@ def _launch_stack(t, out, scale):
     _raise_on(code, 'synth_stack')
 
 
+def _hi_checked(d, dense, out, lo, shape, **extra):
+    """Validate a double-tier launch -> (out kind: 0 f64, 1 f32 hi/lo
+    planes; descriptor pointers)."""
+    if tuple(out.shape) != shape:
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected {shape}")
+    if lo is None:
+        if out.dtype != torch.float64:
+            raise ValueError("a double-tier output is float64, or two f32 "
+                             "planes (out, lo)")
+        kind = 0
+    else:
+        if (out.dtype, lo.dtype) != (torch.float32, torch.float32) or (
+                lo.shape != out.shape):
+            raise ValueError("the (hi, lo) planes are two f32 tensors of "
+                             "one shape")
+        kind = 1
+    names = (('seg_lo', 'seg_hi', 'seg_hmax') if dense
+             else ('seg_lo', 'seg_hi')) + (
+        'nterm', 'nfac', 'amp64', 'op', 'power', 'shift_hi', 'q32', 'args64',
+        'ext64', 'clip')
+    desc = {n: getattr(d, n) for n in names}
+    _check_cuda(dict(desc, out=out, **({'lo': lo} if kind else {}), **extra),
+                out.device)
+    if shape[0] > 65535:
+        raise ValueError("at most 65535 channels per launch")
+    return kind, [t.data_ptr() for t in desc.values()]
+
+
+def _launch_dense_hi(d, out, lo):
+    C, NB, S, T, F = d.shape
+    kind, desc = _hi_checked(d, True, out, lo, (C, d.n_samples))
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_synth_dense_hi(
+            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
+            _dense_tile(d), out.data_ptr(), _ptr(lo), kind, _stream(out))
+    _raise_on(code, 'synth_dense_hi')
+
+
+def _launch_panel_hi(d, work, out, lo):
+    C, NB, S, T, F = d.shape
+    if NB != 1:
+        raise ValueError("the hi panel kernel takes single-bucket schedules")
+    plan = {n: getattr(work, n) for n in
+            ('start', 'work_t', 'work_o', 'work_s0', 'work_s1')}
+    kind, desc = _hi_checked(d, False, out, lo, (C, out.shape[1]), **plan)
+    if work.n_panels > 65535:
+        raise ValueError("at most 65535 panels per launch")
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_synth_panel_hi(
+            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
+            *(t.data_ptr() for t in plan.values()), work.Rs, work.P,
+            work.n_panels, out.shape[1], out.data_ptr(), _ptr(lo), kind,
+            _stream(out))
+    _raise_on(code, 'synth_panel_hi')
+
+
 #: K1: ``synth_dense(dev, out, scale)`` fills out (C, n_samples)
 synth_dense = _Kernel(
     'synth_dense', 'waveforms_tpu_torch/csrc/synth_dense.cu',
@@ -344,7 +411,22 @@ synth_stack = _Kernel(
     'waveforms_tpu/ops/stack_synth.py:1145', reference.stack_eval,
     _launch_stack)
 
-KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack)
+#: K3: ``synth_dense_hi(hidev, out, lo)`` fills out (C, n_samples), f64
+#: (``lo`` None) or the f32 hi plane with ``lo`` the lo plane
+synth_dense_hi = _Kernel(
+    'synth_dense_hi', 'waveforms_tpu_torch/csrc/synth_dense_hi.cu',
+    'waveforms_tpu/ops/hi_synth.py:463', reference_hi.dense_walk_hi,
+    _launch_dense_hi)
+
+#: K4: ``synth_panel_hi(hidev, work, out, lo)`` fills out (C,
+#: window_samples) from a single-bucket schedule's PanelWork
+synth_panel_hi = _Kernel(
+    'synth_panel_hi', 'waveforms_tpu_torch/csrc/synth_panel_hi.cu',
+    'waveforms_tpu/ops/hi_synth.py:555', reference_hi.panel_walk_hi,
+    _launch_panel_hi)
+
+KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack,
+           synth_dense_hi, synth_panel_hi)
 
 
 def reset_launch_counts():

@@ -353,11 +353,13 @@ def _segment_values(d, c, b, s, idx):
     return [torch.minimum(torch.maximum(sg, cmin), cmax) for sg in segs]
 
 
-def _accumulate(d, accs, c, b, s, a, e, dst):
+def _accumulate(d, accs, c, b, s, a, e, dst, values=None):
     """Add slot (c[r], b[r], s[r])'s value over samples [a[r], e[r]) into
     ``acc[c[r], dst[r] + (idx - a[r])]`` for each plane of ``accs``, in
     chunks of elements.  Within one call no output element is hit twice,
-    so the adds do not race."""
+    so the adds do not race.  ``values`` evaluates the slots (default
+    :func:`_segment_values`; the double tier passes its own)."""
+    values = values or _segment_values
     n_out = accs[0].shape[1]
     length = e - a
     cum = torch.cumsum(length, 0)
@@ -368,7 +370,7 @@ def _accumulate(d, accs, c, b, s, a, e, dst):
         r = torch.searchsorted(cum, el, right=True)
         off = el - first[r]
         cr = c[r]
-        vals = _segment_values(d, cr, b[r], s[r], a[r] + off)
+        vals = values(d, cr, b[r], s[r], a[r] + off)
         for acc, v in zip(accs, vals):
             acc.view(-1).index_add_(0, cr * n_out + dst[r] + off, v)
 
@@ -438,7 +440,7 @@ def dense_walk(d, out, scale=None):
     return _store(accs, out, scale)
 
 
-def _walk_items(d, accs, c, b, base, obase, s0, s1, tile):
+def _walk_items(d, accs, c, b, base, obase, s0, s1, tile, values=None):
     """Walk worklist items: item r evaluates samples [base[r], base[r] +
     tile) of (channel c[r], bucket b[r]) over its segments [s0[r], s1[r])
     and adds them at output offset obase[r]; samples past the output's
@@ -457,7 +459,7 @@ def _walk_items(d, accs, c, b, base, obase, s0, s1, tile):
         if not bool(live.any()):
             continue
         _accumulate(d, accs, c[live], b[live], sm[live], a[live], e[live],
-                    (obase + a - base)[live])
+                    (obase + a - base)[live], values)
 
 
 def panel_walk(d, work, out, scale=None):
