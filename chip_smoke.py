@@ -34,7 +34,27 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    output (the store roofline), with the host layers' seconds; on
    ladder120 also K1 (``engine='cuda-dense'``, the route the port took
    before the stack route) on the same schedule, and on the dense stratum
-   K1 in pair mode.
+   K1 in pair mode;
+5. the sequence tables: at small size (tests/test_torch_sequencer.py's and
+   test_torch_stack_seq.py's tables) every ``Sequencer`` method and
+   ``StackSequencer.play_packed`` on the card against the same call on the
+   CPU and the oracle, f32 and int16, with indices past both ends; then
+   the full-size main paths, each with its launch counts read right after
+   it: ``seq_flagship`` (8 flagship schedules: ``play`` -> K1,
+   ``play_sparse`` -> K7, ``play_many`` of 3 shots -> K1 x 3),
+   ``seq_flagship_packed`` (8 shots in one K2 launch, f32 and int16),
+   ``seq_station`` (16 gate-train schedules of 2 ch x 200,000 samples:
+   ``play_packed`` of 50 shots -> K2, ``play_replay`` of 1000 shots -> the
+   K1 palette and a gather), ``stackseq_ladder`` (4 ladder120 schedules,
+   16 shots, f32 and int16 -> K6, K5 never) and ``stackseq_rb`` (16
+   schedules of 30 cosPulses, 1000 shots -> K6), each kernel against its
+   plain version, the oracle on a few channels of a few shots, and the
+   kernel's, the plain version's and the fill's times.
+
+Every kernel's summary entry carries its bound: the larger of the bytes
+its call must move (inputs read once, the output written once) over the
+card's HBM rate and the operations that call needs (counted from the
+descriptors, ``OP_COST``) over the FP32 (FP64 for K3/K4) peak.
 
 Each phase prints one compact JSON line (``--record PATH`` writes every
 record in full to one JSON file).  The line before the last is the kernel
@@ -60,6 +80,19 @@ TOL_SPLIT = 1e-14     # hi + lo vs the f64 output (the split loses 2^-48)
 REPS = 11
 REPS_PLAIN_HI = 3     # the double tier's plain versions take seconds
 RECORDS = []
+MAIN_COUNTS = []      # launch counts of every main path, read right after it
+
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at its full
+# 700 W): HBM3 bytes/s, and FP32 / FP64 operations/s outside the tensor
+# cores.
+HBM_BPS = 3.35e12
+PEAK_OPS = {'fp32': 67e12, 'fp64': 34e12}
+# Operations per evaluated sample of each opcode: the arithmetic of
+# op_value in csrc/synth_common.cuh counted by hand (integer phase steps
+# included), with expf, sinf, cosf, logf and powf at 8 each and a division
+# at 4.  An estimate: the bound it gives is a floor, not a prediction.
+OP_COST = {0: 3, 1: 13, 2: 33, 3: 38, 4: 19, 5: 13, 6: 67, 7: 23, 8: 23,
+           9: 19, 10: 19, 11: 63, 12: 33, 13: 50, 14: 3, 15: 130, 16: 140}
 
 
 def log(record, brief=None):
@@ -120,6 +153,101 @@ def cuda_ms(fn, reps=REPS, warm_s=0.05):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def input_bytes(*objs):
+    """Bytes of every tensor that ``objs`` hold as attributes (a
+    DeviceSchedule, a worklist, stack tables) or are: each read once."""
+    import torch
+    total = 0
+    for o in objs:
+        ts = [o] if isinstance(o, torch.Tensor) else [
+            v for v in vars(o).values() if isinstance(v, torch.Tensor)]
+        total += sum(t.numel() * t.element_size() for t in ts)
+    return total
+
+
+def factor_cost(op, power):
+    """Operations of each factor slot: its opcode's cost and |power|
+    multiplications (power - 1 for the power, 1 into the product)."""
+    import numpy as np
+    cost = np.vectorize(OP_COST.get, otypes=[np.int64])(op)
+    return cost + np.abs(power)
+
+
+def walk_ops(low):
+    """Operations a segment walk needs on lowering ``low``: every sample of
+    every live segment (clipped to its bucket) evaluates its live terms'
+    factors, one add per term, and a clip and an add per segment."""
+    import numpy as np
+    C, NB, S, T, F = low.shape
+    n, bs = low.n_samples, low.bucket_samples
+    b = np.arange(NB, dtype=np.int64)
+    b_lo = b * bs if NB > 1 else np.zeros(1, np.int64)
+    b_hi = (np.where(b == NB - 1, n, np.minimum(b_lo + bs, n)) if NB > 1
+            else np.full(1, n, np.int64))
+    width = (np.minimum(low.seg_hi.astype(np.int64), b_hi[:, None])
+             - np.maximum(low.seg_lo.astype(np.int64), b_lo[:, None]))
+    width = np.where(low.nterm > 0, np.maximum(width, 0), 0)
+    live_f = np.arange(F) < low.nfac[..., None]
+    live_t = np.arange(T) < low.nterm[..., None]
+    per_term = (factor_cost(low.op, low.power) * live_f).sum(-1) + 1
+    per_seg = (per_term * live_t).sum(-1) + 3
+    return int((width * per_seg).sum())
+
+
+def stack_ops(t):
+    """Operations per instance of stack tables ``t`` (numpy, one entry per
+    instance): its samples times its live factors' costs, one add per term
+    and one into the tile."""
+    import numpy as np
+    inst = t.inst.cpu().numpy().astype(np.int64)
+    tnf = t.term_nfac.cpu().numpy()
+    nt = inst[:, 3]
+    nf = (tnf * (np.arange(tnf.shape[1]) < nt[:, None])).sum(1)
+    live = np.arange(t.op.shape[1]) < nf[:, None]
+    cost = (factor_cost(t.op.cpu().numpy(), t.power.cpu().numpy())
+            * live).sum(1) + nt + 1
+    return (inst[:, 2] - inst[:, 1]) * cost
+
+
+def sched_ops(t):
+    """Operations of each schedule of stacked tables ``t``: the sum of
+    stack_ops over the instances its blocks reference."""
+    import numpy as np
+    inst = stack_ops(t)
+    cs = t.chunk_start.cpu().numpy()
+    bi = t.blk_inst.cpu().numpy()
+    return [int(inst[np.unique(bi[cs[k, 0]:cs[k, -1]])].sum())
+            for k in range(cs.shape[0])]
+
+
+def bound(nbytes, ops, peak='fp32'):
+    """The least time the card could take: the larger of the bytes over
+    HBM_BPS and the operations over the peak, in ms, and which sets it."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK_OPS[peak] * 1e3
+    return {'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+            'bound_bytes': int(nbytes), 'bound_ops': int(ops),
+            'library_ms': None}
+
+
+def brief_checks(rec):
+    """The printed line of a small-size record: its name, whether every
+    check passed, and the worst float error (vs the plain version, vs the
+    oracle) and the worst int16 code difference over its checks."""
+    checks = [v for v in rec.values() if isinstance(v, dict) and 'ok' in v]
+    floats = [v for v in checks if isinstance(v['vs_plain'], float)]
+    codes = [v for v in checks if isinstance(v['vs_plain'], int)]
+    return {'phase': rec['phase'], 'case': rec.get('case', rec.get('table')),
+            'checks': len(checks), 'ok': all(v['ok'] for v in checks),
+            'worst_vs_plain': max((v['vs_plain'] for v in floats),
+                                  default=None),
+            'worst_vs_oracle': max((v['vs_oracle'] for v in floats
+                                    if 'vs_oracle' in v), default=None),
+            'worst_codes': max((max(v['vs_plain'], v['vs_oracle'])
+                                for v in codes), default=None)}
 
 
 def small_cases():
@@ -352,7 +480,7 @@ def check_small(fail):
                             'vs_oracle': e_ora, 'ok': ok}
                 if not ok:
                     fail.append(f"small {name} {key}")
-        log(rec)
+        log(rec, brief_checks(rec))
 
     low = exotic_chirp_schedule()
     devs = {d: DeviceSchedule(low, d) for d in ('cuda', 'cpu')}
@@ -366,7 +494,7 @@ def check_small(fail):
         rec[f'{route}_f32'] = {'vs_plain': e, 'ok': bool(ok)}
         if not ok:
             fail.append(f"small expchirp_hypchirp {route}")
-    log(rec)
+    log(rec, brief_checks(rec))
 
     # pair mode on the three descriptor walks: complex64 out
     for name, chans, start, stop, bs in pair_cases():
@@ -388,7 +516,7 @@ def check_small(fail):
                                    'vs_oracle': e_ora, 'ok': ok}
             if not ok:
                 fail.append(f"small_pair {name} {route}")
-        log(rec)
+        log(rec, brief_checks(rec))
 
     # the stack route: K5 (and K1 on the wide residual) in f32 and int16
     for name, chans, stop, bs in stack_cases():
@@ -432,7 +560,7 @@ def check_small(fail):
                               'ok': ok}
             if not ok:
                 fail.append(f"small_stack {name} {dtype}")
-        log(rec)
+        log(rec, brief_checks(rec))
 
 
 def hi_small_cases():
@@ -595,8 +723,8 @@ def cell_name(cell):
                     + ([engine] if engine != 'auto' else []))
 
 
-def run_strata(fail):
-    """Phases 3 and 4 at full size; returns the kernel summary."""
+def run_strata(fail, summary):
+    """Phases 3 and 4 at full size; fills the kernel summary."""
     import numpy as np
     import torch
 
@@ -629,6 +757,7 @@ def run_strata(fail):
         torch.cuda.synchronize()
         walls[cell] = time.perf_counter() - t0
         counts[cell] = kernels.launch_counts()
+        MAIN_COUNTS.append(counts[cell])
         for k in must:
             if counts[cell][k] == 0:
                 fail.append(f"{k} never launched on main path "
@@ -639,16 +768,6 @@ def run_strata(fail):
     log(rec, {'phase': 'main_path', 'launches': {
         cell_name(c): {k: n for k, n in counts[c].items() if n}
         for c in CELLS}})
-    total = {k.name: sum(counts[c][k.name] for c in CELLS)
-             for k in kernels.KERNELS}
-    for k in kernels.KERNELS:
-        if total[k.name] == 0:
-            fail.append(f"{k.name} never launched on the main paths")
-
-    summary = {k.name: {'name': k.name, 'route': 'cuda', 'source': k.source,
-                        'replaces': k.replaces, 'launches': total[k.name],
-                        'max_abs_err': 0.0, 'ms': None, 'plain_ms': None}
-               for k in kernels.KERNELS}
     lowered = {}
     for i, cell in enumerate(CELLS):
         stratum, part, engine, dname, expect, _ = cell
@@ -661,7 +780,8 @@ def run_strata(fail):
             if i == KERNEL_CELL[name]:
                 summary[name].update(max_abs_err=rec['vs_plain_abs'],
                                      ms=rec['kernel_ms'],
-                                     plain_ms=rec['plain_ms'])
+                                     plain_ms=rec['plain_ms'],
+                                     **rec['bound'])
             torch.cuda.empty_cache()
             continue
         dtype = dtypes[dname]
@@ -771,9 +891,20 @@ def run_strata(fail):
         if i == KERNEL_CELL[kern.name]:
             summary[kern.name]['ms'] = rec['kernel_ms']
             summary[kern.name]['plain_ms'] = rec['plain_ms']
+            # the bound of this call: inputs read once, the output written
+            # once (the worklist kernel writes only its live subtiles)
+            out_bytes = out.numel() * out.element_size()
+            if kind == 'sparse':
+                out_bytes = min(plan.n_live * plan.Rs * 128,
+                                C * n) * out.element_size()
+            summary[kern.name].update(bound(
+                input_bytes(*args) + out_bytes,
+                sum(stack_ops(args[0])) if kind == 'stack'
+                else walk_ops(low)))
+            rec['bound'] = {k: summary[kern.name][k]
+                            for k in ('bound_ms', 'bound_by')}
         del out
         torch.cuda.empty_cache()
-    return list(summary.values())
 
 
 def brief_stratum(rec):
@@ -850,6 +981,7 @@ def hi_stratum(cell, out, chans, wall, counts):
     rec['store_gbps'] = nbytes / rec['kernel_ms'] / 1e6
     rec['fill_gbps'] = nbytes / rec['fill_ms'] / 1e6
     rec['store_share'] = rec['fill_ms'] / rec['kernel_ms']
+    rec['bound'] = bound(input_bytes(*args) + nbytes, walk_ops(low), 'fp64')
     del scratch, out
     rec['ok'] = bool(rec['route_ok'] and rec['finite']
                      and rec['out_dtype'] == 'float64'
@@ -895,6 +1027,512 @@ def dense_pair(fail):
     if not rec['ok']:
         fail.append("dense pair mode")
     return rec
+
+
+SEQ_KS = [2, 0, 99, -3, 1]    # shot indices: in range, past both ends
+
+
+def _vstacks(n_schedules, n_pulses, seed, n_channels=1, stop=8.192e-6):
+    """Schedules of random cosPulse trains (tests/test_stack_seq.py)."""
+    import numpy as np
+
+    from waveforms_tpu_torch import WaveVStack, cosPulse
+    rng = np.random.default_rng(seed)
+    return [[WaveVStack([(float(a) * cosPulse(50e-9) >> o)
+                         for a, o in zip(rng.uniform(0.2, 1.0, n_pulses),
+                                         rng.uniform(0, stop - 1e-7,
+                                                     n_pulses))])
+             for _ in range(n_channels)] for _ in range(n_schedules)]
+
+
+def seq_small_tables():
+    """(name, channels per schedule, stop, lowering kwargs, oracle
+    tolerance): the tables of tests/test_torch_sequencer.py, built with
+    the port, at 2 GS/s from 0.  5e-6 on the multi-tone DRAG table is the
+    JAX suite's own limit for it."""
+    import numpy as np
+
+    from waveforms_tpu_torch import (WaveVStack, cos, cosPulse, drag_sin,
+                                     gaussian, square)
+    gates = [
+        [gaussian(100e-9) >> 0.3e-6, cosPulse(80e-9) >> 0.7e-6],
+        [0.7 * square(200e-9, edge=20e-9) >> 0.5e-6,
+         drag_sin(0.2e9, 22.3e-9, plateau=6.1e-9, delta=3e6,
+                  block_freq=(151e6,), phase=0.1) >> 0.4e-6],
+        [gaussian(60e-9) * cos(2 * np.pi * 150e6) >> 0.2e-6,
+         cosPulse(50e-9) >> 0.8e-6]]
+    bucketed = []
+    for seed in (1, 2, 3):
+        r = np.random.default_rng(seed)
+        bucketed.append([WaveVStack([(0.4 * cosPulse(40e-9) >> o)
+                                     for o in r.uniform(0, 7e-6, 60)])])
+    return [('gates', gates, 1e-6, {}, 5e-6),
+            ('gates_complex', gates, 1e-6, {'part': 'complex'}, TOL_ORACLE),
+            ('bucketed', bucketed, 8.192e-6, {'bucket_samples': 2048},
+             TOL_ORACLE),
+            ('multichannel', _vstacks(2, 15, 17, n_channels=3), 8.192e-6,
+             {}, TOL_ORACLE)]
+
+
+def stack_seq_small_tables():
+    """(name, channels per schedule): the narrow-pulse tables of
+    tests/test_torch_stack_seq.py, built with the port, 8.192 us at
+    2 GS/s."""
+    import numpy as np
+
+    from waveforms_tpu_torch import drag_sin, zero
+    rng = np.random.default_rng(41)
+    ds = []
+    for n in (6, 9):
+        x = zero()
+        p = drag_sin(5e9, 20e-9, plateau=10e-9, delta=1e6,
+                     block_freq=(151e6,), phase=float(rng.uniform(0, 6)))
+        for o in np.sort(rng.uniform(0, 7e-6, n)):
+            x += p >> float(o)
+        ds.append([x])
+    return [('vstack3', _vstacks(3, 40, 11)),
+            ('multichannel', _vstacks(2, 15, 17, n_channels=3)),
+            ('drag_sin', ds)]
+
+
+def check_small_seq(fail):
+    """Phase 2, sequence tables: every Sequencer method -- play and
+    play_many (K1), play_sparse (K7), play_packed (K2), play_replay (the
+    K1 palette and a gather) -- and StackSequencer.play_packed (K6) on the
+    card, against the same call on the CPU (the plain versions) and the
+    oracle, in f32 and int16, with indices past both ends of the table."""
+    import numpy as np
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch.engine import _quantize_host
+    from waveforms_tpu_torch.ops import Sequencer, StackSequencer
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+
+    def compare(rec, key, run, want, tol):
+        got = run('cuda')
+        torch.cuda.synchronize()
+        got, plain = got.cpu().numpy(), run('cpu').numpy()
+        if got.dtype == np.int16:
+            codes = _quantize_host(want, np.int16, 30000.0)
+            e = {'vs_plain': code_err(got, plain),
+                 'vs_oracle': code_err(got, codes)}
+            ok = max(e.values()) <= TOL_CODES
+        else:
+            e = {'vs_plain': rel_err(got, plain),
+                 'vs_oracle': rel_err(got, want)}
+            ok = e['vs_plain'] <= TOL_PLAIN and e['vs_oracle'] <= tol
+        rec[key] = dict(e, ok=bool(ok))
+        if not ok:
+            fail.append(f"small_seq {rec['table']} {key}")
+
+    i16 = {'out_dtype': torch.int16, 'dac_scale': 30000.0}
+    for name, chans, stop, kw, tol in seq_small_tables():
+        lows = [lower_schedule(ch, 0.0, stop, 2e9, **kw) for ch in chans]
+        K = len(lows)
+        seqs = {d: Sequencer(lows, device=d) for d in ('cuda', 'cpu')}
+        ora = [wt.synthesize(ch, 0.0, stop, 2e9, engine='numpy',
+                             part=kw.get('part', 'real')) for ch in chans]
+        want = np.stack([ora[min(max(k, 0), K - 1)] for k in SEQ_KS])
+        pair, single = 'part' in kw, lows[0].shape[1] == 1
+        rec = {'phase': 'small_seq', 'table': name, 'schedules': K,
+               'shape': list(seqs['cpu'].shape)}
+        for method in ('play', 'play_many', 'play_sparse', 'play_packed',
+                       'play_replay'):
+            if method in ('play_sparse', 'play_packed') and (
+                    pair or not single):
+                continue
+            for okw in ({}, i16):
+                if okw and (pair or method == 'play_sparse'):
+                    continue
+
+                def run(d, method=method, okw=okw):
+                    seq = seqs[d]
+                    if method in ('play', 'play_sparse'):
+                        return torch.stack([getattr(seq, method)(k, **okw)
+                                            for k in SEQ_KS])
+                    return getattr(seq, method)(SEQ_KS, **okw)
+                compare(rec, f"{method}_{'i16' if okw else 'f32'}", run,
+                        want, tol)
+        log(rec, brief_checks(rec))
+
+    for name, chans in stack_seq_small_tables():
+        lows = [lower_schedule(ch, 0.0, 8.192e-6, 2e9) for ch in chans]
+        K = len(lows)
+        seqs = {d: StackSequencer(lows, device=d) for d in ('cuda', 'cpu')}
+        want = np.stack([wt.synthesize(chans[min(max(k, 0), K - 1)], 0.0,
+                                       8.192e-6, 2e9, engine='numpy')
+                         for k in SEQ_KS])
+        rec = {'phase': 'small_stack_seq', 'table': name, 'schedules': K,
+               'describe': seqs['cpu'].describe()}
+        for okw in ({}, i16):
+            compare(rec, f"play_packed_{'i16' if okw else 'f32'}",
+                    lambda d, okw=okw: seqs[d].play_packed(SEQ_KS, **okw),
+                    want, TOL_ORACLE)
+        log(rec, brief_checks(rec))
+
+
+def main_path(label, fn, fail, must, absent=()):
+    """Run one main path with the launch counts set to 0 just before it and
+    read just after -> (result, wall seconds, nonzero counts).  ``must``
+    maps each kernel that has to launch to its exact count (None: any);
+    the kernels in ``absent`` must not launch."""
+    import torch
+
+    from waveforms_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    MAIN_COUNTS.append(counts)
+    for k, n in must.items():
+        if counts[k] == 0 or (n is not None and counts[k] != n):
+            fail.append(f"{label}: {k} launched {counts[k]} times, "
+                        f"expected {n or 'some'}")
+    for k in absent:
+        if counts[k]:
+            fail.append(f"{label}: {k} launched {counts[k]} times, "
+                        "expected none")
+    return out, wall, {k: n for k, n in counts.items() if n}
+
+
+def shots_err(got, plain):
+    """rel_err_t (f32) or the largest code difference (int16) over the
+    shots of two (n_shots, C, N) outputs, one shot at a time."""
+    if got.dtype.is_floating_point:
+        return max(rel_err_t(g, p) for g, p in zip(got, plain))
+    return max(int((g.int() - p.int()).abs().max())
+               for g, p in zip(got, plain))
+
+
+def timed(rec, launch, plain, out, n_samples):
+    """Kernel, plain-version and fill times of one output (``launch`` and
+    ``plain`` write into it), and the rates over its ``n_samples``
+    samples."""
+    rec['kernel_ms'] = cuda_ms(launch)
+    rec['plain_ms'] = cuda_ms(plain, reps=3)
+    rec['fill_ms'] = cuda_ms(lambda: out.fill_(0))
+    rec['gsps'] = n_samples / rec['kernel_ms'] / 1e6
+    rec['store_share'] = rec['fill_ms'] / rec['kernel_ms']
+
+
+class Oracle:
+    """The float64 oracle of single channels, computed once each."""
+
+    def __init__(self, chans, stop):
+        self.chans, self.stop, self.cache = chans, stop, {}
+
+    def err(self, got, picks):
+        """rel_err of got[shot, c] against schedule k's channel c for each
+        (shot, k, c) in ``picks``; int16 ``got`` -> code_err."""
+        import numpy as np
+
+        import waveforms_tpu_torch as wt
+        from waveforms_tpu_torch.engine import _quantize_host
+        from waveforms_tpu_torch.schedules import FS
+        errs = []
+        for shot, k, c in picks:
+            if (k, c) not in self.cache:
+                self.cache[k, c] = wt.synthesize(
+                    [self.chans[k][c]], 0.0, self.stop, FS, engine='numpy')
+            want = self.cache[k, c]
+            g = got[shot, c][None].cpu().numpy()
+            errs.append(code_err(g, _quantize_host(want, np.int16, 32767.0))
+                        if g.dtype == np.int16 else rel_err(g, want))
+        return max(errs)
+
+
+def brief_seq(rec):
+    keys = ('phase', 'method', 'dtype', 'ok', 'launches', 'shots',
+            'vs_plain', 'vs_oracle', 'vs_k5', 'kernel_ms', 'plain_ms',
+            'fill_ms', 'gsps', 'us_per_shot', 'store_share', 'gather_ms',
+            'bound_ms', 'bound_by')
+    return {k: rec[k] for k in keys if k in rec}
+
+
+def run_sequences(fail, summary):
+    """The sequence tables' main paths at full size, each with its launch
+    counts read right after it, then each kernel against its plain version
+    and the oracle, and its times.  Fills K6's summary entry."""
+    import numpy as np
+    import torch
+
+    from waveforms_tpu_torch import cosPulse, kernels, mixing, square, zero
+    from waveforms_tpu_torch.ops import Sequencer, StackSequencer
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
+                                                     build_stack_tables)
+    from waveforms_tpu_torch.schedules import (FS, build_ladder_schedule,
+                                               build_schedule)
+
+    def finish(rec, tol_ok):
+        # device time per shot; the replay sets its own (the gather's)
+        rec.setdefault('us_per_shot', rec['kernel_ms'] * 1e3 / rec['shots'])
+        rec['ok'] = bool(tol_ok)
+        log(rec, brief_seq(rec))
+        if not rec['ok']:
+            fail.append(f"{rec['phase']} {rec.get('method')} "
+                        f"{rec.get('dtype')}")
+        torch.cuda.empty_cache()
+
+    def ok_errs(rec):
+        if rec['dtype'] == 'int16':
+            return max(rec['vs_plain'], rec['vs_oracle']) <= TOL_CODES
+        return rec['vs_plain'] <= TOL_PLAIN and rec['vs_oracle'] <= TOL_ORACLE
+
+    # ---- seq_flagship: 8 flagship schedules, play / play_sparse / play_many
+    host = {}
+    t0 = time.perf_counter()
+    chans = [build_schedule(seed=s) for s in range(8)]
+    lows = [lower_schedule(c, 0.0, 1e-3, FS) for c in chans]
+    host['build_and_lower_8'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = Sequencer(lows, device='cuda')
+    torch.cuda.synchronize()
+    host['table_upload'] = time.perf_counter() - t0
+    oracle = Oracle(chans, 1e-3)
+    C, N = seq.shape[0], seq.n_samples
+    rng = np.random.default_rng(4)
+    k = int(rng.integers(0, 8))
+    base = {'phase': 'seq_flagship', 'table': seq.describe(), 'host_s': host}
+
+    out, wall, cnt = main_path('seq_flagship play', lambda: seq.play(k),
+                               fail, {'synth_dense': 1})
+    dev = seq._schedule(k)
+    plain = kernels.synth_dense.plain(dev, torch.empty_like(out), None)
+    rec = dict(base, method='play', dtype='float32', shots=1, launches=cnt,
+               wall_s=wall, vs_plain=rel_err_t(out, plain),
+               vs_oracle=oracle.err(out[None], [(0, k, 0), (0, k, C - 1)]))
+    del plain
+    timed(rec, lambda: kernels.synth_dense(dev, out, None),
+          lambda: kernels.synth_dense.plain(dev, out, None), out, C * N)
+    finish(rec, ok_errs(rec))
+    del out
+
+    out, wall, cnt = main_path('seq_flagship play_sparse',
+                               lambda: seq.play_sparse(k), fail,
+                               {'synth_sparse': 1})
+    dev, work = seq._sparse_args(k, 32)
+    plain = kernels.synth_sparse.plain(dev, work, torch.zeros_like(out),
+                                       None)
+    rec = dict(base, method='play_sparse', dtype='float32', shots=1,
+               launches=cnt, wall_s=wall, vs_plain=rel_err_t(out, plain),
+               vs_oracle=oracle.err(out[None], [(0, k, 1)]))
+    del plain
+    timed(rec, lambda: kernels.synth_sparse(dev, work, out, None),
+          lambda: kernels.synth_sparse.plain(dev, work, out, None), out,
+          C * N)
+    finish(rec, ok_errs(rec))
+    del out
+
+    ks = [int(rng.integers(0, 8)), 99, -1]
+    clamped = [seq._clamp(x) for x in ks]
+    out, wall, cnt = main_path('seq_flagship play_many',
+                               lambda: seq.play_many(ks), fail,
+                               {'synth_dense': len(ks)})
+    devs = [seq._schedule(x) for x in clamped]
+    plain = torch.empty_like(out)
+    for i, d in enumerate(devs):
+        kernels.synth_dense.plain(d, plain[i], None)
+    rec = dict(base, method='play_many', dtype='float32', shots=len(ks),
+               launches=cnt, wall_s=wall, vs_plain=shots_err(out, plain),
+               vs_oracle=oracle.err(out, [(1, 7, 0), (2, 0, C - 1)]))
+    del plain
+    timed(rec, lambda: [kernels.synth_dense(d, out[i], None)
+                        for i, d in enumerate(devs)],
+          lambda: [kernels.synth_dense.plain(d, out[i], None)
+                   for i, d in enumerate(devs)], out, len(ks) * C * N)
+    finish(rec, ok_errs(rec) and clamped == [ks[0], 7, 0])
+    del out
+
+    # ---- seq_flagship_packed: 8 shots in one panel-kernel launch
+    order = np.random.default_rng(8).permutation(8)
+    for dtype in (torch.float32, torch.int16):
+        okw = {} if dtype == torch.float32 else {'out_dtype': dtype}
+        out, wall, cnt = main_path(
+            'seq_flagship_packed', lambda: seq.play_packed(order, **okw),
+            fail, {'synth_panel': 1})
+        ks_dev = torch.as_tensor(order, device='cuda')
+        plan, work = seq._packed_work(ks_dev, 8)
+        packed = seq._packed_tensors()
+        scale = (torch.full((C,), 32767.0, device='cuda')
+                 if dtype == torch.int16 else None)
+        raw = torch.empty((C, plan.total_rows * 128), dtype=dtype,
+                          device='cuda')
+        kernels.synth_panel.plain(packed, work, raw, scale)
+        rows = plan.tps * 8 * 128
+        plain = raw.unflatten(1, (len(order), rows))[..., :N].permute(1, 0, 2)
+        rec = dict(base, phase='seq_flagship_packed', method='play_packed',
+                   dtype=str(dtype)[6:], shots=len(order), launches=cnt,
+                   wall_s=wall, items=plan.n_items, panels=plan.NP,
+                   vs_plain=shots_err(out, plain),
+                   vs_oracle=oracle.err(out, [(0, int(order[0]), 0),
+                                              (1, int(order[1]), C - 1)]))
+        del plain
+        timed(rec, lambda: kernels.synth_panel(packed, work, raw, scale),
+              lambda: kernels.synth_panel.plain(packed, work, raw, scale),
+              raw, len(order) * C * N)
+        finish(rec, ok_errs(rec))
+        del out, raw
+    del seq, dev, devs, packed, work
+
+    # ---- seq_station: 16 gate-train schedules (2 ch x 200,000 samples)
+    rng = np.random.default_rng(11)
+    chans = []
+    for _ in range(16):
+        xy = zero()
+        for g in range(12):
+            I, _ = mixing(0.5 * cosPulse(30e-9) >> (2e-6 + g * 7.5e-6),
+                          freq=-150e6, phase=float(rng.uniform(0, 6.28)),
+                          DRAGScaling=1e-10)
+            xy += I
+        z = 0.3 * (square(80e-9, edge=10e-9)
+                   >> float(rng.uniform(1e-6, 9e-5)))
+        chans.append([xy, z])
+    lows = [lower_schedule(ch, 0.0, 1e-4, FS) for ch in chans]
+    seq = Sequencer(lows, device='cuda')
+    oracle = Oracle(chans, 1e-4)
+    C, N = seq.shape[0], seq.n_samples
+    ks = rng.integers(0, 16, 50)
+    base = {'phase': 'seq_station', 'table': seq.describe()}
+    out, wall, cnt = main_path('seq_station play_packed',
+                               lambda: seq.play_packed(ks, Rs=8), fail,
+                               {'synth_panel': 1})
+    plan, work = seq._packed_work(torch.as_tensor(ks, device='cuda'), 8)
+    packed = seq._packed_tensors()
+    raw = torch.empty((C, plan.total_rows * 128), device='cuda')
+    kernels.synth_panel.plain(packed, work, raw, None)
+    plain = raw.unflatten(1, (len(ks), plan.tps * 8 * 128))[..., :N]
+    rec = dict(base, method='play_packed', dtype='float32', shots=len(ks),
+               launches=cnt, wall_s=wall, items=plan.n_items,
+               vs_plain=shots_err(out, plain.permute(1, 0, 2)),
+               vs_oracle=oracle.err(out, [(0, int(ks[0]), 0),
+                                          (1, int(ks[1]), 1)]))
+    timed(rec, lambda: kernels.synth_panel(packed, work, raw, None),
+          lambda: kernels.synth_panel.plain(packed, work, raw, None), raw,
+          len(ks) * C * N)
+    finish(rec, ok_errs(rec))
+    del out, raw, plain
+
+    ks = rng.integers(0, 16, 1000)
+    out, wall, cnt = main_path('seq_station play_replay',
+                               lambda: seq.play_replay(ks), fail,
+                               {'synth_dense': 16})
+    pal = seq._palettes[next(iter(seq._palettes))]
+    devs = [seq._schedule(x) for x in range(16)]
+    plain = torch.empty_like(pal)
+    for x, d in enumerate(devs):
+        kernels.synth_dense.plain(d, plain[x], None)
+    ks_dev = torch.as_tensor(ks, device='cuda')
+    rec = dict(base, method='play_replay', dtype='float32', shots=len(ks),
+               launches=cnt, wall_s=wall,
+               vs_plain=shots_err(pal, plain),
+               gathered_exact=bool(torch.equal(out, pal[ks_dev])),
+               vs_oracle=oracle.err(out, [(0, int(ks[0]), 0),
+                                          (999, int(ks[999]), 1)]))
+    timed(rec, lambda: [kernels.synth_dense(d, pal[x], None)
+                        for x, d in enumerate(devs)],
+          lambda: [kernels.synth_dense.plain(d, pal[x], None)
+                   for x, d in enumerate(devs)], pal, 16 * C * N)
+    rec['gather_ms'] = cuda_ms(
+        lambda: torch.index_select(pal, 0, ks_dev, out=out))
+    rec['us_per_shot'] = rec['gather_ms'] * 1e3 / len(ks)
+    finish(rec, ok_errs(rec) and rec['gathered_exact'])
+    del out, pal, plain, seq, devs
+
+    # ---- stackseq_ladder: 4 ladder120 schedules, 16 shots on K6
+    host = {}
+    t0 = time.perf_counter()
+    chans = [build_ladder_schedule(120, seed=s) for s in range(5, 9)]
+    lows = [lower_schedule(c, 0.0, 524.288e-6, FS, bucket_samples=None)
+            for c in chans]
+    host['build_and_lower_4'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plans = [build_stack_plan(low) for low in lows]
+    host['stack_plans'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = StackSequencer(lows, plans, device='cuda')
+    torch.cuda.synchronize()
+    host['tables_and_upload'] = time.perf_counter() - t0
+    oracle = Oracle(chans, 524.288e-6)
+    C, N = seq.n_channels, seq.n_samples
+    t = seq.tables
+    ops = sched_ops(t)
+    order = np.random.default_rng(16).integers(0, 4, 16)
+    base = {'phase': 'stackseq_ladder', 'table': seq.describe(),
+            'host_s': host}
+    for dtype in (torch.float32, torch.int16):
+        okw = {} if dtype == torch.float32 else {'out_dtype': dtype}
+        out, wall, cnt = main_path(
+            'stackseq_ladder', lambda: seq.play_packed(order, **okw), fail,
+            {'synth_stack_seq': 1}, absent=('synth_stack',))
+        ks_dev = torch.as_tensor(order, dtype=torch.int32, device='cuda')
+        scale = (torch.full((C,), 32767.0, device='cuda')
+                 if dtype == torch.int16 else None)
+        plain = kernels.synth_stack_seq.plain(t, ks_dev, torch.empty_like(out),
+                                              scale)
+        rec = dict(base, method='play_packed', dtype=str(dtype)[6:],
+                   shots=len(order), launches=cnt, wall_s=wall,
+                   vs_plain=shots_err(out, plain),
+                   vs_oracle=oracle.err(out, [(0, int(order[0]), 0),
+                                              (1, int(order[1]), C - 1)]))
+        if dtype == torch.float32:
+            rec['max_abs_err'] = max(float((o - p).abs().max())
+                                     for o, p in zip(out, plain))
+            # shot 0 against K5, the single-schedule stack route
+            k5 = kernels.synth_stack(
+                build_stack_tables(plans[order[0]], lows[order[0]], 'cuda'),
+                torch.empty_like(out[0]), None)
+            rec['vs_k5'] = rel_err_t(out[0], k5)
+            del k5
+        del plain
+        timed(rec, lambda: kernels.synth_stack_seq(t, ks_dev, out, scale),
+              lambda: kernels.synth_stack_seq.plain(t, ks_dev, out, scale),
+              out, len(order) * C * N)
+        rec.update(bound(input_bytes(t, ks_dev)
+                         + out.numel() * out.element_size(),
+                         sum(ops[x] for x in order)))
+        if dtype == torch.float32:
+            summary['synth_stack_seq'].update(
+                ms=rec['kernel_ms'], plain_ms=rec['plain_ms'],
+                max_abs_err=rec['max_abs_err'],
+                **{k: rec[k] for k in ('bound_ms', 'bound_by',
+                                       'bound_bytes', 'bound_ops',
+                                       'library_ms')})
+        finish(rec, ok_errs(rec) and rec.get('vs_k5', 0.0) <= TOL_PLAIN)
+        del out
+    del seq, t
+
+    # ---- stackseq_rb: 16 randomized-benchmarking-like tables, 1000 shots
+    stop = 5.12e-6
+    chans = _vstacks(16, 30, 99, stop=stop)
+    lows = [lower_schedule(ch, 0.0, stop, FS) for ch in chans]
+    seq = StackSequencer(lows, device='cuda')
+    oracle = Oracle(chans, stop)
+    N = seq.n_samples
+    order = np.arange(1000) % 16
+    out, wall, cnt = main_path(
+        'stackseq_rb', lambda: seq.play_packed(order), fail,
+        {'synth_stack_seq': 1}, absent=('synth_stack',))
+    ks_dev = torch.as_tensor(order, dtype=torch.int32, device='cuda')
+    t = seq.tables
+    plain = kernels.synth_stack_seq.plain(t, ks_dev, torch.empty_like(out),
+                                          None)
+    rec = {'phase': 'stackseq_rb', 'table': seq.describe(),
+           'method': 'play_packed', 'dtype': 'float32', 'shots': 1000,
+           'launches': cnt, 'wall_s': wall,
+           'vs_plain': shots_err(out, plain),
+           'vs_oracle': oracle.err(out, [(x, x, 0) for x in range(4)])}
+    del plain
+    timed(rec, lambda: kernels.synth_stack_seq(t, ks_dev, out, None),
+          lambda: kernels.synth_stack_seq.plain(t, ks_dev, out, None), out,
+          1000 * N)
+    ops = sched_ops(t)
+    rec.update(bound(input_bytes(t, ks_dev) + out.numel() * 4,
+                     sum(ops[x] for x in order)))
+    finish(rec, ok_errs(rec))
 
 
 def main():
@@ -953,13 +1591,20 @@ def main():
     log(rec, {k: rec[k] for k in ('phase', 'ok', 'seconds', 'library')}
         | {'ptxas_lines': len(ptxas), 'spilling': spills})
 
-    summary = None
-    for phase in (check_small, check_small_hi, run_strata):
+    summary = {k.name: {'name': k.name, 'route': 'cuda', 'source': k.source,
+                        'replaces': k.replaces, 'launches': 0,
+                        'max_abs_err': None, 'ms': None, 'plain_ms': None,
+                        'bound_ms': None, 'bound_by': None,
+                        'library_ms': None}
+               for k in kernels.KERNELS}
+    for phase in (check_small, check_small_hi, check_small_seq, run_strata,
+                  run_sequences):
         t0 = time.perf_counter()
         try:
-            res = phase(fail)
-            if phase is run_strata:
-                summary = res
+            if phase in (run_strata, run_sequences):
+                phase(fail, summary)
+            else:
+                phase(fail)
         except Exception as exc:     # a phase that raises fails the run
             import traceback
             log({'phase': phase.__name__, 'ok': False,
@@ -968,16 +1613,29 @@ def main():
         log({'phase': f'{phase.__name__}_done',
              'seconds': time.perf_counter() - t0})
 
+    # each kernel's launches on the main paths, and every number measured
+    for name, entry in summary.items():
+        entry['launches'] = sum(c[name] for c in MAIN_COUNTS)
+        if entry['launches'] == 0:
+            fail.append(f"{name} never launched on the main paths")
+        if None in (entry['ms'], entry['plain_ms'], entry['bound_ms'],
+                    entry['max_abs_err']):
+            fail.append(f"{name}: a summary number was not measured")
+    summary = list(summary.values())
+    RECORDS.append({'phase': 'kernels', 'kernels': summary})
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                     exist_ok=True)
         with open(args.record, 'w') as f:
             json.dump(RECORDS, f, indent=1)
-    if fail or summary is None:
+    if fail:
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
         return 1
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(smi, flush=True)
-    print(json.dumps({'kernels': summary}), flush=True)
+    print(json.dumps({'kernels': [{k: e[k] for k in keys}
+                                  for e in summary]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

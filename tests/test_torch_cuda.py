@@ -152,6 +152,7 @@ def test_slice_goes_through_the_kernels(card):
                           engine='cuda-dense')
     assert kernels.launch_counts() == {'synth_dense': 1, 'synth_panel': 1,
                                        'synth_sparse': 0, 'synth_stack': 0,
+                                       'synth_stack_seq': 0,
                                        'synth_dense_hi': 0,
                                        'synth_panel_hi': 0}
     plain = wt.synthesize(chans, start, stop, fs, device='cpu')
@@ -391,3 +392,81 @@ def test_double_slice_goes_through_the_hi_kernels(card):
                           device='cpu')
     assert rel(got.cpu(), plain) <= TOL_HI
     assert rel(dense.cpu(), plain) <= TOL_HI
+
+
+def _seq_table(n_schedules=3, n_channels=2, seed=13):
+    """A table of narrow-pulse schedules: pulse trains of cosPulses and
+    DRAG-mixed gaussians (the panel, worklist and stack paths take it)."""
+    rng = np.random.default_rng(seed)
+    lows = []
+    for _ in range(n_schedules):
+        chans = []
+        for c in range(n_channels):
+            x = wt.zero()
+            for o in rng.uniform(0, 7.5e-6, 12):
+                I, _ = wt.mixing(0.4 * wt.cosPulse(40e-9) >> float(o),
+                                 freq=-120e6 - 3e6 * c, DRAGScaling=1e-10)
+                x += I
+            chans.append(x)
+        lows.append(lower_schedule(chans, 0.0, 8.192e-6, 2e9,
+                                   bucket_samples=None))
+    return lows
+
+
+KS = [2, 0, 99, -3, 1]
+
+
+def test_stack_seq_kernel_matches_plain(card):
+    """K6 on the card against its plain version: f32 within TOL, int16
+    equal to the kernel's own f32 quantized; out-of-range ks clamp."""
+    from waveforms_tpu_torch.ops import StackSequencer
+    lows = _seq_table()
+    seq = StackSequencer(lows, device=card)
+    n = kernels.synth_stack_seq.launches
+    got = seq.play_packed(KS)
+    torch.cuda.synchronize()
+    assert kernels.synth_stack_seq.launches == n + 1
+    plain = StackSequencer(lows, device='cpu').play_packed(KS)
+    assert rel(got.cpu(), plain) <= TOL
+    assert torch.equal(got[2], got[0]) and torch.equal(got[3], seq.play(0))
+    codes = seq.play_packed(KS, out_dtype=torch.int16, dac_scale=30000.0)
+    expected = torch.clamp(torch.round(got * 30000.0), -32768, 32767)
+    assert torch.equal(codes, expected.to(torch.int16))
+    # ks computed on the card: the kernel reads it there
+    ks_dev = torch.tensor(KS, device=card)
+    assert torch.equal(seq.play_packed(ks_dev), got)
+
+
+@pytest.mark.parametrize('method,dtype', [
+    (m, d) for m in ('play', 'play_many', 'play_sparse', 'play_packed',
+                     'play_replay')
+    for d in (torch.float32, torch.int16)
+    if (m, d) != ('play_sparse', torch.int16)])     # f32-only, as in JAX
+def test_sequencer_on_card_matches_plain(card, method, dtype):
+    """Each Sequencer method on the card (K1, K7, K2) against the same
+    method on the CPU (the plain versions); int16 within one code."""
+    from waveforms_tpu_torch.ops import Sequencer
+    lows = _seq_table()
+    kern = {'play': kernels.synth_dense, 'play_many': kernels.synth_dense,
+            'play_sparse': kernels.synth_sparse,
+            'play_packed': kernels.synth_panel,
+            'play_replay': kernels.synth_dense}[method]
+
+    def run(device):
+        seq = Sequencer(lows, device=device)
+        kw = {} if dtype == torch.float32 else {'out_dtype': dtype,
+                                                'dac_scale': 30000.0}
+        if method in ('play', 'play_sparse'):
+            return torch.stack([getattr(seq, method)(k, **kw) for k in KS])
+        return getattr(seq, method)(KS, **kw)
+    n = kern.launches
+    got = run(card)
+    torch.cuda.synchronize()
+    assert kern.launches > n
+    plain = run('cpu')
+    assert got.dtype == plain.dtype == dtype
+    assert tuple(got.shape) == (len(KS), 2, lows[0].n_samples)
+    if dtype == torch.float32:
+        assert rel(got.cpu(), plain) <= TOL
+    else:
+        assert (got.cpu().int() - plain.int()).abs().max() <= 1

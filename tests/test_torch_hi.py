@@ -170,7 +170,7 @@ def test_every_opcode_against_the_oracle(name):
     low = lt.lower_schedule(chans, start, stop, FS, keep_f64=True)
     op = getattr(lt, 'OP_' + name.upper())
     assert op in live_ops(low)
-    got = synthesize_hi(low)
+    got = synthesize_hi(low, device='cpu')
     want = wt.synthesize(chans, start, stop, FS, engine='numpy')
     tol = 2e-9 if name.startswith('drag_sin') else TOL
     assert torch.isfinite(got).all()
@@ -188,7 +188,7 @@ def test_long_phase_accumulation(which):
         stop = 5.24288e-4
         chans = schedules.build_dense_schedule(n_channels=1, duration=stop)
     got = synthesize_hi(lt.lower_schedule(chans, 0.0, stop, FS,
-                                          keep_f64=True))
+                                          keep_f64=True), device='cpu')
     assert rel(got.numpy(), oracle(chans, 0.0, stop, FS)) <= 2e-9
 
 
@@ -229,7 +229,8 @@ def test_lowered_from_jax_gives_the_ports_own_output(jax_python_lowering):
     np.testing.assert_array_equal(carried.args_lo, low_j.args_lo)
     np.testing.assert_array_equal(carried.amp_lo, low_j.amp_lo)
     own = lt.lower_schedule(ct, start, stop, FS, keep_f64=True)
-    assert torch.equal(synthesize_hi(carried), synthesize_hi(own))
+    assert torch.equal(synthesize_hi(carried, device='cpu'),
+                       synthesize_hi(own, device='cpu'))
 
 
 @pytest.mark.parametrize('case', ['gaussian_cos', 'bucketed'])
@@ -238,7 +239,8 @@ def test_split_planes(case):
     the f64 output (the split loses at most 2^-48 of each sample)."""
     chans, start, stop, bs, _ = hi_cases(wt)[case]
     dev = HiSchedule(lt.lower_schedule(chans, start, stop, FS,
-                                       bucket_samples=bs, keep_f64=True))
+                                       bucket_samples=bs, keep_f64=True),
+                     'cpu')
     out = synthesize_hi(dev)
     hi, lo = synthesize_hi(dev, combine=False)
     assert hi.dtype == lo.dtype == torch.float32
@@ -255,7 +257,8 @@ def test_hischedule_refusals(side):
     opcode in a dead slot (its gate reads live slots only)."""
     w, lower, hisched, unsupported = {
         'jax': (wj, lj.lower_schedule, HiScheduleJ, lj.UnsupportedFactor),
-        'port': (wt, lt.lower_schedule, HiSchedule, lt.UnsupportedFactor),
+        'port': (wt, lt.lower_schedule, lambda low: HiSchedule(low, 'cpu'),
+                 lt.UnsupportedFactor),
     }[side]
     chans = [w.gaussian(1e-6)]
     with pytest.raises(ValueError, match='keep_f64'):
@@ -276,5 +279,5 @@ def test_cpu_tensors_take_the_plain_version():
     low = lt.lower_schedule([wt.gaussian(1e-6)], -1e-6, 1e-6, FS,
                             keep_f64=True)
     before = kernels.launch_counts()
-    synthesize_hi(low)
+    synthesize_hi(low, device='cpu')
     assert kernels.launch_counts() == before

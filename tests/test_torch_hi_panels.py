@@ -63,7 +63,7 @@ def test_hi_panels_match_jax_and_oracle(case):
     ref = np.asarray(hj.synthesize_hi_panels(low, interpret=True))
     low_t = lowered_from_jax(low)
     plan = build_panel_plan(low_t)
-    got = synthesize_hi_panels(HiSchedule(low_t), plan=plan)
+    got = synthesize_hi_panels(HiSchedule(low_t, 'cpu'), plan=plan)
     assert got.dtype == torch.float64 and tuple(got.shape) == ref.shape
     want = oracle(chans, start, stop, FS)
     tol = 2e-9 if case == 'drag_sin_x' else TOL
@@ -71,7 +71,8 @@ def test_hi_panels_match_jax_and_oracle(case):
     assert rel(ref, want) <= tol
     assert rel(got.numpy(), ref) <= TOL_JAX
     # panel and dense evaluate each sample with the same formulas
-    assert rel(got.numpy(), synthesize_hi(low_t).numpy()) <= 1e-14
+    assert rel(got.numpy(),
+               synthesize_hi(low_t, device='cpu').numpy()) <= 1e-14
     if case == 'hi_sparse':
         assert plan.n_live < plan.n_panels * (plan.P // plan.Rs) * len(chans)
 
@@ -81,7 +82,7 @@ def test_hi_panels_split_planes_and_silent_zeros():
     low = lowered_from_jax(lj.lower_schedule(chans, start, stop, FS,
                                              keep_f64=True))
     plan = build_panel_plan(low)
-    dev = HiSchedule(low)
+    dev = HiSchedule(low, 'cpu')
     out = synthesize_hi_panels(dev, plan=plan)
     hi, lo = synthesize_hi_panels(dev, plan=plan, combine=False)
     assert torch.equal(hi, out.float())
@@ -100,7 +101,7 @@ def test_hi_panels_refuse_buckets():
     low = wt.ops.lowering.lower_schedule(chans, start, stop, FS,
                                          bucket_samples=bs, keep_f64=True)
     with pytest.raises(wt.UnsupportedFactor, match='single-bucket'):
-        synthesize_hi_panels(low)
+        synthesize_hi_panels(low, device='cpu')
 
 
 def _route_cases():
@@ -157,9 +158,9 @@ def test_hi_routed_picks_the_routes_kernel():
     chans, start, stop = hi_sparse()
     low = lowered_from_jax(lj.lower_schedule(chans, start, stop, FS,
                                              keep_f64=True))
-    routed = synthesize_hi_routed(low)
-    assert torch.equal(routed, synthesize_hi_panels(low))
-    hi, lo = synthesize_hi_routed(low, combine=False)
+    routed = synthesize_hi_routed(low, device='cpu')
+    assert torch.equal(routed, synthesize_hi_panels(low, device='cpu'))
+    hi, lo = synthesize_hi_routed(low, combine=False, device='cpu')
     assert torch.equal(hi, routed.float())
 
 

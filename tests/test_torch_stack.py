@@ -132,7 +132,7 @@ def test_stack_tables_hold_jax_blocks(case):
     _, _, _, low, low_t = lowered(case)
     plan_j = sj.build_stack_plan(low)
     plan_t = build_stack_plan(low_t)
-    t = build_stack_tables(plan_t, low_t)
+    t = build_stack_tables(plan_t, low_t, 'cpu')
     bi, br = t.blk_inst.numpy(), t.blk_row.numpy()
     start = t.chunk_start.numpy()
     assert start[0] == 0 and start[-1] == t.n_blocks == plan_t.n_blocks_total
@@ -198,7 +198,8 @@ def test_per_channel_scale_quantizes_after_the_kernel():
 def test_tables_are_cached_per_device():
     _, _, _, _, low_t = lowered('vstack')
     plan = build_stack_plan(low_t)
-    assert build_stack_tables(plan, low_t) is build_stack_tables(plan, low_t)
+    assert (build_stack_tables(plan, low_t, 'cpu')
+            is build_stack_tables(plan, low_t, 'cpu'))
 
 
 def test_stack_refuses_what_it_cannot_batch():

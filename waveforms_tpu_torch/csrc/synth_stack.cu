@@ -27,84 +27,33 @@
 // is written exactly once, so the zero fill is fused.  The multi-tone DRAG
 // opcodes read their coefficients from the schedule's ext buffer in global
 // memory, so the TPU's one-ext-factor-per-instance limit does not apply.
+// The walk and the store are synth_stack_common.cuh's, shared with the
+// sequenced twin K6 (synth_stack_seq.cu).
 //
 // What bounds it on the H100: the output store.  The 120-pulse ladder
 // (128 ch x 1,048,576 samples) evaluates 69,228 blocks (8.9 M samples) but
 // stores 537 MB as f32; 16,384 thread blocks keep every SM storing.
-#include "synth_common.cuh"
+#include "synth_stack_common.cuh"
 
 namespace wfsynth {
 
-constexpr int CHUNK_ROWS = 64;      // == ops/stack_synth.CHUNK_ROWS
-constexpr int LANES = 128;          // samples per block == threads per block
-
 __global__ void __launch_bounds__(LANES)
-synth_stack_kernel(const int* __restrict__ inst, const float* __restrict__ amp,
-                   const int* __restrict__ term_nfac,
-                   const int* __restrict__ op, const int* __restrict__ power,
-                   const int* __restrict__ shift_hi,
-                   const int* __restrict__ q32,
-                   const float* __restrict__ args,
-                   const float* __restrict__ ext,
-                   const int* __restrict__ blk_inst,
-                   const int* __restrict__ blk_row,
-                   const int* __restrict__ chunk_start, int NT, int TF,
+synth_stack_kernel(StackDesc t, const int* __restrict__ chunk_start,
                    int n_chunks, long long n_samples, void* out, int out_kind,
                    const float* scale) {
   __shared__ __align__(16) float acc[CHUNK_ROWS * LANES];
   const int q = blockIdx.x;                 // (channel, chunk), channel-major
   const int c = q / n_chunks;
   const long long row0 = (long long)(q - c * n_chunks) * CHUNK_ROWS;
-  const int lane = threadIdx.x;
 
   // zero and walk touch only this thread's column: no barrier between them
-  for (int r = 0; r < CHUNK_ROWS; ++r) acc[r * LANES + lane] = 0.0f;
-  const int k1 = chunk_start[q + 1];
-  for (int k = chunk_start[q]; k < k1; ++k) {
-    const int m = blk_inst[k];
-    const long long row = blk_row[k];
-    const long long idx = row * LANES + lane;
-    const int* im = inst + 4 * m;           // (channel, lo, hi, n_terms)
-    if (idx < im[1] || idx >= im[2]) continue;
-    const int nt = im[3];
-    float seg = 0.0f;
-    int f = 0;
-    for (int t = 0; t < nt; ++t) {
-      float prod = amp[m * NT + t];
-      const int nf = term_nfac[m * NT + t];
-      for (int j = 0; j < nf; ++j, ++f) {
-        const long long ff = (long long)m * TF + f;
-        prod = prod * factor_value(op[ff], power[ff], shift_hi[ff],
-                                   args + ff * W_ARGS, q32 + ff * 4, ext,
-                                   idx);
-      }
-      seg = t == 0 ? prod : seg + prod;
-    }
-    acc[(row - row0) * LANES + lane] += seg;
-  }
+  stack_walk(t, acc, chunk_start[q], chunk_start[q + 1], row0, threadIdx.x);
   __syncthreads();
 
   const long long s0 = row0 * LANES;
   const long long count = min((long long)CHUNK_ROWS * LANES, n_samples - s0);
-  const long long base = (long long)c * n_samples + s0;
-  const float sc = out_kind == OUT_I16 ? scale[c] : 1.0f;
-  if ((n_samples & 3) == 0) {
-    // rows of a multiple of 4 samples: base and count are multiples of 4
-    const float4* a4 = reinterpret_cast<const float4*>(acc);
-    for (long long v = threadIdx.x; v < count / 4; v += blockDim.x) {
-      const float4 x = a4[v];
-      if (out_kind == OUT_I16) {
-        reinterpret_cast<short4*>(static_cast<short*>(out) + base)[v] =
-            make_short4(dac_code(x.x, sc), dac_code(x.y, sc),
-                        dac_code(x.z, sc), dac_code(x.w, sc));
-      } else {
-        reinterpret_cast<float4*>(static_cast<float*>(out) + base)[v] = x;
-      }
-    }
-  } else {
-    for (long long i = threadIdx.x; i < count; i += blockDim.x)
-      store_sample(out, base + i, acc[i], out_kind, sc);
-  }
+  stack_store(acc, out, (long long)c * n_samples + s0, count, n_samples,
+              out_kind, out_kind == OUT_I16 ? scale[c] : 1.0f);
 }
 
 }  // namespace wfsynth
@@ -124,9 +73,9 @@ int wf_synth_stack(const int* inst, const float* amp, const int* term_nfac,
   if (blocks > 0)
     wfsynth::synth_stack_kernel<<<(unsigned)blocks, wfsynth::LANES, 0,
                                   (cudaStream_t)stream>>>(
-        inst, amp, term_nfac, op, power, shift_hi, q32, args, ext, blk_inst,
-        blk_row, chunk_start, NT, TF, n_chunks, n_samples, out, out_kind,
-        scale);
+        wfsynth::StackDesc{inst, amp, term_nfac, op, power, shift_hi, q32,
+                           args, ext, blk_inst, blk_row, NT, TF},
+        chunk_start, n_chunks, n_samples, out, out_kind, scale);
   return (int)cudaGetLastError();
 }
 

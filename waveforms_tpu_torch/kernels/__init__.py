@@ -14,13 +14,14 @@ package, named by a hash of the sources, so an edited source rebuilds.
 
 One wrapper per kernel: :data:`synth_dense` (K1, the dense grid),
 :data:`synth_panel` (K2, the panel walk), :data:`synth_sparse` (K7, the
-worklist walk), :data:`synth_stack` (K5, pulse instances), and the double
-tier's :data:`synth_dense_hi` (K3) and :data:`synth_panel_hi` (K4).  A
-wrapper given tensors on the CPU runs the kernel's plain version
-(:mod:`..ops.reference`, :mod:`..ops.reference_hi`); given CUDA tensors it
-launches the kernel, checks the launch's ``cudaGetLastError()`` and raises
-on any failure -- it never falls back.  Each wrapper counts its kernel
-launches in ``launches``.
+worklist walk), :data:`synth_stack` (K5, pulse instances), its sequenced
+twin :data:`synth_stack_seq` (K6, one launch for a shot vector over stacked
+tables), and the double tier's :data:`synth_dense_hi` (K3) and
+:data:`synth_panel_hi` (K4).  A wrapper given tensors on the CPU runs the
+kernel's plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`);
+given CUDA tensors it launches the kernel, checks the launch's
+``cudaGetLastError()`` and raises on any failure -- it never falls back.
+Each wrapper counts its kernel launches in ``launches``.
 
 Output kinds: f32; int16 DAC codes with a per-channel f32 scale; and, for
 the three descriptor walks, complex64 in pair mode (a schedule with
@@ -43,14 +44,17 @@ import torch
 from ..ops import reference, reference_hi
 
 __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
-           'synth_dense_hi', 'synth_panel_hi', 'load_library', 'library_path', 'reset_launch_counts',
+           'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
+           'load_library', 'library_path', 'reset_launch_counts',
            'launch_counts', 'KERNELS']
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
-           'synth_stack.cu', 'synth_dense_hi.cu', 'synth_panel_hi.cu')
-HEADERS = ('synth_common.cuh', 'synth_hi_common.cuh')
+           'synth_stack.cu', 'synth_stack_seq.cu', 'synth_dense_hi.cu',
+           'synth_panel_hi.cu')
+HEADERS = ('synth_common.cuh', 'synth_stack_common.cuh',
+           'synth_hi_common.cuh')
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xptxas', '-v',
@@ -144,6 +148,8 @@ def load_library():
                                         + [P, I, P, P])
         lib.wf_synth_stack.argtypes = ([P] * 12 + [I] * 4 + [L]
                                        + [P, I, P, P])
+        lib.wf_synth_stack_seq.argtypes = ([P] * 13 + [I] * 5 + [L, I]
+                                           + [P, I, P, P])
         lib.wf_synth_dense_hi.argtypes = ([P] * 13 + [I] * 5 + [L, L, I]
                                           + [P, P, I, P])
         lib.wf_synth_panel_hi.argtypes = ([P] * 12 + [I] * 5 + [L, L]
@@ -151,7 +157,8 @@ def load_library():
                                           + [P, P, I, P])
         for fn in (lib.wf_synth_dense, lib.wf_synth_panel,
                    lib.wf_synth_sparse, lib.wf_synth_stack,
-                   lib.wf_synth_dense_hi, lib.wf_synth_panel_hi):
+                   lib.wf_synth_stack_seq, lib.wf_synth_dense_hi,
+                   lib.wf_synth_panel_hi):
             fn.restype = I
         lib.wf_error_string.argtypes = [I]
         lib.wf_error_string.restype = ctypes.c_char_p
@@ -309,15 +316,25 @@ def _launch_sparse(d, work, out, scale):
     _raise_on(code, 'synth_sparse')
 
 
-def _launch_stack(t, out, scale):
-    kind = _out_kind(out, scale, (t.n_channels, t.n_samples))
+_STACK_TABLES = ('inst', 'amp', 'term_nfac', 'op', 'power', 'shift_hi', 'q32',
+                 'args', 'ext', 'blk_inst', 'blk_row', 'chunk_start')
+
+
+def _stack_checked(t, out, scale, shape, **extra):
+    """Validate a stack-table launch -> (out kind, tables by name)."""
+    kind = _out_kind(out, scale, shape)
     if kind == 2:
-        raise ValueError("the stack kernel has no pair mode")
-    tables = {n: getattr(t, n) for n in
-              ('inst', 'amp', 'term_nfac', 'op', 'power', 'shift_hi', 'q32',
-               'args', 'ext', 'blk_inst', 'blk_row', 'chunk_start')}
-    _check_cuda(dict(tables, out=out, **({'scale': scale} if kind else {})),
-                out.device)
+        raise ValueError("the stack kernels have no pair mode")
+    tables = {n: getattr(t, n) for n in _STACK_TABLES}
+    _check_cuda(dict(tables, out=out, **extra,
+                     **({'scale': scale} if kind else {})), out.device)
+    return kind, tables
+
+
+def _launch_stack(t, out, scale):
+    if t.chunk_start.dim() != 1:
+        raise ValueError("stacked tables (a 2-D chunk_start) are K6's")
+    kind, tables = _stack_checked(t, out, scale, (t.n_channels, t.n_samples))
     lib = load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_stack(
@@ -325,6 +342,24 @@ def _launch_stack(t, out, scale):
             t.n_channels, t.n_chunks, t.n_samples, out.data_ptr(), kind,
             _ptr(scale), _stream(out))
     _raise_on(code, 'synth_stack')
+
+
+def _launch_stack_seq(t, ks, out, scale):
+    K = t.chunk_start.shape[0]
+    if tuple(t.chunk_start.shape) != (K, t.n_channels * t.n_chunks + 1):
+        raise ValueError("chunk_start must be (K, C * n_chunks + 1)")
+    if ks.dim() != 1 or ks.dtype != torch.int32:
+        raise ValueError("ks must be a 1-D int32 tensor")
+    n_shots = ks.shape[0]
+    kind, tables = _stack_checked(t, out, scale,
+                                  (n_shots, t.n_channels, t.n_samples), ks=ks)
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_synth_stack_seq(
+            *(v.data_ptr() for v in tables.values()), ks.data_ptr(), t.NT,
+            t.TF, K, t.n_channels, t.n_chunks, t.n_samples, n_shots,
+            out.data_ptr(), kind, _ptr(scale), _stream(out))
+    _raise_on(code, 'synth_stack_seq')
 
 
 def _hi_checked(d, dense, out, lo, shape, **extra):
@@ -411,6 +446,13 @@ synth_stack = _Kernel(
     'waveforms_tpu/ops/stack_synth.py:1145', reference.stack_eval,
     _launch_stack)
 
+#: K6: ``synth_stack_seq(tables, ks, out, scale)`` fills out (n_shots, C,
+#: n_samples) from stacked StackTables, shot s from schedule clamp(ks[s])
+synth_stack_seq = _Kernel(
+    'synth_stack_seq', 'waveforms_tpu_torch/csrc/synth_stack_seq.cu',
+    'waveforms_tpu/ops/stack_seq.py:488', reference.stack_seq_eval,
+    _launch_stack_seq)
+
 #: K3: ``synth_dense_hi(hidev, out, lo)`` fills out (C, n_samples), f64
 #: (``lo`` None) or the f32 hi plane with ``lo`` the lo plane
 synth_dense_hi = _Kernel(
@@ -426,7 +468,7 @@ synth_panel_hi = _Kernel(
     _launch_panel_hi)
 
 KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack,
-           synth_dense_hi, synth_panel_hi)
+           synth_stack_seq, synth_dense_hi, synth_panel_hi)
 
 
 def reset_launch_counts():

@@ -77,7 +77,7 @@ class HiSchedule:
     Dead factor slots keep their opcodes: the kernels read only live ones.
     """
 
-    def __init__(self, low: LoweredSchedule, device='cpu'):
+    def __init__(self, low: LoweredSchedule, device='cuda'):
         check_hi_schedule(low)
         self.device = resolve_device(device)
         self.shape = tuple(int(v) for v in low.shape)
@@ -120,7 +120,7 @@ def _outputs(C, n, device, combine):
             torch.empty((C, n), dtype=torch.float32, device=device))
 
 
-def synthesize_hi(low_or_dev, combine: bool = True, device='cpu'):
+def synthesize_hi(low_or_dev, combine: bool = True, device='cuda'):
     """Dense double-tier synthesis (K3) -> float64 (C, n_samples) on the
     schedule's device, or with ``combine=False`` the f32 ``(hi, lo)``
     planes.  ``device`` places a LoweredSchedule's upload; cache the
@@ -135,7 +135,7 @@ def synthesize_hi(low_or_dev, combine: bool = True, device='cpu'):
 
 def synthesize_hi_panels(dev, low: LoweredSchedule | None = None,
                          plan: PanelPlan | None = None, Rs: int = 32,
-                         combine: bool = True, device='cpu'):
+                         combine: bool = True, device='cuda'):
     """Panel double-tier synthesis (K4) of a single-bucket schedule ->
     float64 (C, window_samples), or the f32 ``(hi, lo)`` planes.  ``dev``
     is a HiSchedule or a LoweredSchedule (uploaded to ``device``); the
@@ -182,7 +182,7 @@ def classify_hi_route(low: LoweredSchedule):
 
 
 def synthesize_hi_routed(low: LoweredSchedule, combine: bool = True,
-                         device='cpu'):
+                         device='cuda'):
     """Occupancy-routed double tier: the panel kernel or the dense kernel,
     as :func:`classify_hi_route` picks."""
     dev = HiSchedule(low, device)

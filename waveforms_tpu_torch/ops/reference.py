@@ -30,7 +30,7 @@ from .lowering import (DRAG_SIN_NC, DRAG_SINX_MAXQ, OP_COS, OP_COSH, OP_DRAG,
                        OP_SINH, W_ARGS)
 
 __all__ = ['op_builders', 'dense_walk', 'panel_walk', 'sparse_walk',
-           'stack_eval', 'wrap32']
+           'stack_eval', 'stack_seq_eval', 'wrap32']
 
 _F32 = torch.float32
 # f32 constants, exactly as the JAX kernel spells them (np.float32 values)
@@ -535,19 +535,13 @@ def _instance_values(t, m, idx):
     return seg
 
 
-def stack_eval(t, out, scale=None):
-    """Plain version of the stack kernel: fill ``out`` (C, n_samples), f32
-    or int16 (``scale`` per channel), with the sum of every block of the
-    instance tables ``t`` (a :class:`..ops.stack_synth.StackTables`): block
-    j adds instance ``blk_inst[j]``'s value, masked to its [lo, hi), over
-    the 128 samples of row ``blk_row[j]`` of its channel.  Blocks are added
-    in table order, as the kernel adds them per chunk."""
-    n = out.shape[1]
-    accs = _planes(out, False)
-    flat = accs[0].view(-1)
-    total = t.n_blocks * 128
-    for e0 in range(0, total, CHUNK):
-        el = torch.arange(e0, min(e0 + CHUNK, total), device=out.device)
+def _add_blocks(t, flat, n, j0, j1):
+    """Add blocks [j0, j1) of the instance tables ``t`` into ``flat``, the
+    flat view of a (C, n) f32 plane: block j adds instance ``blk_inst[j]``'s
+    value, masked to its [lo, hi), over the 128 samples of row
+    ``blk_row[j]`` of its channel, in table order."""
+    for e0 in range(j0 * 128, j1 * 128, CHUNK):
+        el = torch.arange(e0, min(e0 + CHUNK, j1 * 128), device=flat.device)
         j = el // 128
         m = t.blk_inst[j].to(torch.int64)
         idx = t.blk_row[j].to(torch.int64) * 128 + el % 128
@@ -557,4 +551,36 @@ def stack_eval(t, out, scale=None):
             continue
         vals = _instance_values(t, m[keep], idx[keep])
         flat.index_add_(0, inst[keep, 0] * n + idx[keep], vals)
+
+
+def stack_eval(t, out, scale=None):
+    """Plain version of the stack kernel: fill ``out`` (C, n_samples), f32
+    or int16 (``scale`` per channel), with the sum of every block of the
+    instance tables ``t`` (a :class:`..ops.stack_synth.StackTables`): block
+    j adds instance ``blk_inst[j]``'s value, masked to its [lo, hi), over
+    the 128 samples of row ``blk_row[j]`` of its channel.  Blocks are added
+    in table order, as the kernel adds them per chunk."""
+    accs = _planes(out, False)
+    _add_blocks(t, accs[0].view(-1), out.shape[1], 0, t.n_blocks)
     return _store(accs, out, scale)
+
+
+def stack_seq_eval(t, ks, out, scale=None):
+    """Plain version of the stacked-table sequence kernel: fill ``out``
+    (n_shots, C, n_samples), f32 or int16 (``scale`` per channel), with
+    shot s holding :func:`stack_eval` of schedule ``clamp(ks[s], 0, K-1)``
+    of the stacked tables ``t`` (:class:`..ops.stack_synth.StackTables`
+    whose (K, C * n_chunks + 1) ``chunk_start`` row k bounds schedule k's
+    blocks).  Each schedule
+    that the shots play is evaluated once, quantized, and gathered into
+    its shots."""
+    K = t.chunk_start.shape[0]
+    C, n = out.shape[1:]
+    ks = ks.to(device=out.device, dtype=torch.int64).clamp(0, K - 1)
+    pal = torch.zeros((K, C, n), dtype=_F32, device=out.device)
+    for k in torch.unique(ks).tolist():
+        _add_blocks(t, pal[k].view(-1), n, int(t.chunk_start[k, 0]),
+                    int(t.chunk_start[k, -1]))
+    codes = _stored([pal], out.dtype,
+                    None if scale is None else scale.reshape(1, -1, 1))
+    return torch.index_select(codes, 0, ks, out=out)

@@ -322,7 +322,10 @@ class StackTables:
     are sorted by (channel, chunk of CHUNK_ROWS rows), stably, as the JAX
     package's ``_chunk_assign`` sorts them by output chunk, with CSR
     offsets ``chunk_start`` (C * n_chunks + 1).  ``ext`` is the schedule's
-    side-buffer, read in place by the drag_sin opcodes."""
+    side-buffer, read in place by the drag_sin opcodes.  The tables of K
+    schedules stacked by :class:`.stack_seq.StackSequencer` have a
+    (K, C * n_chunks + 1) ``chunk_start``, row k bounding schedule k's
+    blocks."""
     n_channels: int
     n_samples: int
     n_chunks: int            # chunks per channel
@@ -347,7 +350,7 @@ class StackTables:
 
 
 def build_stack_tables(plan: StackPlan, low: LoweredSchedule,
-                       device='cpu') -> StackTables:
+                       device='cuda') -> StackTables:
     """Flatten ``plan``'s groups into one instance table and its CSR block
     list on ``device`` (cached on the plan per device)."""
     device = resolve_device(device)
@@ -416,7 +419,7 @@ def build_stack_tables(plan: StackPlan, low: LoweredSchedule,
 
 def synthesize_stack(low: LoweredSchedule, plan: StackPlan | None = None,
                      out_dtype=None, dac_scale=32767.0,
-                     device='cpu') -> torch.Tensor:
+                     device='cuda') -> torch.Tensor:
     """Synthesize via the pulse-instance batched path -> (C, n_samples) on
     ``device``: the stack kernel over the narrow instances, plus the dense
     kernel over the wide residual, summed in f32.

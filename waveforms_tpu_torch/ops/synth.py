@@ -113,10 +113,15 @@ class DeviceSchedule:
     f32); ``seg_hmax`` is the running max of ``seg_hi`` per bucket list, the
     dense kernel's bisect key.  Opcodes stay the lowering's own numbers.
     ``amp_im`` is the second amplitude plane of a ``part='complex'``
-    lowering (pair mode), else None.
+    lowering (pair mode), else None.  ``device='cuda'`` without a GPU
+    raises (:func:`resolve_device`); pass ``device='cpu'`` for the plain
+    versions.
     """
 
-    def __init__(self, low: LoweredSchedule, device='cpu'):
+    _TENSORS = ('seg_lo', 'seg_hi', 'seg_hmax', 'nterm', 'nfac', 'amp', 'op',
+                'power', 'shift_hi', 'q32', 'args', 'ext', 'clip', 'amp_im')
+
+    def __init__(self, low: LoweredSchedule, device='cuda'):
         self.device = resolve_device(device)
         self.shape = tuple(int(v) for v in low.shape)
         self.n_samples = int(low.n_samples)
@@ -147,6 +152,25 @@ class DeviceSchedule:
         self.clip = put(clip, np.float32)
         self.amp_im = (None if low.amp_im is None
                        else put(low.amp_im, np.float32))
+
+    @classmethod
+    def from_tensors(cls, shape, n_samples, bucket_samples, **tensors):
+        """A DeviceSchedule over descriptor tensors that are already on one
+        device (a slice or a concatenation of a sequence table), with no
+        copy through the host.  ``tensors`` names every attribute of
+        :attr:`_TENSORS` in the layout of ``shape``; ``amp_im`` may be
+        None, and so may ``seg_hmax`` where no dense walk reads it."""
+        missing = set(cls._TENSORS) - {'amp_im', 'seg_hmax'} - set(tensors)
+        if missing or set(tensors) - set(cls._TENSORS):
+            raise ValueError(f"from_tensors takes exactly {cls._TENSORS}")
+        self = cls.__new__(cls)
+        self.device = tensors['seg_lo'].device
+        self.shape = tuple(int(v) for v in shape)
+        self.n_samples = int(n_samples)
+        self.bucket_samples = int(bucket_samples)
+        for name in cls._TENSORS:
+            setattr(self, name, tensors.get(name))
+        return self
 
 
 def synthesize_device(dev: DeviceSchedule, out_dtype=None,
