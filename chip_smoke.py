@@ -5,7 +5,10 @@
 
 Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
 
-1. the card's name and power limit (nvidia-smi) and the toolchain;
+1. the card's name and power limit (nvidia-smi) and the toolchain; then,
+   before every other phase, the health probe P4
+   (``waveforms_tpu_torch.probes.health_probe``: ``2 * x`` on the card),
+   whose failure ends the run;
 2. small schedules (a few channels, a few us): every kernel -- dense (K1),
    panel (K2), worklist (K7), stack (K5) -- against its plain PyTorch
    version on the card and on the CPU, and against the float64 numpy
@@ -49,12 +52,29 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    16 shots, f32 and int16 -> K6, K5 never) and ``stackseq_rb`` (16
    schedules of 30 cosPulses, 1000 shots -> K6), each kernel against its
    plain version, the oracle on a few channels of a few shots, and the
-   kernel's, the plain version's and the fill's times.
+   kernel's, the plain version's and the fill's times;
+6. the measurement probes (``waveforms_tpu_torch.probes``): at small size
+   (K = 64) P4, every P2 variant and every P3 body against its plain
+   version on the card, bit for bit, and P1's compact worklist kernel on 8
+   flagship channels over 32.768 us, padded and not, within TOL_PLAIN;
+   then the main path ``probes``: P4, P1, P2 and P3 at the JAX tasks' full
+   sizes (one line each), with the launch counts read right after, and on
+   the same inputs every variant against its plain version, and K7 on
+   P1's worklist and on that worklist padded 4x against its plain version
+   within TOL_PLAIN.
 
-Every kernel's summary entry carries its bound: the larger of the bytes
-its call must move (inputs read once, the output written once) over the
-card's HBM rate and the operations that call needs (counted from the
-descriptors, ``OP_COST``) over the FP32 (FP64 for K3/K4) peak.
+Kernel times are CUDA-event medians with the card's queue pre-filled
+(``probes.cuda_ms``), so they time the device and not the host's launch
+path; a run the host had not queued before the card's sleep ended is
+redone with a longer sleep, a call the host cannot queue behind one (a
+plain version that waits on the card) is timed unqueued, and the
+``timing`` line records both.  Every kernel's summary entry carries its
+bound: the larger of the bytes its call must move (inputs read once,
+the output written once) over the card's HBM rate and the operations that call needs (counted from the
+descriptors, ``OP_COST``) over the FP32 (FP64 for K3/K4) peak.  The probe
+kernels' entries time one variant each (P2 ``op13_dyn``, P3 ``base``);
+``library_ms`` is ``torch.mul`` for P4 and null for the rest (no PyTorch
+call computes a table-read-and-fill probe or a descriptor walk).
 
 Each phase prints one compact JSON line (``--record PATH`` writes every
 record in full to one JSON file).  The line before the last is the kernel
@@ -66,7 +86,6 @@ CUDA device is visible or the port is not importable.
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -133,26 +152,12 @@ def code_err(a, b):
 
 def cuda_ms(fn, reps=REPS, warm_s=0.05):
     """Median device time of fn over reps runs, after warming up for at
-    least ``warm_s`` seconds: the card lowers its clocks while the host
-    works alone (the oracle, the plain versions' set-up), and a 0.2 ms
-    kernel timed right after that reads up to 1.5x slow."""
-    import torch
-    t0 = time.perf_counter()
-    while True:
-        fn()
-        torch.cuda.synchronize()
-        if time.perf_counter() - t0 >= warm_s:
-            break
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    least ``warm_s`` seconds (``waveforms_tpu_torch.probes.cuda_ms``): the
+    card lowers its clocks while the host works alone (the oracle, the
+    plain versions' set-up), and a 0.2 ms kernel timed right after that
+    reads up to 1.5x slow."""
+    from waveforms_tpu_torch.probes import cuda_ms as median_ms
+    return median_ms(fn, reps, warm_s)
 
 
 def input_bytes(*objs):
@@ -1535,6 +1540,216 @@ def run_sequences(fail, summary):
     finish(rec, ok_errs(rec))
 
 
+def compact_err(work, got, plain, peak):
+    """Max over items of |got - plain| / the peak of the item's channel,
+    for (K, Rs, 128) compact worklist outputs."""
+    n = got.shape[0]
+    return float(((got - plain).abs().reshape(n, -1).amax(dim=1)
+                  / peak[work.work_c.long()]).max())
+
+
+def sparse_peaks(dev, work, window):
+    """Each channel's peak of the worklist kernel's plain version."""
+    import torch
+
+    from waveforms_tpu_torch import kernels
+    out = torch.zeros((dev.shape[0], window), device=dev.device)
+    return kernels.synth_sparse.plain(dev, work, out, None).abs().amax(
+        dim=1).clamp_min(1e-30)
+
+
+def check_probes(fail):
+    """Phase 2, the probes: P4, P2 (every variant) and P3 (every body) at
+    K = 64 against their plain versions on the card, exactly; P1's compact
+    kernel on the flagship's first 8 channels over 32.768 us, on its
+    worklist and on the worklist padded 4x, within TOL_PLAIN of each
+    channel's peak of K7's plain version, and K7 on the padded worklist
+    against K7 on the unpadded one, exactly."""
+    import torch
+
+    from waveforms_tpu_torch import kernels, probes
+    from waveforms_tpu_torch.ops.reference_probes import WALKER_BODIES
+
+    def exact(key, got, plain):
+        e = float((got - plain).abs().max())
+        rec[key] = {'vs_plain': e, 'ok': bool(torch.equal(got, plain))}
+
+    rec = {'phase': 'small_probes', 'case': 'K64'}
+    x = torch.linspace(-3, 3, 8 * 128, device='cuda').reshape(8, 128)
+    exact('health', kernels.probe_health(x, torch.empty_like(x)),
+          kernels.probe_health.plain(x, torch.empty_like(x)))
+    inp = probes.grid_inputs(64)
+    for name in probes.GRID_VARIANTS:
+        exact(f'grid_{name}', probes.run_grid(name, inp,
+                                               probes.grid_out(name, inp)),
+              probes.run_grid(name, inp, probes.grid_out(name, inp),
+                              kernels.probe_grid.plain))
+    inp = probes.walker_inputs(64)
+    for body, _ in WALKER_BODIES:
+        out = torch.zeros((64, probes.RS, 128), device='cuda')
+        exact(f'walker_{body}', probes.run_walker(body, inp, out),
+              probes.run_walker(body, inp, torch.zeros_like(out),
+                                kernels.probe_walker.plain))
+    sp = probes.sparse_inputs(8, 32.768e-6)
+    dev, work, padded = sp['dev'], sp['work'], sp['padded']
+    window = sp['plan'].window_samples
+    peak = sparse_peaks(dev, work, window)
+    for key, w in (('compact', work), ('compact_pad4', padded)):
+        n = w.work_c.shape[0]
+        got = kernels.probe_sparse_compact(
+            dev, w, torch.empty((n, probes.RS, 128), device='cuda'))
+        e = compact_err(w, got, kernels.probe_sparse_compact.plain(
+            dev, w, torch.empty_like(got)), peak)
+        rec[key] = {'vs_plain': e, 'items': n,
+                    'ok': e <= TOL_PLAIN and bool(
+                        (got[work.work_c.shape[0]:] == 0).all())}
+    k7 = [kernels.synth_sparse(dev, w, torch.zeros((dev.shape[0], window),
+                                                   device='cuda'), None)
+          for w in (work, padded)]
+    exact('k7_pad4_vs_k7', k7[1], k7[0])
+    torch.cuda.synchronize()
+    for key, v in rec.items():
+        if isinstance(v, dict) and not v['ok']:
+            fail.append(f"small_probes {key}")
+    log(rec, brief_checks(rec))
+
+
+# the probe variant whose time stands in the kernel summary (the others
+# are in the probes' own lines)
+SUMMARY_GRID, SUMMARY_WALKER = 'op13_dyn', 'base'
+
+
+def run_probes(fail, summary):
+    """The probes' main path: P4, P1, P2 and P3 at the JAX tasks' full
+    sizes through ``waveforms_tpu_torch.probes``, with the launch counts
+    read right after; each result on its own line.  Then, on the same
+    inputs, every P2 variant and P3 body against its plain version,
+    exactly, and P1's compact output within TOL_PLAIN of each channel's
+    peak; fills the probe kernels' summary entries."""
+    import torch
+
+    from waveforms_tpu_torch import kernels, probes
+    from waveforms_tpu_torch.ops.reference_probes import WALKER_BODIES
+
+    res = {}
+
+    def drive():
+        res['health'] = probes.health_probe()
+        res['sparse'] = probes.sparse_step_cost_probe()
+        res['grid'] = probes.grid_overhead_probe()
+        res['walker'] = probes.walker_cost_probe()
+
+    _, wall, cnt = main_path(
+        'probes', drive, fail,
+        {'probe_health': None, 'probe_grid': None, 'probe_walker': None,
+         'probe_sparse_compact': None, 'synth_sparse': None})
+    for r in res.values():
+        log(r)
+    times = [v for r in res.values() for k, v in r.items()
+             if k.endswith('_ms') or k in probes.GRID_VARIANTS
+             or k in dict(WALKER_BODIES)]
+    ok_times = all(0 < t < float('inf') for t in times)
+    rec = {'phase': 'probes', 'launches': cnt, 'wall_s': wall,
+           'health_ok': res['health']['ok'], 'times_ok': ok_times}
+
+    # P4: the kernel, its plain version, and torch.mul (the same call)
+    x = torch.ones((8, 128), device='cuda')
+    y = kernels.probe_health(x, torch.empty_like(x))
+    p = kernels.probe_health.plain(x, torch.empty_like(x))
+    summary['probe_health'].update(
+        max_abs_err=float((y - p).abs().max()), ms=res['health']['ms'],
+        plain_ms=cuda_ms(lambda: kernels.probe_health.plain(x, p)),
+        **bound(2 * x.numel() * 4, 0))
+    summary['probe_health']['library_ms'] = cuda_ms(
+        lambda: torch.mul(x, 2.0, out=p))
+
+    # P2: every variant at K = 4096 against its plain version
+    inp = probes.grid_inputs()
+    K = inp['wc'].shape[0]
+    errs = {}
+    for name in probes.GRID_VARIANTS:
+        got = probes.run_grid(name, inp, probes.grid_out(name, inp))
+        plain = probes.run_grid(name, inp, probes.grid_out(name, inp),
+                                kernels.probe_grid.plain)
+        errs[name] = float((got - plain).abs().max())
+        if not torch.equal(got, plain):
+            fail.append(f"probes grid {name} differs from its plain version")
+    out = probes.grid_out(SUMMARY_GRID, inp)
+    n_ops = probes.GRID_VARIANTS[SUMMARY_GRID][0]
+    summary['probe_grid'].update(
+        max_abs_err=max(errs.values()),
+        ms=res['grid'][SUMMARY_GRID] * K / 1e3,
+        plain_ms=cuda_ms(lambda: probes.run_grid(
+            SUMMARY_GRID, inp, out, kernels.probe_grid.plain)),
+        **bound(input_bytes(*inp['tables'][:n_ops], inp['wc'], inp['wo'])
+                + out.numel() * 4, 0))
+    rec['grid_vs_plain'] = errs
+    del out, got, plain
+
+    # P3: every body at K = 2048 against its plain version
+    inp = probes.walker_inputs()
+    K = inp['wc'].shape[0]
+    errs = {}
+    out = torch.zeros((K, probes.RS, 128), device='cuda')
+    for body, _ in WALKER_BODIES:
+        got = probes.run_walker(body, inp, out)
+        plain = probes.run_walker(body, inp, torch.zeros_like(out),
+                                  kernels.probe_walker.plain)
+        errs[body] = float((got - plain).abs().max())
+        if not torch.equal(got, plain):
+            fail.append(f"probes walker {body} differs from its plain "
+                        "version")
+    summary['probe_walker'].update(
+        max_abs_err=max(errs.values()),
+        ms=res['walker'][SUMMARY_WALKER] * K / 1e3,
+        plain_ms=cuda_ms(lambda: probes.run_walker(
+            SUMMARY_WALKER, inp, out, kernels.probe_walker.plain)),
+        **bound(input_bytes(*inp.values()) + out.numel() * 4, 0))
+    rec['walker_vs_plain'] = errs
+    del out, plain
+
+    # P1: the compact kernel, and K7 as P1 launches it (on the worklist and
+    # on it padded 4x), on the flagship plan against their plain versions
+    sp = probes.sparse_inputs()
+    dev, work = sp['dev'], sp['work']
+    window = sp['plan'].window_samples
+    peak = sparse_peaks(dev, work, window)
+    K = work.work_c.shape[0]
+    got = kernels.probe_sparse_compact(
+        dev, work, torch.empty((K, probes.RS, 128), device='cuda'))
+    plain = kernels.probe_sparse_compact.plain(dev, work,
+                                               torch.empty_like(got))
+    rec['compact_vs_plain'] = compact_err(work, got, plain, peak)
+    summary['probe_sparse_compact'].update(
+        max_abs_err=float((got - plain).abs().max()),
+        ms=res['sparse']['compact_ms'],
+        plain_ms=cuda_ms(lambda: kernels.probe_sparse_compact.plain(
+            dev, work, plain), reps=3),
+        **bound(input_bytes(dev, work) + got.numel() * 4,
+                walk_ops(sp['low'])))
+    del got, plain
+    rec['k7_vs_plain'] = {}
+    for key, w in (('aliased', work), ('aliased_pad4', sp['padded'])):
+        got = kernels.synth_sparse(
+            dev, w, torch.zeros((dev.shape[0], window), device='cuda'), None)
+        plain = kernels.synth_sparse.plain(
+            dev, w, torch.zeros_like(got), None)
+        rec['k7_vs_plain'][key] = float(
+            ((got - plain).abs().amax(dim=1) / peak).max())
+        summary['synth_sparse']['max_abs_err'] = max(
+            summary['synth_sparse']['max_abs_err'] or 0.0,
+            float((got - plain).abs().max()))
+        del got, plain
+    rec['ok'] = bool(rec['health_ok'] and ok_times
+                     and rec['compact_vs_plain'] <= TOL_PLAIN
+                     and max(rec['k7_vs_plain'].values()) <= TOL_PLAIN
+                     and not any(rec['grid_vs_plain'].values())
+                     and not any(rec['walker_vs_plain'].values()))
+    if not rec['ok']:
+        fail.append("probes")
+    log(rec)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -1558,12 +1773,9 @@ def main():
               file=sys.stderr)
         return 2
 
+    from waveforms_tpu_torch.probes import QUEUE, health_probe, nvidia_smi
     fail = []
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    smi = smi[0] if smi else 'nvidia-smi gave nothing'
+    smi = nvidia_smi()
     print(smi, flush=True)
     try:
         nvcc = subprocess.run([kernels._nvcc(), '--version'],
@@ -1591,17 +1803,29 @@ def main():
     log(rec, {k: rec[k] for k in ('phase', 'ok', 'seconds', 'library')}
         | {'ptxas_lines': len(ptxas), 'spilling': spills})
 
+    # P4, the health probe, before every other phase (as the TPU capture
+    # script's main): a card that cannot double (8, 128) floats ends the run
+    try:
+        health = health_probe()
+    except Exception as exc:
+        health = {'ok': False, 'error': f"{type(exc).__name__}: {exc}"}
+    log(dict(health, phase='health'))
+    if not health['ok']:
+        print(json.dumps({'ok': False, 'failures': ['health probe']}),
+              flush=True)
+        return 1
+
     summary = {k.name: {'name': k.name, 'route': 'cuda', 'source': k.source,
                         'replaces': k.replaces, 'launches': 0,
                         'max_abs_err': None, 'ms': None, 'plain_ms': None,
                         'bound_ms': None, 'bound_by': None,
                         'library_ms': None}
                for k in kernels.KERNELS}
-    for phase in (check_small, check_small_hi, check_small_seq, run_strata,
-                  run_sequences):
+    for phase in (check_small, check_small_hi, check_small_seq,
+                  check_probes, run_strata, run_sequences, run_probes):
         t0 = time.perf_counter()
         try:
-            if phase in (run_strata, run_sequences):
+            if phase in (run_strata, run_sequences, run_probes):
                 phase(fail, summary)
             else:
                 phase(fail)
@@ -1612,6 +1836,10 @@ def main():
             fail.append(f"{phase.__name__}: {exc!r}")
         log({'phase': f'{phase.__name__}_done',
              'seconds': time.perf_counter() - t0})
+
+    # the queued timings: every time above is device time only if the host
+    # queued each run before the card's sleep ended (late runs were redone)
+    log(dict(QUEUE, phase='timing'))
 
     # each kernel's launches on the main paths, and every number measured
     for name, entry in summary.items():

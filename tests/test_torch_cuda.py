@@ -12,7 +12,10 @@ test_torch_* files hold to the JAX kernels) within 1e-6 of each channel's
 peak (pair mode: of each plane's peak), and int16 codes to exactly the
 kernel's own f32 output quantized, or within one code of the plain
 version's.  The double tier's float64 kernels (K3, K4) are held to their
-plain float64 versions within 1e-12 of each channel's peak.
+plain float64 versions within 1e-12 of each channel's peak.  The probe
+kernels P2, P3 and P4 (f32 add chains) are held to their plain versions
+bit for bit, P1's compact worklist kernel within 1e-6 of each channel's
+peak.
 """
 
 import numpy as np
@@ -20,11 +23,12 @@ import pytest
 import torch
 
 import waveforms_tpu_torch as wt
-from waveforms_tpu_torch import kernels
+from waveforms_tpu_torch import kernels, probes
 from waveforms_tpu_torch.ops.hi_synth import (HiSchedule, synthesize_hi,
                                               synthesize_hi_panels)
 from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
                                               lower_schedule)
+from waveforms_tpu_torch.ops.reference_probes import WALKER_BODIES
 from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
                                                   build_sparse_plan,
                                                   synthesize_panels,
@@ -154,7 +158,10 @@ def test_slice_goes_through_the_kernels(card):
                                        'synth_sparse': 0, 'synth_stack': 0,
                                        'synth_stack_seq': 0,
                                        'synth_dense_hi': 0,
-                                       'synth_panel_hi': 0}
+                                       'synth_panel_hi': 0,
+                                       'probe_health': 0, 'probe_grid': 0,
+                                       'probe_walker': 0,
+                                       'probe_sparse_compact': 0}
     plain = wt.synthesize(chans, start, stop, fs, device='cpu')
     assert rel(got.cpu(), plain) <= TOL
     assert rel(dense.cpu(), plain) <= TOL
@@ -470,3 +477,58 @@ def test_sequencer_on_card_matches_plain(card, method, dtype):
         assert rel(got.cpu(), plain) <= TOL
     else:
         assert (got.cpu().int() - plain.int()).abs().max() <= 1
+
+
+def test_probe_health_kernel_doubles(card):
+    x = torch.linspace(-3, 3, 8 * 128, device=card).reshape(8, 128)
+    n = kernels.probe_health.launches
+    y = kernels.probe_health(x, torch.empty_like(x))
+    torch.cuda.synchronize()
+    assert kernels.probe_health.launches == n + 1
+    assert torch.equal(y, x * 2)
+    assert probes.health_probe(card)['ok']
+
+
+@pytest.mark.parametrize('variant', list(probes.GRID_VARIANTS))
+def test_probe_grid_kernel_matches_plain_exactly(card, variant):
+    """P2 at K = 64 (the dynamic output map: 64 steps into 256 blocks,
+    the rest left zero) equals its plain version bit for bit."""
+    inp = probes.grid_inputs(64, card)
+    got = probes.run_grid(variant, inp, probes.grid_out(variant, inp))
+    plain = probes.run_grid(variant, inp, probes.grid_out(variant, inp),
+                            kernels.probe_grid.plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize('body', [b for b, _ in WALKER_BODIES])
+def test_probe_walker_kernel_matches_plain_exactly(card, body):
+    inp = probes.walker_inputs(64, card)
+    out = torch.zeros((64, 32, 128), device=card)
+    got = probes.run_walker(body, inp, out)
+    plain = probes.run_walker(body, inp, torch.zeros_like(out),
+                              kernels.probe_walker.plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+
+
+def test_probe_sparse_compact_matches_plain(card):
+    """P1's compact kernel against its plain version within 1e-6 of each
+    channel's peak, on the worklist and on the worklist padded 4x (padding
+    items store zeros)."""
+    inp = probes.sparse_inputs(8, 32.768e-6, card)
+    dev, work, padded = inp['dev'], inp['work'], inp['padded']
+    K = work.work_c.shape[0]
+    peak = kernels.synth_sparse.plain(
+        dev, work, torch.zeros((8, inp['plan'].window_samples), device=card),
+        None).abs().amax(dim=1).clamp_min(1e-30)
+    for w in (work, padded):
+        n = w.work_c.shape[0]
+        got = kernels.probe_sparse_compact(
+            dev, w, torch.empty((n, 32, 128), device=card))
+        plain = kernels.probe_sparse_compact.plain(
+            dev, w, torch.empty_like(got))
+        err = ((got - plain).abs().reshape(n, -1).amax(dim=1)
+               / peak[w.work_c.long()])
+        assert float(err.max()) <= TOL
+    assert (got[K:] == 0).all()

@@ -212,3 +212,39 @@ def test_stack_refuses_what_it_cannot_batch():
     cx = lowered_from_jax(lower_j([(1 + 1j) * wj.cosPulse(5e-8)], 0.0,
                                   1e-6, FS, part='complex'))
     assert build_stack_plan(cx) is None
+
+
+
+def test_first_plain_evaluation_in_fresh_processes():
+    """The stack route's plain version on overlap_drag: its first
+    evaluation in each of four fresh processes agrees with its second
+    within TOL_JAX.  Each DRAG factor runs sin on the CPU, whose first
+    call in a process can come out ~1e-4 off (ops/reference.py,
+    warm_cpu_math)."""
+    from waveforms_tpu_torch.cpu_first_call import run_children
+    stats = run_children(['plain'] * 4, parallel=4)['plain']
+    assert stats['processes'] == 4
+    assert stats['worst_err'] <= TOL_JAX
+
+def test_cpu_math_warms_again_when_the_thread_count_changes(monkeypatch):
+    """warm_cpu_math runs once per intra-op thread count: a pool that grows
+    after the first warm-up gets its new threads warmed too."""
+    from waveforms_tpu_torch.ops import reference
+    ran = []
+    real_sin = torch.sin
+    monkeypatch.setattr(torch, 'sin', lambda x: ran.append(x.numel())
+                        or real_sin(x))
+    threads = torch.get_num_threads()
+    try:
+        reference.warm_cpu_math()
+        ran.clear()
+        reference.warm_cpu_math()
+        assert ran == []
+        torch.set_num_threads(threads + 1)
+        reference.warm_cpu_math()
+        assert ran == [reference._WARM_ELEMENTS] * 2      # f32 and f64
+        ran.clear()
+        reference.warm_cpu_math()
+        assert ran == []
+    finally:
+        torch.set_num_threads(threads)

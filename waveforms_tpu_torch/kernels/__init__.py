@@ -16,12 +16,16 @@ One wrapper per kernel: :data:`synth_dense` (K1, the dense grid),
 :data:`synth_panel` (K2, the panel walk), :data:`synth_sparse` (K7, the
 worklist walk), :data:`synth_stack` (K5, pulse instances), its sequenced
 twin :data:`synth_stack_seq` (K6, one launch for a shot vector over stacked
-tables), and the double tier's :data:`synth_dense_hi` (K3) and
-:data:`synth_panel_hi` (K4).  A wrapper given tensors on the CPU runs the
-kernel's plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`);
-given CUDA tensors it launches the kernel, checks the launch's
-``cudaGetLastError()`` and raises on any failure -- it never falls back.
-Each wrapper counts its kernel launches in ``launches``.
+tables), the double tier's :data:`synth_dense_hi` (K3) and
+:data:`synth_panel_hi` (K4), and the measurement probes of
+``csrc/probes.cu`` (:data:`probe_health`, :data:`probe_grid`,
+:data:`probe_walker`, :data:`probe_sparse_compact`; run by
+:mod:`..probes`).  A wrapper given tensors on the CPU runs the kernel's
+plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`,
+:mod:`..ops.reference_probes`); given CUDA tensors it launches the kernel,
+checks the launch's ``cudaGetLastError()`` and raises on any failure -- it
+never falls back.  Each wrapper counts its kernel launches in
+``launches``.
 
 Output kinds: f32; int16 DAC codes with a per-channel f32 scale; and, for
 the three descriptor walks, complex64 in pair mode (a schedule with
@@ -41,18 +45,19 @@ from pathlib import Path
 
 import torch
 
-from ..ops import reference, reference_hi
+from ..ops import reference, reference_hi, reference_probes
 
 __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
-           'load_library', 'library_path', 'reset_launch_counts',
-           'launch_counts', 'KERNELS']
+           'probe_health', 'probe_grid', 'probe_walker',
+           'probe_sparse_compact', 'load_library', 'library_path',
+           'reset_launch_counts', 'launch_counts', 'KERNELS']
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
            'synth_stack.cu', 'synth_stack_seq.cu', 'synth_dense_hi.cu',
-           'synth_panel_hi.cu')
+           'synth_panel_hi.cu', 'probes.cu')
 HEADERS = ('synth_common.cuh', 'synth_stack_common.cuh',
            'synth_hi_common.cuh')
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
@@ -155,10 +160,17 @@ def load_library():
         lib.wf_synth_panel_hi.argtypes = ([P] * 12 + [I] * 5 + [L, L]
                                           + [P] * 5 + [I, I, I, L]
                                           + [P, P, I, P])
+        lib.wf_probe_health.argtypes = [P, P, L, P]
+        lib.wf_probe_grid.argtypes = [P, I, P, P, I, I, I, I, I, P, P]
+        lib.wf_probe_walker.argtypes = [I, P, P, P, I, I, I, P, P]
+        lib.wf_probe_sparse_compact.argtypes = ([P] * 12 + [I] * 5 + [L, L]
+                                                + [P] * 5 + [I, I, P, P])
         for fn in (lib.wf_synth_dense, lib.wf_synth_panel,
                    lib.wf_synth_sparse, lib.wf_synth_stack,
                    lib.wf_synth_stack_seq, lib.wf_synth_dense_hi,
-                   lib.wf_synth_panel_hi):
+                   lib.wf_synth_panel_hi, lib.wf_probe_health,
+                   lib.wf_probe_grid, lib.wf_probe_walker,
+                   lib.wf_probe_sparse_compact):
             fn.restype = I
         lib.wf_error_string.argtypes = [I]
         lib.wf_error_string.restype = ctypes.c_char_p
@@ -230,18 +242,20 @@ def _raise_on(code, name):
 
 
 class _Kernel:
-    """A kernel wrapper with its launch count."""
+    """A kernel wrapper with its launch count; ``out_at`` is the position of
+    the output among the arguments."""
 
-    def __init__(self, name, source, replaces, plain, launch):
+    def __init__(self, name, source, replaces, plain, launch, out_at=-2):
         self.name = name
         self.source = source        # path in the repo
         self.replaces = replaces    # the TPU kernel, file:line
         self.plain = plain          # the plain PyTorch version
         self._launch = launch
+        self._out_at = out_at
         self.launches = 0
 
     def __call__(self, *args):
-        out = args[-2]
+        out = args[self._out_at]
         if out.device.type == 'cpu':
             return self.plain(*args)
         if out.device.type != 'cuda':
@@ -420,7 +434,107 @@ def _launch_panel_hi(d, work, out, lo):
     _raise_on(code, 'synth_panel_hi')
 
 
-#: K1: ``synth_dense(dev, out, scale)`` fills out (C, n_samples)
+def _f32_blocks(out):
+    """(n_blocks, Rs, 128) f32 probe output -> (n_blocks, Rs * 128)."""
+    if out.dtype != torch.float32 or out.dim() != 3 or out.shape[2] != 128:
+        raise ValueError("a probe output is (n_blocks, Rs, 128) f32, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    return out.shape[0], out.shape[1] * 128
+
+
+def _probe_table(name, t, dtype, like=None):
+    if t.dtype != dtype or t.dim() != 3 or t.shape[1] != 1 or (
+            like is not None and t.shape != like.shape):
+        raise ValueError(f"{name} must be a (C, 1, L) {dtype} table"
+                         + ("" if like is None else " of the others' shape"))
+
+
+def _index_vector(name, t, K):
+    if t.dtype != torch.int32 or tuple(t.shape) != (K,):
+        raise ValueError(f"{name} must be a ({K},) int32 vector")
+
+
+def _launch_probe_health(x, out):
+    if x.dtype != torch.float32 or out.dtype != torch.float32 or (
+            x.shape != out.shape):
+        raise ValueError("probe_health takes f32 x and out of one shape")
+    _check_cuda({'x': x, 'out': out}, out.device)
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_probe_health(x.data_ptr(), out.data_ptr(), out.numel(),
+                                   _stream(out))
+    _raise_on(code, 'probe_health')
+
+
+def _launch_probe_grid(tables, wc, wo, n_ops, dyn_in, dyn_out, out):
+    n_blocks, tile = _f32_blocks(out)
+    K = wc.shape[0]
+    if n_ops not in (2, 13) or len(tables) < n_ops:
+        raise ValueError("probe_grid touches 2 or 13 tables")
+    for r, t in enumerate(tables[:n_ops]):
+        _probe_table(f"table {r}", t, torch.float32, tables[0])
+    _index_vector('wc', wc, K)
+    _index_vector('wo', wo, K)
+    if not dyn_out and n_blocks < K:
+        raise ValueError(f"a static output map needs {K} blocks")
+    _check_cuda(dict({f't{r}': t for r, t in enumerate(tables[:n_ops])},
+                     wc=wc, wo=wo, out=out), out.device)
+    ptrs = (ctypes.c_void_p * n_ops)(*(t.data_ptr() for t in tables[:n_ops]))
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_probe_grid(
+            ctypes.cast(ptrs, ctypes.c_void_p), n_ops, wc.data_ptr(),
+            wo.data_ptr(), int(bool(dyn_in)), int(bool(dyn_out)), K,
+            tables[0].shape[2], tile, out.data_ptr(), _stream(out))
+    _raise_on(code, 'probe_grid')
+
+
+_WALKER_IDS = {name: i for i, (name, _) in
+               enumerate(reference_probes.WALKER_BODIES)}
+
+
+def _launch_probe_walker(body, wc, ftab, itab, out):
+    K, tile = _f32_blocks(out)
+    if body not in _WALKER_IDS:
+        raise ValueError(f"unknown walker body {body!r}")
+    _probe_table('ftab', ftab, torch.float32)
+    _probe_table('itab', itab, torch.int32)
+    if itab.shape != ftab.shape or ftab.shape[2] < 64:
+        raise ValueError("ftab and itab are (C, 1, L) of one shape, L >= 64")
+    _index_vector('wc', wc, K)
+    _check_cuda({'wc': wc, 'ftab': ftab, 'itab': itab, 'out': out},
+                out.device)
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_probe_walker(
+            _WALKER_IDS[body], wc.data_ptr(), ftab.data_ptr(),
+            itab.data_ptr(), K, ftab.shape[2], tile, out.data_ptr(),
+            _stream(out))
+    _raise_on(code, 'probe_walker')
+
+
+def _launch_probe_sparse_compact(d, work, out):
+    C, NB, S, T, F = d.shape
+    K = work.work_c.shape[0]
+    if d.amp_im is not None:
+        raise ValueError("the compact probe has no pair mode")
+    if out.dtype != torch.float32 or tuple(out.shape) != (K, work.Rs, 128):
+        raise ValueError(f"out must be ({K}, {work.Rs}, 128) f32")
+    plan = {n: getattr(work, n) for n in
+            ('work_c', 'work_b', 'work_t', 'work_s0', 'work_s1')}
+    desc = _descriptors(d, False)
+    _check_cuda(dict(desc, out=out, **plan), out.device)
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_probe_sparse_compact(
+            *(t.data_ptr() for t in desc.values()), C, NB, S, T, F,
+            d.n_samples, d.bucket_samples,
+            *(t.data_ptr() for t in plan.values()), K, work.Rs,
+            out.data_ptr(), _stream(out))
+    _raise_on(code, 'probe_sparse_compact')
+
+
+#: K1:``synth_dense(dev, out, scale)`` fills out (C, n_samples)
 synth_dense = _Kernel(
     'synth_dense', 'waveforms_tpu_torch/csrc/synth_dense.cu',
     'waveforms_tpu/ops/pallas_synth.py:583', reference.dense_walk,
@@ -467,8 +581,36 @@ synth_panel_hi = _Kernel(
     'waveforms_tpu/ops/hi_synth.py:555', reference_hi.panel_walk_hi,
     _launch_panel_hi)
 
+_PROBES = 'waveforms_tpu_torch/csrc/probes.cu'
+
+#: P4: ``probe_health(x, out)``: out = 2 * x
+probe_health = _Kernel(
+    'probe_health', _PROBES, 'tools/tpu_capture.py:2690',
+    reference_probes.health, _launch_probe_health, out_at=-1)
+
+#: P2: ``probe_grid(tables, wc, wo, n_ops, dyn_in, dyn_out, out)``: the grid
+#: overhead probe's trivial body over out (n_blocks, Rs, 128); steps that
+#: fill one block must store one value (the card does not order them)
+probe_grid = _Kernel(
+    'probe_grid', _PROBES, 'tools/tpu_capture.py:1494',
+    reference_probes.grid, _launch_probe_grid, out_at=-1)
+
+#: P3: ``probe_walker(body, wc, ftab, itab, out)``: one walker-cost body
+#: over out (K, Rs, 128)
+probe_walker = _Kernel(
+    'probe_walker', _PROBES, 'tools/tpu_capture.py:1559',
+    reference_probes.walker, _launch_probe_walker, out_at=-1)
+
+#: P1: ``probe_sparse_compact(dev, work, out)``: the worklist kernel's
+#: subtiles stored at out[k] (K, Rs, 128), one block per item
+probe_sparse_compact = _Kernel(
+    'probe_sparse_compact', _PROBES, 'tools/tpu_capture.py:1424',
+    reference_probes.sparse_compact, _launch_probe_sparse_compact,
+    out_at=-1)
+
 KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack,
-           synth_stack_seq, synth_dense_hi, synth_panel_hi)
+           synth_stack_seq, synth_dense_hi, synth_panel_hi, probe_health,
+           probe_grid, probe_walker, probe_sparse_compact)
 
 
 def reset_launch_counts():

@@ -51,6 +51,32 @@ _ERF = [float(np.float32(v)) for v in
 # elements evaluated per gather step: bounds the temporaries of a walk
 CHUNK = 1 << 22
 
+# PyTorch's CPU transcendentals can return values ~1e-4 off, over one or
+# more worker threads' shares of the elements, the first time they run in a
+# process (torch 2.13.0+cpu with MKL 2024.2 on AVX-512; count them with
+# ``python -m waveforms_tpu_torch.cpu_first_call``), and right on every
+# later call.  Running each once at full thread width first keeps them
+# right, so the plain versions do that before their first CPU evaluation,
+# and again whenever the intra-op thread count has changed since.
+_WARM_ELEMENTS = 1 << 20      # enough for every thread to take a share
+_cpu_math_warm_threads = 0    # the thread count of the last warm-up
+
+
+def warm_cpu_math():
+    """Run the transcendentals the plain versions use once on a throwaway
+    CPU tensor (see above); later calls do nothing until
+    ``torch.get_num_threads()`` changes."""
+    global _cpu_math_warm_threads
+    threads = torch.get_num_threads()
+    if _cpu_math_warm_threads == threads:
+        return
+    for dt in (torch.float32, torch.float64):
+        x = torch.linspace(0.5, 1.5, _WARM_ELEMENTS, dtype=dt)
+        for fn in (torch.sin, torch.cos, torch.exp, torch.log):
+            fn(x)
+        torch.pow(x, x)
+    _cpu_math_warm_threads = threads
+
 
 def wrap32(x):
     """int64 tensor -> the same values wrapped to the int32 range."""
@@ -294,6 +320,8 @@ def _factor_values(d, ff, idx, live):
     1.0 where ``live`` is False.  ``d`` holds flat-indexable ``op``,
     ``power``, ``shift_hi``, ``q32``, ``args`` and ``ext`` (a
     DeviceSchedule or the stack kernel's instance tables)."""
+    if idx.device.type == 'cpu':
+        warm_cpu_math()
     op = torch.where(live, d.op.reshape(-1)[ff], -1)
     out = torch.ones(idx.shape, dtype=_F32, device=idx.device)
     args = d.args.reshape(-1)
@@ -353,13 +381,15 @@ def _segment_values(d, c, b, s, idx):
     return [torch.minimum(torch.maximum(sg, cmin), cmax) for sg in segs]
 
 
-def _accumulate(d, accs, c, b, s, a, e, dst, values=None):
+def _accumulate(d, accs, c, b, s, a, e, dst, values=None, orow=None):
     """Add slot (c[r], b[r], s[r])'s value over samples [a[r], e[r]) into
-    ``acc[c[r], dst[r] + (idx - a[r])]`` for each plane of ``accs``, in
-    chunks of elements.  Within one call no output element is hit twice,
-    so the adds do not race.  ``values`` evaluates the slots (default
+    ``acc[orow[r], dst[r] + (idx - a[r])]`` for each plane of ``accs``
+    (``orow`` defaults to the channel ``c``), in chunks of elements.
+    Within one call no output element is hit twice, so the adds do not
+    race.  ``values`` evaluates the slots (default
     :func:`_segment_values`; the double tier passes its own)."""
     values = values or _segment_values
+    orow = c if orow is None else orow
     n_out = accs[0].shape[1]
     length = e - a
     cum = torch.cumsum(length, 0)
@@ -372,7 +402,7 @@ def _accumulate(d, accs, c, b, s, a, e, dst, values=None):
         cr = c[r]
         vals = values(d, cr, b[r], s[r], a[r] + off)
         for acc, v in zip(accs, vals):
-            acc.view(-1).index_add_(0, cr * n_out + dst[r] + off, v)
+            acc.view(-1).index_add_(0, orow[r] * n_out + dst[r] + off, v)
 
 
 def _planes(out, pair):
@@ -440,11 +470,13 @@ def dense_walk(d, out, scale=None):
     return _store(accs, out, scale)
 
 
-def _walk_items(d, accs, c, b, base, obase, s0, s1, tile, values=None):
+def _walk_items(d, accs, c, b, base, obase, s0, s1, tile, values=None,
+                orow=None):
     """Walk worklist items: item r evaluates samples [base[r], base[r] +
     tile) of (channel c[r], bucket b[r]) over its segments [s0[r], s1[r])
-    and adds them at output offset obase[r]; samples past the output's
-    end are not evaluated."""
+    and adds them at output offset obase[r] of output row orow[r] (default
+    c[r]); samples past the output's end are not evaluated."""
+    orow = c if orow is None else orow
     C, NB, S, T, F = d.shape
     window = accs[0].shape[1]
     end = torch.minimum(base + tile, base + (window - obase))
@@ -459,7 +491,7 @@ def _walk_items(d, accs, c, b, base, obase, s0, s1, tile, values=None):
         if not bool(live.any()):
             continue
         _accumulate(d, accs, c[live], b[live], sm[live], a[live], e[live],
-                    (obase + a - base)[live], values)
+                    (obase + a - base)[live], values, orow[live])
 
 
 def panel_walk(d, work, out, scale=None):

@@ -237,6 +237,8 @@ def op_builders_hi(di, arg, q32, eread):
 def _factor_values(d, ff, idx, live):
     """Factor ``ff`` (flat factor index per element) of HiSchedule ``d`` at
     sample ``idx``, raised to its power; 1.0 where ``live`` is False."""
+    if idx.device.type == 'cpu':
+        reference.warm_cpu_math()
     op = torch.where(live, d.op.reshape(-1)[ff], -1)
     out = torch.ones(idx.shape, dtype=_F64, device=idx.device)
     args = d.args64.reshape(-1)
