@@ -21,15 +21,20 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    carrier and exotic chirps through K3 (``engine='cuda-dense'``) and,
    where single-bucket, K4, each against its plain float64 version on the
    card (1e-12 of the channel's peak) and the oracle (the JAX suite's
-   limits), with the ``combine=False`` (hi, lo) planes;
+   limits), with the ``combine=False`` (hi, lo) planes; then the narrowed
+   stores: K1, K2, K7, K5 (in its store and after a wide residual) and K6
+   in bf16 and f16, each equal to the same call's f32 output rounded once
+   and within one ulp (over the f32 contract) of its plain version;
 3. the strata at full size (128 channels, 2 GS/s), each main path through
    ``waveforms_tpu_torch.synthesize(..., device='cuda')`` with the launch
    counts set to 0 just before it and read just after:
    flagship f32 and int16, mid and dense (``engine='auto'``), ladder120 f32
    and int16 (``auto``, the stack route), flagship ``part='complex'``
    (``auto``, the panel kernel in pair mode), flagship f32 with
-   ``engine='cuda-sparse'`` (the worklist kernel), and flagship, dense and
-   ladder120 with ``precision='double'`` (``auto``: K4, K3, K3);
+   ``engine='cuda-sparse'`` (the worklist kernel), flagship, dense and
+   ladder120 with ``precision='double'`` (``auto``: K4, K3, K3), and
+   flagship and dense with ``out_dtype=torch.bfloat16`` (K2, K1), each
+   equal to its f32 cell's output rounded once;
 4. for each stratum: kernel against plain version over the whole output,
    the oracle on 3 channels at full length, and the kernel's and the plain
    version's times (CUDA events, warm-up, median of 11; of 3 for the
@@ -78,9 +83,13 @@ call computes a table-read-and-fill probe or a descriptor walk).
 
 Each phase prints one compact JSON line (``--record PATH`` writes every
 record in full to one JSON file).  The line before the last is the kernel
-summary; the last line is ``{"ok": true, "device": {...}}`` and is printed
-only when every phase passed.  Exits non-zero without a result when no
-CUDA device is visible or the port is not importable.
+summary: each kernel's ``launches`` on the user paths (for the probe
+kernels, on the ``probes`` path) and, apart, its ``probe_launches`` on the
+``probes`` path, whose counts are timing loops.  The last line is
+``{"ok": true, "device": {...}}`` and is printed only when every phase
+passed; a spill in the tile walkers (K1, K3) fails the run.  Exits
+non-zero without a result when no CUDA device is visible or the port is
+not importable.
 """
 
 import json
@@ -99,7 +108,8 @@ TOL_SPLIT = 1e-14     # hi + lo vs the f64 output (the split loses 2^-48)
 REPS = 11
 REPS_PLAIN_HI = 3     # the double tier's plain versions take seconds
 RECORDS = []
-MAIN_COUNTS = []      # launch counts of every main path, read right after it
+MAIN_COUNTS = []      # (path, launch counts) of every main path, read right
+                      # after it
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at its full
 # 700 W): HBM3 bytes/s, and FP32 / FP64 operations/s outside the tensor
@@ -716,6 +726,8 @@ CELLS = [
     ('flagship', 'real', 'auto', 'float64', 'panel', ('synth_panel_hi',)),
     ('dense', 'real', 'auto', 'float64', 'dense', ('synth_dense_hi',)),
     ('ladder120', 'real', 'auto', 'float64', 'dense', ('synth_dense_hi',)),
+    ('flagship', 'real', 'auto', 'bfloat16', 'panel', ('synth_panel',)),
+    ('dense', 'real', 'auto', 'bfloat16', 'dense', ('synth_dense',)),
 ]
 # each kernel's time is taken at its own stratum
 KERNEL_CELL = {'synth_panel': 0, 'synth_dense': 3, 'synth_stack': 4,
@@ -744,7 +756,7 @@ def run_strata(fail, summary):
 
     chans = {name: STRATA[name][0]() for name in STRATA}
     dtypes = {'float32': torch.float32, 'int16': torch.int16,
-              'float64': None}
+              'bfloat16': torch.bfloat16, 'float64': None}
 
     # the main paths, through the public entry point; each cell's counts are
     # set to 0 just before it and read just after
@@ -762,7 +774,7 @@ def run_strata(fail, summary):
         torch.cuda.synchronize()
         walls[cell] = time.perf_counter() - t0
         counts[cell] = kernels.launch_counts()
-        MAIN_COUNTS.append(counts[cell])
+        MAIN_COUNTS.append((cell_name(cell), counts[cell]))
         for k in must:
             if counts[cell][k] == 0:
                 fail.append(f"{k} never launched on main path "
@@ -774,6 +786,10 @@ def run_strata(fail, summary):
         cell_name(c): {k: n for k, n in counts[c].items() if n}
         for c in CELLS}})
     lowered = {}
+    # the narrowed cells, by (stratum, part, engine): their f32 twin's output
+    # (an earlier cell) rounded once is what their stores must equal
+    narrow_twin = {c[:3]: c[3] for c in CELLS if c[3] in NARROW}
+    rounded = {}
     for i, cell in enumerate(CELLS):
         stratum, part, engine, dname, expect, _ = cell
         if dname == 'float64':
@@ -837,7 +853,17 @@ def run_strata(fail, summary):
             rec['vs_plain_codes'] = int(
                 (out.int() - plain_out.int()).abs().max())
             ok_plain = rec['vs_plain_codes'] <= TOL_CODES
+        elif dname in NARROW:
+            # the same stratum's f32 kernel output rounded once, bit for bit;
+            # near_narrow: one ulp of the narrow type over the f32 contract
+            rec['equals_f32_rounded'] = bool(torch.equal(
+                out, rounded.pop(cell[:3])))
+            rec['vs_plain_ulps'] = near_narrow(out, plain_out)
+            ok_plain = (rec['equals_f32_rounded']
+                        and rec['vs_plain_ulps'] <= 1)
         else:
+            if dname == 'float32' and cell[:3] in narrow_twin:
+                rounded[cell[:3]] = out.to(dtypes[narrow_twin[cell[:3]]])
             rec['vs_plain'] = rel_err_t(out, plain_out)
             abs_err = float((out - plain_out).abs().max())
             rec['vs_plain_abs'] = abs_err
@@ -848,14 +874,18 @@ def run_strata(fail, summary):
         sel = [0, 1, C - 1]
         ora = wt.synthesize([chans[stratum][c] for c in sel], 0.0, stop, FS,
                             engine='numpy', part=part)
-        got = out[sel].cpu().numpy()
+        got = out[sel].float().cpu().numpy() if dname in NARROW else \
+            out[sel].cpu().numpy()
         if i16:
             rec['vs_oracle_codes'] = code_err(
                 got, _quantize_host(ora, np.int16, 32767.0))
             ok_ora = rec['vs_oracle_codes'] <= TOL_CODES
         else:
             rec['vs_oracle'] = rel_err(got, ora)
-            ok_ora = rec['vs_oracle'] <= TOL_ORACLE
+            # a narrowed store is within half an ulp of its f32 sum: one
+            # ulp at the channel's peak (2^-8 bf16) over TOL_ORACLE
+            ok_ora = rec['vs_oracle'] <= TOL_ORACLE + (
+                2.0 ** -8 if dname == 'bfloat16' else 0.0)
 
         # the worklist kernel stores into a zeroed output: time it alone on
         # one (its stores are idempotent) and with the zero fill, the path
@@ -914,7 +944,8 @@ def run_strata(fail, summary):
 
 def brief_stratum(rec):
     """The printed line of a stratum record: its checks and times."""
-    keys = ('cell', 'route', 'ok', 'vs_plain', 'vs_plain_codes', 'vs_oracle',
+    keys = ('cell', 'route', 'ok', 'vs_plain', 'vs_plain_codes',
+            'equals_f32_rounded', 'vs_plain_ulps', 'vs_oracle',
             'vs_oracle_codes', 'kernel_ms', 'plain_ms', 'fill_ms',
             'path_ms', 'store_share', 'dense_kernel_ms')
     out = {'phase': 'stratum'}
@@ -1177,6 +1208,100 @@ def check_small_seq(fail):
         log(rec, brief_checks(rec))
 
 
+NARROW = ('bfloat16', 'float16')
+
+
+def near_narrow(a, b):
+    """Largest |a - b| over one ulp of the narrow type at max(|a|, |b|)
+    plus TOL_PLAIN of the channel's finite peak, over samples where a != b
+    (a, b: one 16-bit float dtype; <= 1 passes).  Two f32 sums within the
+    f32 contract round, monotonically, to values at most that far apart."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = (big.view(torch.int16) + 1).view(a.dtype).float() - big.float()
+    fb = b.float()
+    peak = torch.where(torch.isfinite(fb), fb.abs(), 0.0).amax(
+        dim=-1, keepdim=True)
+    ratio = (a.float() - fb).abs() / (ulp + TOL_PLAIN * peak)
+    return float(torch.where(a == b, 0.0, ratio).max())
+
+
+def check_small_narrow(fail):
+    """Phase 2, the narrowed stores: K1, K2, K7 (phase 2's schedules), K5
+    (in its store, and after a wide residual) and K6, in bf16 and f16, each
+    through its entry function on the card: equal to the same call's f32
+    output rounded once (torch.equal), and near the plain version's
+    narrowed output on the CPU (near_narrow)."""
+    import torch
+
+    from waveforms_tpu_torch.ops import StackSequencer
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
+                                                      build_sparse_plan,
+                                                      synthesize_panels,
+                                                      synthesize_sparse)
+    from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
+                                                     synthesize_stack)
+    from waveforms_tpu_torch.ops.synth import (DeviceSchedule,
+                                               synthesize_device)
+    small = {name: (chans, start, stop, fs, bs)
+             for name, chans, start, stop, fs, bs, *_ in small_cases()}
+    stacks = {name: (chans, stop, bs)
+              for name, chans, stop, bs in stack_cases()}
+
+    def walk(route, name):
+        chans, start, stop, fs, bs = small[name]
+        low = lower_schedule(chans, start, stop, fs, bucket_samples=bs)
+
+        def run(device, **kw):
+            dev = DeviceSchedule(low, device)
+            if route == 'dense':
+                return synthesize_device(dev, **kw)
+            if route == 'panel':
+                return synthesize_panels(dev, plan=build_panel_plan(low), **kw)
+            return synthesize_sparse(dev, plan=build_sparse_plan(low), **kw)
+        return run
+
+    def stack(name):
+        chans, stop, bs = stacks[name]
+        low = lower_schedule(chans, 0.0, stop, 2e9, bucket_samples=bs)
+        plan = build_stack_plan(low)
+        return lambda device, **kw: synthesize_stack(low, plan,
+                                                     device=device, **kw)
+
+    def stack_seq():
+        chans = dict(stack_seq_small_tables())['vstack3']
+        lows = [lower_schedule(ch, 0.0, 8.192e-6, 2e9) for ch in chans]
+        return lambda device, **kw: StackSequencer(
+            lows, device=device).play_packed(SEQ_KS, **kw)
+
+    runs = {'k1_drag': walk('dense', 'drag'),
+            'k1_two_buckets': walk('dense', 'two_buckets'),
+            'k2_shapes': walk('panel', 'shapes'),
+            'k7_two_buckets': walk('sparse', 'two_buckets'),
+            'k5_vstack': stack('vstack'),
+            'k5_mixed_wide': stack('mixed_wide'),
+            'k6_vstack3': stack_seq()}
+    rec = {'phase': 'small_narrow', 'case': 'bf16_f16'}
+    for key, run in runs.items():
+        f32 = run('cuda')
+        for name in NARROW:
+            dt = getattr(torch, name)
+            got = run('cuda', out_dtype=dt)
+            torch.cuda.synchronize()
+            e = near_narrow(got, run('cpu', out_dtype=dt))
+            rec[f'{key}_{name}'] = {
+                'vs_plain': e, 'rounds_f32': bool(torch.equal(got,
+                                                              f32.to(dt))),
+                'ok': bool(got.dtype == dt and e <= 1
+                           and torch.equal(got, f32.to(dt)))}
+    for key, v in rec.items():
+        if isinstance(v, dict) and not v['ok']:
+            fail.append(f"small_narrow {key}")
+    log(rec, brief_checks(rec))
+
+
 def main_path(label, fn, fail, must, absent=()):
     """Run one main path with the launch counts set to 0 just before it and
     read just after -> (result, wall seconds, nonzero counts).  ``must``
@@ -1191,7 +1316,7 @@ def main_path(label, fn, fail, must, absent=()):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    MAIN_COUNTS.append(counts)
+    MAIN_COUNTS.append((label, counts))
     for k, n in must.items():
         if counts[k] == 0 or (n is not None and counts[k] != n):
             fail.append(f"{label}: {k} launched {counts[k]} times, "
@@ -1264,13 +1389,14 @@ def run_sequences(fail, summary):
     import numpy as np
     import torch
 
-    from waveforms_tpu_torch import cosPulse, kernels, mixing, square, zero
+    from waveforms_tpu_torch import kernels
     from waveforms_tpu_torch.ops import Sequencer, StackSequencer
     from waveforms_tpu_torch.ops.lowering import lower_schedule
     from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
                                                      build_stack_tables)
     from waveforms_tpu_torch.schedules import (FS, build_ladder_schedule,
-                                               build_schedule)
+                                               build_schedule,
+                                               station_channels)
 
     def finish(rec, tol_ok):
         # device time per shot; the replay sets its own (the gather's)
@@ -1385,17 +1511,7 @@ def run_sequences(fail, summary):
 
     # ---- seq_station: 16 gate-train schedules (2 ch x 200,000 samples)
     rng = np.random.default_rng(11)
-    chans = []
-    for _ in range(16):
-        xy = zero()
-        for g in range(12):
-            I, _ = mixing(0.5 * cosPulse(30e-9) >> (2e-6 + g * 7.5e-6),
-                          freq=-150e6, phase=float(rng.uniform(0, 6.28)),
-                          DRAGScaling=1e-10)
-            xy += I
-        z = 0.3 * (square(80e-9, edge=10e-9)
-                   >> float(rng.uniform(1e-6, 9e-5)))
-        chans.append([xy, z])
+    chans = station_channels(rng)
     lows = [lower_schedule(ch, 0.0, 1e-4, FS) for ch in chans]
     seq = Sequencer(lows, device='cuda')
     oracle = Oracle(chans, 1e-4)
@@ -1750,6 +1866,37 @@ def run_probes(fail, summary):
     log(rec)
 
 
+def ptxas_entries(lines):
+    """{entry function (mangled): [registers, spill store bytes, spill
+    load bytes]} from nvcc's ``-Xptxas -v`` lines, in build order."""
+    out, name = {}, None
+    for ln in lines:
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = [None, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      ln)
+        if m:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r'Used (\d+) registers', ln)
+        if m:
+            out[name][0] = int(m.group(1))
+            name = None
+    return out
+
+
+def write_record(path):
+    """Every record of the run, in full, to the JSON file ``path``."""
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, 'w') as f:
+            json.dump(RECORDS, f, indent=1)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -1800,8 +1947,13 @@ def main():
     rec = {'phase': 'build', 'ok': True, 'seconds': time.perf_counter() - t0,
            'library': str(kernels.library_path().name), 'ptxas': ptxas}
     spills = [ln for ln in ptxas if re.search(r'[1-9][0-9]* bytes spill', ln)]
+    rec['entries'] = ptxas_entries(ptxas)
+    dense = {k: v for k, v in rec['entries'].items() if 'synth_dense' in k}
     log(rec, {k: rec[k] for k in ('phase', 'ok', 'seconds', 'library')}
-        | {'ptxas_lines': len(ptxas), 'spilling': spills})
+        | {'ptxas_lines': len(ptxas), 'spilling': spills,
+           'dense_kernels': dense})
+    # the tile walkers (K1, K3) are held to no spill
+    fail += [f"{k} spills {v[1]} bytes" for k, v in dense.items() if v[1]]
 
     # P4, the health probe, before every other phase (as the TPU capture
     # script's main): a card that cannot double (8, 128) floats ends the run
@@ -1814,7 +1966,6 @@ def main():
         print(json.dumps({'ok': False, 'failures': ['health probe']}),
               flush=True)
         return 1
-
     summary = {k.name: {'name': k.name, 'route': 'cuda', 'source': k.source,
                         'replaces': k.replaces, 'launches': 0,
                         'max_abs_err': None, 'ms': None, 'plain_ms': None,
@@ -1822,7 +1973,8 @@ def main():
                         'library_ms': None}
                for k in kernels.KERNELS}
     for phase in (check_small, check_small_hi, check_small_seq,
-                  check_probes, run_strata, run_sequences, run_probes):
+                  check_small_narrow, check_probes, run_strata, run_sequences,
+                  run_probes):
         t0 = time.perf_counter()
         try:
             if phase in (run_strata, run_sequences, run_probes):
@@ -1841,9 +1993,16 @@ def main():
     # queued each run before the card's sleep ended (late runs were redone)
     log(dict(QUEUE, phase='timing'))
 
-    # each kernel's launches on the main paths, and every number measured
+    # each kernel's launches on the user paths apart from the probes path's
+    # (whose counts are timing loops); a probe kernel, which no user path
+    # runs, counts its own path's launches
     for name, entry in summary.items():
-        entry['launches'] = sum(c[name] for c in MAIN_COUNTS)
+        entry['probe_launches'] = sum(c[name] for path, c in MAIN_COUNTS
+                                      if path == 'probes')
+        entry['launches'] = sum(c[name] for path, c in MAIN_COUNTS
+                                if path != 'probes')
+        if name.startswith('probe_'):
+            entry['launches'] = entry['probe_launches']
         if entry['launches'] == 0:
             fail.append(f"{name} never launched on the main paths")
         if None in (entry['ms'], entry['plain_ms'], entry['bound_ms'],
@@ -1851,16 +2010,13 @@ def main():
             fail.append(f"{name}: a summary number was not measured")
     summary = list(summary.values())
     RECORDS.append({'phase': 'kernels', 'kernels': summary})
-    if args.record:
-        os.makedirs(os.path.dirname(os.path.abspath(args.record)),
-                    exist_ok=True)
-        with open(args.record, 'w') as f:
-            json.dump(RECORDS, f, indent=1)
+    write_record(args.record)
     if fail:
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
         return 1
-    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    keys = ('name', 'route', 'source', 'replaces', 'launches',
+            'probe_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms')
     print(smi, flush=True)
     print(json.dumps({'kernels': [{k: e[k] for k in keys}
                                   for e in summary]}), flush=True)

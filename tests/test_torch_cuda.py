@@ -15,8 +15,11 @@ version's.  The double tier's float64 kernels (K3, K4) are held to their
 plain float64 versions within 1e-12 of each channel's peak.  The probe
 kernels P2, P3 and P4 (f32 add chains) are held to their plain versions
 bit for bit, P1's compact worklist kernel within 1e-6 of each channel's
-peak.
+peak.  K1 and K3 on a grid wide enough for K1's 8-samples-a-thread layout
+are held to their small-grid launches of the same channels bit for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,6 +39,7 @@ from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
 from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
                                                  synthesize_stack)
 from waveforms_tpu_torch.ops.synth import DeviceSchedule, synthesize_device
+from waveforms_tpu_torch.schedules import build_dense_schedule
 
 pytestmark = pytest.mark.cuda
 
@@ -532,3 +536,189 @@ def test_probe_sparse_compact_matches_plain(card):
                / peak[w.work_c.long()])
         assert float(err.max()) <= TOL
     assert (got[K:] == 0).all()
+
+
+NARROW = (torch.bfloat16, torch.float16)
+
+
+def _near_narrow(a, b):
+    """a == b, or within one ulp of the narrow type at max(|a|, |b|) plus
+    TOL of the channel's finite peak (the f32 contract between kernel and
+    plain version, moved through a monotonic rounding)."""
+    a, b = a.cpu(), b.cpu()
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = (big.view(torch.int16) + 1).view(a.dtype).float() - big.float()
+    fb = b.float()
+    peak = torch.where(torch.isfinite(fb), fb.abs(), 0.0).amax(
+        dim=-1, keepdim=True)
+    return bool(((a == b) | ((a.float() - fb).abs()
+                             <= ulp + TOL * peak)).all())
+
+
+def _narrow_run(route, device, dtype):
+    """One route's output on ``device`` in ``dtype`` (None: f32)."""
+    kw = {} if dtype is None else {'out_dtype': dtype}
+    if route in ('stack', 'stack_seq'):
+        low, plan = _stack_lowered('vstack')
+        if route == 'stack':
+            return synthesize_stack(low, plan, device=device, **kw)
+        from waveforms_tpu_torch.ops import StackSequencer
+        return StackSequencer(_seq_table(), device=device).play_packed(
+            KS, **kw)
+    low = _lowered('mixing_drag')
+    dev = DeviceSchedule(low, device)
+    if route == 'dense':
+        return synthesize_device(dev, **kw)
+    if route == 'panel':
+        return synthesize_panels(dev, plan=build_panel_plan(low), **kw)
+    return synthesize_sparse(dev, plan=build_sparse_plan(low), **kw)
+
+
+@pytest.mark.parametrize('dtype', NARROW)
+@pytest.mark.parametrize('route', ['dense', 'panel', 'sparse', 'stack',
+                                   'stack_seq'])
+def test_narrowed_stores_round_the_kernels_f32(card, route, dtype):
+    """bf16 / f16 stores of K1, K2, K7, K5 and K6: equal to the kernel's
+    own f32 output rounded once (torch.equal), and near the plain version's
+    narrowed output."""
+    got = _narrow_run(route, card, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, _narrow_run(route, card, None).to(dtype))
+    assert _near_narrow(got, _narrow_run(route, 'cpu', dtype))
+
+
+def _walker_cases():
+    """The tile walker's corners (K1 and, on HI_OPS, K3): occupancy 1,
+    several buckets, segments that cover part of a tile on a channel with
+    cmin > 0 (samples outside add nothing, not cmin), a mollifier and a
+    1/cosh whose factors are evaluated out of their support, and a pulse
+    train with many segments per tile."""
+    rng = np.random.default_rng(21)
+    clipped = [0.8 * wt.gaussian(30e-9) >> float(o)
+               for o in rng.uniform(1e-7, 3.9e-6, 3)]
+    for w in clipped:
+        w.min, w.max = 0.2, 1.0
+    train = wt.zero()
+    for o in rng.uniform(0, 4e-6, 40):
+        train += 0.3 * wt.cosPulse(10e-9) >> float(o)
+    return {
+        'occupancy_1': (build_dense_schedule(4, 4.096e-6),
+                        4.096e-6, 'auto'),
+        'masked_cmin': (clipped, 4.096e-6, 'auto'),
+        'out_of_support': ([wt.mollifier(1e-7, d=2) >> 1e-6,
+                            (wt.square(2e-7) * wt.cosh(5e7) ** -1) >> 2e-6,
+                            wt.gaussian(2e-8) ** 3 >> 3e-6],
+                           4.096e-6, 'auto'),
+        'many_segments': ([train], 4.096e-6, 'auto'),
+        'multi_bucket': ([train, wt.gaussian(1e-6) >> 2e-6], 8.192e-6,
+                         2048),
+    }
+
+
+@pytest.mark.parametrize('case', list(_walker_cases()))
+def test_tile_walker_matches_plain(card, case):
+    chans, stop, bs = _walker_cases()[case]
+    low = lower_schedule(chans, 0.0, stop, 2e9, bucket_samples=bs)
+    got = synthesize_device(DeviceSchedule(low, card)).cpu()
+    plain = synthesize_device(DeviceSchedule(low, 'cpu'))
+    assert torch.isfinite(got).all()
+    assert rel(got, plain) <= TOL
+    if case == 'masked_cmin':
+        assert (got[plain == 0] == 0).all() and (plain == 0).any()
+    hi = lower_schedule(chans, 0.0, stop, 2e9, bucket_samples=bs,
+                        keep_f64=True)
+    got = synthesize_hi(HiSchedule(hi, card)).cpu()
+    plain = synthesize_hi(HiSchedule(hi, 'cpu'))
+    assert torch.isfinite(got).all()
+    assert rel(got, plain) <= TOL_HI
+
+
+def _every_opcode_lowered():
+    """Every opcode of op_builders, each as the only factor of a channel:
+    the lowering's own, and OP_EXPCHIRP, OP_HYPCHIRP and the reserved
+    OP_INTERP set directly into a gaussian's descriptors."""
+    from waveforms_tpu_torch.ops.lowering import OP_INTERP
+    bf = (151e6, -83e6)
+    chans = [wt.gaussian(1e-7), wt.square(1e-7, edge=2e-8, type='erf'),
+             wt.cos(2 * np.pi * 1e8), wt.sinc(5e7), wt.exp(1e6),
+             wt.chirp(1e6, 5e7, 4e-7, 0.3, 'linear'),
+             wt.cosh(5e6) * wt.square(2e-7), wt.sinh(5e6) * wt.square(2e-7),
+             wt.drag(100e6, 20e-9, plateau=10e-9, delta=2e6,
+                     block_freq=250e6, phase=0.4),
+             wt.gaussian(1e-7, d=2), wt.mollifier(1e-7, d=1),
+             wt.drag_sin(0.2e9, 22.3e-9, plateau=6.1e-9, delta=3e6,
+                         block_freq=bf, phase=0.1),
+             wt.drag_sinx(0.2e9, 22.3e-9, plateau=6.1e-9, delta=3e6,
+                          block_freq=bf, phase=0.1, tab=0.5),
+             wt.poly([0.5, 1e5]) * wt.square(3e-7)]
+    chans += [wt.gaussian(1e-7)] * 3
+    low = lower_schedule(chans, -2e-7, 2e-7, 2e9)
+    for c, op in zip(range(len(chans) - 3, len(chans)),
+                     (OP_EXPCHIRP, OP_HYPCHIRP, OP_INTERP)):
+        low.op[c, 0, 0, 0, 0] = op
+        low.args[c, 0, 0, 0, 0, 1:4] = (2 * np.pi * 0.1, 1e-3, 0.3)
+    ops = set(np.unique(low.op[np.arange(low.shape[4])
+                               < low.nfac[..., None]]).tolist())
+    assert ops == set(range(17))
+    return low
+
+
+def test_tile_walker_every_opcode(card):
+    """Every opcode through K1.  cosh and sinh run at a rate where their
+    peak is about 1, as in the JAX suite: 0.5 * (e - 1/e) carries about one
+    f32 ulp of e absolute, which is 1.2e-6 of a 0.1 peak (sinh(1e6) over
+    +-0.2 us)."""
+    low = _every_opcode_lowered()
+    got = synthesize_device(DeviceSchedule(low, card)).cpu()
+    plain = synthesize_device(DeviceSchedule(low, 'cpu'))
+    assert torch.isfinite(got).all()
+    errs = {c: rel(g[None], p[None])
+            for c, (g, p) in enumerate(zip(got, plain))}
+    assert max(errs.values()) <= TOL, {c: e for c, e in errs.items()
+                                       if e > TOL}
+
+
+MIN_DENSE_BLOCKS = 1024   # csrc/synth_common.cuh: from here K1 runs 8
+                          # samples a thread, under it 4
+
+
+def _wide(low):
+    """(reps, ``low`` with its channels repeated reps times), reps the
+    fewest that give K1 a grid of MIN_DENSE_BLOCKS tiles."""
+    tiles = -(-low.n_samples // kernels.dense_tile(low)) * low.shape[0]
+    reps = -(-MIN_DENSE_BLOCKS // tiles)
+    assert tiles < MIN_DENSE_BLOCKS
+    return reps, dataclasses.replace(low, **{
+        f.name: np.concatenate([v] * reps)
+        for f in dataclasses.fields(low)
+        if f.name != 'ext' and isinstance(v := getattr(low, f.name),
+                                          np.ndarray)})
+
+
+@pytest.mark.parametrize('case', ['every_opcode', *_walker_cases()])
+def test_tile_walker_wide_grid_matches_small(card, case):
+    """K1 (and, on HI_OPS, K3) on a grid of at least MIN_DENSE_BLOCKS
+    tiles, where K1 runs 8 samples a thread and K3 its whole tiles: every
+    repeated channel equals the small grid's launch of the same channel
+    (4 samples a thread, smaller tiles) bit for bit, and that one is within
+    TOL of the plain version."""
+    if case == 'every_opcode':
+        low = _every_opcode_lowered()
+    else:
+        chans, stop, bs = _walker_cases()[case]
+        low = lower_schedule(chans, 0.0, stop, 2e9, bucket_samples=bs)
+    reps, wide = _wide(low)
+    small = synthesize_device(DeviceSchedule(low, card))
+    got = synthesize_device(DeviceSchedule(wide, card))
+    assert torch.equal(got, small.repeat(reps, 1))
+    assert rel(small.cpu(), synthesize_device(DeviceSchedule(low, 'cpu'))
+               ) <= TOL
+    if case == 'every_opcode':
+        return
+    hi = lower_schedule(chans, 0.0, stop, 2e9, bucket_samples=bs,
+                        keep_f64=True)
+    reps, wide = _wide(hi)
+    small = synthesize_hi(HiSchedule(hi, card))
+    got = synthesize_hi(HiSchedule(wide, card))
+    assert torch.equal(got, small.repeat(reps, 1))

@@ -5,7 +5,8 @@ held against ``waveforms_tpu.synthesize(engine='pallas')`` (interpret mode
 on the CPU) and the float64 oracle.  Routing follows the JAX package's
 rule (route parity on the same lowered schedules), the entry point takes
 the JAX package's argument order, the package imports without JAX, and the
-parts not ported yet, or not supported on an engine, refuse loudly.
+modes that the JAX package refuses, or that an engine does not support,
+refuse loudly.
 """
 
 import os
@@ -148,15 +149,36 @@ def test_cuda_without_gpu_raises(monkeypatch):
 @pytest.mark.parametrize('kwargs, match', [
     ({'precision': 'double', 'engine': 'cuda-stack'},
      'unsupported on engine'),
-    ({'out_dtype': torch.bfloat16}, 'bf16'),
-    ({'out_dtype': np.float16}, 'not ported'),
+    ({'out_dtype': torch.bfloat16}, None),
+    ({'out_dtype': np.float16}, None),
     ({'out_dtype': np.int32}, 'int16 only'),
     ({'engine': 'pallas'}, 'unknown engine'),
+    ({'precision': 'double', 'out_dtype': torch.bfloat16}, 'contradicts'),
+    ({'part': 'complex', 'out_dtype': np.float16}, 'requires f32'),
 ])
 def test_unported_modes_raise(kwargs, match):
+    """Modes the port refuses, as the JAX package refuses them; the
+    narrowed stores (``match`` None) return the f32 result rounded once."""
     chans = [wt.gaussian(1e-6)]
+    if match is None:
+        got = wt.synthesize(chans, -1e-6, 1e-6, 1e9, device='cpu', **kwargs)
+        dt = {torch.bfloat16: torch.bfloat16,
+              np.float16: torch.float16}[kwargs['out_dtype']]
+        f32 = wt.synthesize(chans, -1e-6, 1e-6, 1e9, device='cpu')
+        assert got.dtype == dt and torch.equal(got, f32.to(dt))
+        return
     with pytest.raises(ValueError, match=match):
         wt.synthesize(chans, -1e-6, 1e-6, 1e9, device='cpu', **kwargs)
+
+
+def test_play_sparse_refuses_narrowed_stores():
+    """The worklist sequence play has no narrowed store, as in JAX
+    (``Sequencer.play_many(sparse=True)``)."""
+    from waveforms_tpu_torch.ops import Sequencer
+    seq = Sequencer([lower_t([wt.gaussian(3e-8) >> 1e-6], 0.0, 4.096e-6,
+                             2e9)], device='cpu')
+    with pytest.raises(NotImplementedError, match='f32-only'):
+        seq.play_many([0], sparse=True, out_dtype=torch.bfloat16)
 
 
 def test_pair_mode_schedule_is_refused():

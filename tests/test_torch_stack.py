@@ -16,6 +16,8 @@ the JAX suite's 2e-6 of the float64 oracle; int16 codes within one code of
 JAX's (the f32 sums they quantize may differ in the last bit).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -225,6 +227,66 @@ def test_first_plain_evaluation_in_fresh_processes():
     stats = run_children(['plain'] * 4, parallel=4)['plain']
     assert stats['processes'] == 4
     assert stats['worst_err'] <= TOL_JAX
+
+_FIRST_SIN = r'''
+import json, sys
+import numpy as np
+import torch
+import waveforms_tpu_torch as wt
+from waveforms_tpu_torch import kernels
+from waveforms_tpu_torch.ops import StackSequencer, reference
+from waveforms_tpu_torch.ops.hi_synth import HiSchedule
+from waveforms_tpu_torch.ops.lowering import lower_schedule
+from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
+                                                 build_stack_tables)
+from waveforms_tpu_torch.ops.synth import DeviceSchedule
+
+calls = []
+sin = torch.sin
+torch.sin = lambda x, *a, **k: calls.append(x.numel()) or sin(x, *a, **k)
+chans = [wt.drag(100e6, 300e-9, plateau=200e-9, delta=2e6, block_freq=None,
+                 phase=0.3, t0=0.0) >> 0.1e-6]
+which = sys.argv[1]
+low = lower_schedule(chans, 0.0, 1.1e-6, 2e9, keep_f64=which == 'hi')
+if which == 'dense':
+    d = DeviceSchedule(low, 'cpu')
+    kernels.synth_dense.plain(d, torch.empty(1, low.n_samples), None)
+elif which == 'hi':
+    d = HiSchedule(low, 'cpu')
+    kernels.synth_dense_hi.plain(d, torch.empty(1, low.n_samples,
+                                                dtype=torch.float64), None)
+elif which == 'stack':
+    t = build_stack_tables(build_stack_plan(low), low, 'cpu')
+    kernels.synth_stack.plain(t, torch.empty(1, low.n_samples), None)
+else:
+    seq = StackSequencer([low], device='cpu')
+    ks = torch.zeros(2, dtype=torch.int32)
+    kernels.synth_stack_seq.plain(seq.tables, ks,
+                                  torch.empty(2, 1, low.n_samples), None)
+print(json.dumps({'first': calls[0], 'warm': reference._WARM_ELEMENTS,
+                  'calls': len(calls)}))
+'''
+
+
+@pytest.mark.parametrize('plain', ['dense', 'hi', 'stack', 'stack_seq'])
+def test_first_sin_of_a_fresh_process_is_the_warm_up(plain):
+    """In a fresh process, the first torch.sin that a plain version makes
+    is warm_cpu_math's _WARM_ELEMENTS-sized call (a deterministic guard of
+    the first-call repair: the fault itself shows only in some processes).
+    The dense, double-tier, stack and stack-sequence plain versions each
+    run a DRAG factor, whose envelope calls torch.sin."""
+    import json
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, '-c', _FIRST_SIN, plain],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))))
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got['calls'] > 1
+    assert got['first'] == got['warm']
+
 
 def test_cpu_math_warms_again_when_the_thread_count_changes(monkeypatch):
     """warm_cpu_math runs once per intra-op thread count: a pool that grows

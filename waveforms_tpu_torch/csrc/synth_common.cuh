@@ -19,6 +19,8 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace wfsynth {
@@ -34,8 +36,11 @@ enum Opcode : int {
   OP_MOLLIFIER = 13, OP_INTERP = 14, OP_DRAG_SIN = 15, OP_DRAG_SINX = 16,
 };
 
-// f32; int16 DAC codes; complex64 (pair mode), stored as (re, im) f32 pairs
-enum OutKind : int { OUT_F32 = 0, OUT_I16 = 1, OUT_C64 = 2 };
+// f32; int16 DAC codes; complex64 (pair mode), stored as (re, im) f32 pairs;
+// bf16 and f16, the f32 sum rounded once to nearest even
+enum OutKind : int {
+  OUT_F32 = 0, OUT_I16 = 1, OUT_C64 = 2, OUT_BF16 = 3, OUT_F16 = 4
+};
 
 // f32 constants, bit-exact with the np.float32 values of the JAX kernel
 constexpr float PHASE = 0x1.921fb6p-30f;        // 2*pi / 2^32
@@ -204,10 +209,22 @@ static __device__ float drag_sin_like(int di, const float* a, const int* q,
   return ox * cos_t + oy * sin_t;
 }
 
+// The multi-tone DRAG bodies out of line, for the tile walker: their
+// coefficient loops and blend Horner chains would otherwise set the register
+// count of the whole walk (the sample walker keeps them inline).
+static __device__ __noinline__ float drag_sin_like_ool(int di, const float* a,
+                                                       const int* q,
+                                                       const float* ext,
+                                                       bool with_blend) {
+  return drag_sin_like(di, a, q, ext, with_blend);
+}
+
 // One factor's basis value at sample delta di (op_builders).  a: the
-// factor's W_ARGS f32 args; q: its four int32 phase slots.
-static __device__ float op_value(int op, int di, const float* a,
-                                 const int* q, const float* ext) {
+// factor's W_ARGS f32 args; q: its four int32 phase slots.  Inlined, so that
+// a call with a constant opcode compiles to that opcode's body alone.
+__device__ __forceinline__ float op_value_inl(int op, int di, const float* a,
+                                              const int* q,
+                                              const float* ext) {
   float u = (float)di - a[0];
   switch (op) {
     case OP_LINEAR:
@@ -301,6 +318,12 @@ static __device__ float op_value(int op, int di, const float* a,
   }
 }
 
+// op_value_inl for the sample walker, which switches on the opcode per sample
+static __device__ float op_value(int op, int di, const float* a,
+                                 const int* q, const float* ext) {
+  return op_value_inl(op, di, a, q, ext);
+}
+
 // raise_power: v ** p by repeated multiplication; p == 1 passes v through,
 // a negative p inverts the product
 __device__ __forceinline__ float raise_power(float v, int p) {
@@ -375,6 +398,40 @@ static __device__ float2 walk_sample(const Desc& d, int c, int b, int s0,
   return make_float2(acc, acc_im);
 }
 
+// Fewest blocks a dense launch (K1, K3) should have: about eight per SM of
+// the H100's 132, or tiles shrink
+constexpr long long MIN_DENSE_BLOCKS = 1024;
+
+// The slots of a dense tile [base, stop): range[0] = the number of hmax[i]
+// <= base, range[1] = the number of lo[i] < stop, over i < S -- the
+// searchsorted indices s0 (side='right') and s1 (side='left') of the two
+// non-decreasing lists (hmax the running max of hi, lo sorted), counted by
+// the calling warp (every lane of it calls) in rounds of one load per lane,
+// not by a binary search's chain of dependent loads.  Once a lo reaches
+// stop, both counts are done (hmax[i] >= hi[i] > lo[i]).
+__device__ __forceinline__ void segment_range(const int* hmax, const int* lo,
+                                              int S, long long base,
+                                              long long stop, int* range) {
+  const int first = threadIdx.x & ~31;
+  const int lanes = min(32, (int)blockDim.x - first);
+  const int lane = threadIdx.x - first;
+  const unsigned all = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
+  int n0 = 0, n1 = 0;
+  for (int i0 = 0; i0 < S; i0 += lanes) {
+    const int i = i0 + lane;
+    const unsigned m0 =
+        __ballot_sync(all, i < S && (long long)hmax[i] <= base);
+    const unsigned m1 = __ballot_sync(all, i < S && (long long)lo[i] < stop);
+    n0 += __popc(m0);
+    n1 += __popc(m1);
+    if (m1 != all) break;
+  }
+  if (lane == 0) {
+    range[0] = n0;
+    range[1] = n1;
+  }
+}
+
 // the DAC code clip(round_half_even(acc * scale))
 __device__ __forceinline__ short dac_code(float acc, float scale) {
   float code = rintf(acc * scale);
@@ -382,12 +439,21 @@ __device__ __forceinline__ short dac_code(float acc, float scale) {
   return (short)code;
 }
 
-// f32 store, or the DAC code
+// The 16-bit word of a narrowed store: acc rounded once, to nearest even
+__device__ __forceinline__ unsigned short narrow_bits(float acc,
+                                                      int out_kind) {
+  return out_kind == OUT_BF16 ? __bfloat16_as_ushort(__float2bfloat16_rn(acc))
+                              : __half_as_ushort(__float2half_rn(acc));
+}
+
+// f32 store, the DAC code, or the narrowed float
 __device__ __forceinline__ void store_sample(void* out, long long pos,
                                              float acc, int out_kind,
                                              float scale) {
   if (out_kind == OUT_I16) {
     static_cast<short*>(out)[pos] = dac_code(acc, scale);
+  } else if (out_kind == OUT_BF16 || out_kind == OUT_F16) {
+    static_cast<unsigned short*>(out)[pos] = narrow_bits(acc, out_kind);
   } else {
     static_cast<float*>(out)[pos] = acc;
   }

@@ -4,76 +4,269 @@
 // (launched by _run_kernel, with its XLA searchsorted prologue).  It computes
 // what that kernel computes, not its block structure: every sample of every
 // channel is the sum over its bucket's segments that contain it of
-// clip(sum_t amp_t * prod_f factor_f), accumulated in f32 and stored as f32
-// or as int16 DAC codes clip(round_half_even(acc * scale)), or, in pair mode
-// (part='complex', the JAX kernel's pair=True), as complex64: one pass over
-// the factor products scaled by both amplitude planes (walk_sample<true>).
+// clip(sum_t amp_t * prod_f factor_f), accumulated in f32 and stored as f32,
+// as bf16 or f16 (rounded once), or as int16 DAC codes
+// clip(round_half_even(acc * scale)), or, in pair mode (part='complex', the
+// JAX kernel's pair=True), as complex64: one pass over the factor products
+// scaled by both amplitude planes.
 //
-// Layout: one thread block per (sample tile, channel); the block finds its
-// segment range [s0, s1) by binary search over the bucket's running max of
-// hi (s0) and lo (s1) -- the prologue that the TPU ran as plain XLA -- and
-// each thread walks those segments for its samples, one sample at a time.
-// Consecutive threads own consecutive samples, so stores coalesce.
+// Layout: one thread block of DENSE_THREADS per (tile, channel), a tile
+// being up to DENSE_SUBS passes of N * DENSE_THREADS samples (N samples per
+// thread).  Tiles never straddle a bucket: the wrapper picks a tile that
+// divides bucket_samples.  The block's warps first find every pass's
+// segment range [s0, s1) -- the prologue that the TPU ran as plain XLA --
+// one warp per pass, in rounds of one load per lane (segment_range).  A
+// pass that no segment meets is stored as zeros at once; so a pulse-sparse
+// schedule costs its zero stores and little else, and the range lookups of
+// a whole tile overlap.
+//
+// The tile walker (walk_tile), the TPU kernel's _tile_walker turned inside
+// out for this card: each thread owns DENSE_N consecutive samples of a
+// pass, holds their accumulators in registers, and walks the pass's
+// segments, their terms and their factors in an outer loop, reading each
+// descriptor word once per factor for all its samples.  Inside, one switch
+// per factor picks the opcode and evaluates it over the DENSE_N samples:
+// DENSE_N independent chains of transcendental math that overlap, where
+// the per-sample walker (walk_sample, kept for K2, K7 and P1) re-read the
+// whole dependent descriptor chain (segment -> terms -> factors -> opcode
+// -> args) and switched once per sample.  A thread skips a segment that
+// none of its samples is in; within one, samples outside [lo, hi) are
+// evaluated and then dropped by a select (never a multiply: their values
+// may be NaN or inf), so each sample adds exactly what walk_sample adds, in
+// the same order -- segments, terms and factors ascending, prod from amp
+// (1.0 in pair mode), seg clipped, then added -- and the output is
+// bit-identical to the per-sample walker's.  The multi-tone DRAG bodies
+// stay out of line (drag_sin_like_ool).
+//
+// A pass's samples go through shared memory (padded one word in 32, so
+// neither side has bank conflicts) and are stored by consecutive threads at
+// consecutive samples, coalesced, in every output kind.
 //
 // What bounds it on the H100: on an occupancy-1 schedule (every sample in a
-// chirp x gaussian product) it is the per-sample transcendental math and the
-// descriptor reads of the walk, not the store stream.  The design keeps the
-// descriptors in global memory read through L1 (all threads of a warp read
-// the same words, so each read is one broadcast) and evaluates exactly one
-// opcode per factor per sample.  Tiles never straddle a bucket: the wrapper
-// picks a tile that divides bucket_samples.
+// chirp x gaussian product) the per-sample transcendental math, now that the
+// descriptor walk is paid once per DENSE_N samples; on a pulse-sparse one,
+// the zero stores.  128 threads of 8 samples keep the registers (96) low
+// enough for five blocks per SM with no spill.  A launch too small to fill
+// the card (a short table's schedule, a few hundred thousand samples) is
+// bound by its slowest block's chain instead: it runs with 4 samples per
+// thread on smaller tiles (launch_dense).
 #include "synth_common.cuh"
 
 namespace wfsynth {
 
-// number of entries of a[0..n) <= key (searchsorted side='right')
-__device__ __forceinline__ int upper_bound(const int* a, int n, long long key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if ((long long)a[mid] <= key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// The layout.  A grid of fewer than MIN_DENSE_BLOCKS tiles (a short table's
+// schedule: the walker's per-thread chain, not the card's width, sets its
+// time) runs with DENSE_N_SMALL samples per thread.
+constexpr int DENSE_N = 8;           // samples per thread
+constexpr int DENSE_N_SMALL = 4;     // the same, small grids
+constexpr int DENSE_THREADS = 128;   // threads per block
+constexpr int DENSE_SUBS = 8;        // passes per tile
+// samples per block: DENSE_SUBS passes of N * DENSE_THREADS samples
+constexpr int DENSE_TILE = DENSE_N * DENSE_THREADS * DENSE_SUBS;
+// walk_tile's in-segment mask is one bit per sample of an unsigned; the
+// warp-wide range lookups and stores want whole warps
+static_assert(DENSE_N <= 32 && DENSE_N_SMALL <= 32, "mask is 32 bits");
+static_assert(DENSE_THREADS % 32 == 0, "whole warps");
+
+// One opcode over N consecutive samples: v[j] = op(di0 + j), di wrapping as
+// int32 (the sample walker's idx - shift)
+template <int OP, int N>
+__device__ __forceinline__ void op_span(float* v, int di0, const float* a,
+                                        const int* q, const float* ext) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    v[j] = op_value_inl(OP, wrap_add(di0, j), a, q, ext);
 }
 
-// number of entries of a[0..n) < key (searchsorted side='left')
-__device__ __forceinline__ int lower_bound(const int* a, int n, long long key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if ((long long)a[mid] < key) lo = mid + 1; else hi = mid;
+// One factor over N samples: a single switch on its opcode
+template <int N>
+__device__ __forceinline__ void factor_span(float* v, int op, int di0,
+                                            const float* a, const int* q,
+                                            const float* ext) {
+  switch (op) {
+    case OP_LINEAR:
+    case OP_INTERP: op_span<OP_LINEAR, N>(v, di0, a, q, ext); break;
+    case OP_GAUSSIAN: op_span<OP_GAUSSIAN, N>(v, di0, a, q, ext); break;
+    case OP_ERF: op_span<OP_ERF, N>(v, di0, a, q, ext); break;
+    case OP_COS: op_span<OP_COS, N>(v, di0, a, q, ext); break;
+    case OP_SINC: op_span<OP_SINC, N>(v, di0, a, q, ext); break;
+    case OP_EXP: op_span<OP_EXP, N>(v, di0, a, q, ext); break;
+    case OP_LINEARCHIRP: op_span<OP_LINEARCHIRP, N>(v, di0, a, q, ext); break;
+    case OP_EXPCHIRP: op_span<OP_EXPCHIRP, N>(v, di0, a, q, ext); break;
+    case OP_HYPCHIRP: op_span<OP_HYPCHIRP, N>(v, di0, a, q, ext); break;
+    case OP_COSH: op_span<OP_COSH, N>(v, di0, a, q, ext); break;
+    case OP_SINH: op_span<OP_SINH, N>(v, di0, a, q, ext); break;
+    case OP_DRAG: op_span<OP_DRAG, N>(v, di0, a, q, ext); break;
+    case OP_POLY_GAUSS: op_span<OP_POLY_GAUSS, N>(v, di0, a, q, ext); break;
+    case OP_MOLLIFIER: op_span<OP_MOLLIFIER, N>(v, di0, a, q, ext); break;
+    case OP_DRAG_SIN:
+    case OP_DRAG_SINX:
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        v[j] = drag_sin_like_ool(wrap_add(di0, j), a, q, ext,
+                                 op == OP_DRAG_SINX);
+      break;
+    default:
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = __int_as_float(0x7fc00000);
   }
-  return lo;
 }
 
-template <bool PAIR>
-__global__ void synth_dense_kernel(Desc d, int tile, void* out, int out_kind,
-                                   const float* scale) {
+// The tile walker for samples [idx0, idx0 + N) of (channel c, bucket b) over
+// slots [s0, s1): acc[j] (and acc_im[j] in pair mode) is what walk_sample
+// returns for sample idx0 + j, bit for bit.
+template <bool PAIR, int N>
+__device__ __forceinline__ void walk_tile(const Desc& d, int c, int b, int s0,
+                                          int s1, long long idx0, float* acc,
+                                          float* acc_im) {
+  const long long row = ((long long)c * d.NB + b) * d.S;
+  const float cmin = d.clip[2 * c];
+  const float cmax = d.clip[2 * c + 1];
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j] = acc_im[j] = 0.0f;
+  for (int s = s0; s < s1; ++s) {
+    const int nt = d.nterm[row + s];
+    const long long lo = d.seg_lo[row + s], hi = d.seg_hi[row + s];
+    if (nt <= 0 || idx0 >= hi || idx0 + N <= lo) continue;
+    unsigned in = 0;                       // bit j: sample idx0 + j is in
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      in |= (unsigned)(idx0 + j >= lo && idx0 + j < hi) << j;
+    float seg[N], seg_im[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) seg[j] = seg_im[j] = 0.0f;
+    for (int t = 0; t < nt; ++t) {
+      const long long tf = (row + s) * d.T + t;
+      const float amp = d.amp[tf];
+      float prod[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) prod[j] = PAIR ? 1.0f : amp;
+      const int nf = d.nfac[tf];
+      for (int f = 0; f < nf; ++f) {
+        const long long ff = tf * d.F + f;
+        const int di0 = (int)((uint32_t)idx0 - (uint32_t)d.shift_hi[ff]);
+        const int p = d.power[ff];
+        float v[N];
+        factor_span<N>(v, d.op[ff], di0, d.args + ff * W_ARGS, d.q32 + ff * 4,
+                       d.ext);
+#pragma unroll
+        for (int j = 0; j < N; ++j) prod[j] = prod[j] * raise_power(v[j], p);
+      }
+      if (PAIR) {
+        const float amp_im = d.amp_im[tf];
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          seg[j] = seg[j] + amp * prod[j];
+          seg_im[j] = seg_im[j] + amp_im * prod[j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) seg[j] = seg[j] + prod[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      // the sample walker's `continue`: a sample outside the segment adds
+      // nothing (a select, so a NaN or inf evaluated there cannot leak)
+      const bool inj = (in >> j) & 1u;
+      // clip with NaN propagation, as jnp.minimum(jnp.maximum(v, lo), hi)
+      float x = seg[j] < cmin ? cmin : seg[j];
+      x = x > cmax ? cmax : x;
+      acc[j] = inj ? acc[j] + x : acc[j];
+      if (PAIR) {
+        float y = seg_im[j] < cmin ? cmin : seg_im[j];
+        y = y > cmax ? cmax : y;
+        acc_im[j] = inj ? acc_im[j] + y : acc_im[j];
+      }
+    }
+  }
+}
+
+// shared-memory word of tile sample i: one pad word per 32
+__device__ __forceinline__ int staged(int i) { return i + (i >> 5); }
+
+template <bool PAIR, int N>
+__global__ void __launch_bounds__(DENSE_THREADS)
+synth_dense_kernel(Desc d, int tile, int sub, void* out, int out_kind,
+                   const float* scale) {
+  constexpr int SUB = N * DENSE_THREADS;  // samples per pass
+  __shared__ float sx[SUB + SUB / 32];
+  __shared__ float sy[PAIR ? SUB + SUB / 32 : 1];
+  __shared__ int range[DENSE_SUBS][2];
   const int c = blockIdx.y;
   const long long base = (long long)blockIdx.x * tile;
   const int b = d.NB > 1
       ? (int)min(base / d.bucket_samples, (long long)(d.NB - 1)) : 0;
-  __shared__ int range[2];
-  if (threadIdx.x == 0) {
-    const long long row = ((long long)c * d.NB + b) * d.S;
-    range[0] = upper_bound(d.seg_hmax + row, d.S, base);
-    range[1] = lower_bound(d.seg_lo + row, d.S, base + tile);
-  }
+  const long long row = ((long long)c * d.NB + b) * d.S;
+  // every pass's slots at once, one warp per pass
+  const int n_sub = tile / sub, n_warps = (blockDim.x + 31) >> 5;
+  for (int k = threadIdx.x >> 5; k < n_sub; k += n_warps)
+    segment_range(d.seg_hmax + row, d.seg_lo + row, d.S, base + k * sub,
+                  base + (k + 1) * sub, range[k]);
   __syncthreads();
-  const int s0 = range[0], s1 = range[1];
   const float sc = out_kind == OUT_I16 ? scale[c] : 1.0f;
-  const long long end = min(base + (long long)tile, d.n_samples);
-  for (long long idx = base + threadIdx.x; idx < end; idx += blockDim.x) {
-    const float2 acc = walk_sample<PAIR>(d, c, b, s0, s1, idx);
-    store_walk<PAIR>(out, (long long)c * d.n_samples + idx, acc, out_kind, sc);
+  for (int k = 0; k < n_sub; ++k) {
+    const long long sb = base + (long long)k * sub;
+    if (sb >= d.n_samples) break;
+    const long long end = min(sb + sub, d.n_samples);
+    const long long row_out = (long long)c * d.n_samples + sb;
+    if (range[k][0] >= range[k][1]) {    // no segment meets the pass: zeros
+      for (int i = threadIdx.x; sb + i < end; i += blockDim.x)
+        store_walk<PAIR>(out, row_out + i, make_float2(0.0f, 0.0f),
+                         out_kind, sc);
+      continue;
+    }
+    const int i0 = threadIdx.x * N;
+    if (sb + i0 < end) {
+      float acc[N], acc_im[N];
+      walk_tile<PAIR, N>(d, c, b, range[k][0], range[k][1], sb + i0, acc,
+                         acc_im);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        sx[staged(i0 + j)] = acc[j];
+        if (PAIR) sy[staged(i0 + j)] = acc_im[j];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; sb + i < end; i += blockDim.x)
+      store_walk<PAIR>(out, row_out + i,
+                       make_float2(sx[staged(i)], PAIR ? sy[staged(i)] : 0.0f),
+                       out_kind, sc);
+    __syncthreads();                       // the staging is reused
   }
+}
+
+// Launch K1 with N samples per thread: `tile` (a power of two of at least
+// 128 that divides bucket_samples) bounded by N's tile, and halved while the
+// grid is too small to fill the card, down to two warps' samples.
+template <int N>
+static int launch_dense(const Desc& d, int tile, void* out, int out_kind,
+                        const float* scale, cudaStream_t st) {
+  tile = min(tile, N * DENSE_THREADS * DENSE_SUBS);
+  while (tile > 64 * N &&
+         (d.n_samples + tile - 1) / tile * d.C < MIN_DENSE_BLOCKS)
+    tile /= 2;
+  const int sub = min(tile, N * DENSE_THREADS);
+  const long long n_tiles = (d.n_samples + tile - 1) / tile;
+  if (n_tiles > 0 && d.C > 0) {
+    dim3 grid((unsigned)n_tiles, (unsigned)d.C);
+    if (out_kind == OUT_C64)
+      synth_dense_kernel<true, N><<<grid, sub / N, 0, st>>>(
+          d, tile, sub, out, out_kind, scale);
+    else
+      synth_dense_kernel<false, N><<<grid, sub / N, 0, st>>>(
+          d, tile, sub, out, out_kind, scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace wfsynth
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `tile`, a
+// power of two of at least 128 that divides bucket_samples, bounds the
+// kernel's own DENSE_TILE.
 int wf_synth_dense(const int* seg_lo, const int* seg_hi, const int* seg_hmax,
                    const int* nterm, const int* nfac, const float* amp,
                    const int* op, const int* power, const int* shift_hi,
@@ -85,19 +278,14 @@ int wf_synth_dense(const int* seg_lo, const int* seg_hi, const int* seg_hmax,
   wfsynth::Desc d{seg_lo, seg_hi, seg_hmax, nterm, nfac, amp, op, power,
                   shift_hi, q32, args, ext, clip, amp_im, C, NB, S, T, F,
                   n_samples, bucket_samples};
-  const int threads = 256;
-  const long long n_tiles = (n_samples + tile - 1) / tile;
-  if (n_tiles > 0 && C > 0) {
-    dim3 grid((unsigned)n_tiles, (unsigned)C);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (out_kind == wfsynth::OUT_C64)
-      wfsynth::synth_dense_kernel<true><<<grid, threads, 0, st>>>(
-          d, tile, out, out_kind, scale);
-    else
-      wfsynth::synth_dense_kernel<false><<<grid, threads, 0, st>>>(
-          d, tile, out, out_kind, scale);
-  }
-  return (int)cudaGetLastError();
+  if (tile < 128 || (tile & (tile - 1))) return (int)cudaErrorInvalidValue;
+  tile = min(tile, wfsynth::DENSE_TILE);
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((n_samples + tile - 1) / tile * C < wfsynth::MIN_DENSE_BLOCKS)
+    return wfsynth::launch_dense<wfsynth::DENSE_N_SMALL>(d, tile, out,
+                                                         out_kind, scale, st);
+  return wfsynth::launch_dense<wfsynth::DENSE_N>(d, tile, out, out_kind, scale,
+                                                 st);
 }
 
 const char* wf_error_string(int code) {

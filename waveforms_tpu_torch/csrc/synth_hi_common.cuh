@@ -89,10 +89,14 @@ __device__ __forceinline__ double polyval_asc_hi(double x, const double* a,
   return acc;
 }
 
-// The multi-tone DRAG bodies, out of line: their coefficient loops and the
-// blend's four 40-term Horner chains would otherwise set the register count
-// of the whole walker.
-static __device__ __noinline__ double drag_sin_like_hi(int di, const double* a,
+// The multi-tone DRAG bodies.  The sample walker (K4) calls them out of
+// line (drag_sin_like_hi below): their coefficient loops and the blend's
+// four 40-term Horner chains would otherwise set the register count of the
+// whole walker.  The tile walker (K3) inlines them: there the out-of-line
+// call's saved state cost a spill at three blocks per SM, and inline they
+// fit in the same 168 registers.
+__device__ __forceinline__ double drag_sin_like_hi_inl(int di,
+                                                       const double* a,
                                                        const int* q,
                                                        const double* ext,
                                                        bool with_blend) {
@@ -135,6 +139,13 @@ static __device__ __noinline__ double drag_sin_like_hi(int di, const double* a,
   return ox * cos_t + oy * sin_t;
 }
 
+static __device__ __noinline__ double drag_sin_like_hi(int di, const double* a,
+                                                       const int* q,
+                                                       const double* ext,
+                                                       bool with_blend) {
+  return drag_sin_like_hi_inl(di, a, q, ext, with_blend);
+}
+
 // LINEARCHIRP: exact int32 quadratic turns, f64 residual polynomial, and the
 // constant phase split into int32 turns (from the f32 rounding of phi/2pi)
 // plus an f64 residual
@@ -162,9 +173,12 @@ __device__ __forceinline__ double linearchirp_hi(int di, const double* a,
 }
 
 // One factor's value at sample delta di (op_builders_hi).  a: the factor's
-// W_ARGS f64 args; q: its four int32 phase slots.
-static __device__ double op_value_hi(int op, int di, const double* a,
-                                     const int* q, const double* ext) {
+// W_ARGS f64 args; q: its four int32 phase slots.  Inlined, so that a call
+// with a constant opcode compiles to that opcode's body alone.
+__device__ __forceinline__ double op_value_hi_inl(int op, int di,
+                                                  const double* a,
+                                                  const int* q,
+                                                  const double* ext) {
   const double u = (double)di - a[0];
   const double x = a[1] * u;
   switch (op) {
@@ -235,6 +249,12 @@ static __device__ double op_value_hi(int op, int di, const double* a,
       // an opcode outside HI_OPS: HiSchedule refuses it in live slots
       return __longlong_as_double(0x7ff8000000000000LL);
   }
+}
+
+// op_value_hi_inl for the sample walker, which switches per sample
+static __device__ double op_value_hi(int op, int di, const double* a,
+                                     const int* q, const double* ext) {
+  return op_value_hi_inl(op, di, a, q, ext);
 }
 
 // v ** p by repeated multiplication; p == 1 passes v through, a negative p

@@ -14,9 +14,9 @@
 // output sample is fixed by the sample's offset in its subtile, so the
 // multi-bucket straddles (read-modify-write, f32 only) of one subtile are
 // accumulated by one thread in bucket order -- no atomics.  The plan keeps
-// int16 output to single-bucket schedules, so codes are stored once.  Pair
-// mode (complex64 output, walk_sample<true>) follows the f32 path with an
-// (re, im) pair per sample.
+// narrowed output (int16 codes, bf16, f16) to single-bucket schedules, so it
+// is rounded and stored once.  Pair mode (complex64 output,
+// walk_sample<true>) follows the f32 path with an (re, im) pair per sample.
 //
 // What bounds it on the H100: the output store stream.  A pulse-sparse
 // schedule (the flagship: 128 ch x 2M samples, 457 live subtiles) is almost

@@ -6,8 +6,9 @@
 // channel, descriptor bucket, absolute sample base, output subtile and
 // segment range [s0, s1).  Each item's subtile is evaluated with the segment
 // walker (the TPU kernel's _tile_walker: mask, clip, f32 accumulation in
-// slot order) and stored, as f32, as int16 DAC codes
-// clip(round_half_even(acc * scale)), or, in pair mode, as complex64.
+// slot order) and stored, as f32, as bf16 or f16 (rounded once), as int16
+// DAC codes clip(round_half_even(acc * scale)), or, in pair mode, as
+// complex64.
 //
 // Layout: one thread block per worklist item; consecutive threads own
 // consecutive samples of the subtile, so stores coalesce.  Padding items

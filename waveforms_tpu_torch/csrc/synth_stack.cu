@@ -6,7 +6,8 @@
 // pulse instance of a StackPlan, evaluated over the 128-sample blocks it
 // covers -- the sum over its terms of amp_t * prod_f factor_f ** power_f,
 // in _eval_blocks' order, masked to [lo, hi) -- added into the output, which
-// is stored as f32 or as int16 DAC codes clip(round_half_even(acc * scale)).
+// is stored as f32, as bf16 or f16 (rounded once), or as int16 DAC codes
+// clip(round_half_even(acc * scale)).
 //
 // Not carried over: the TPU added blocks into 128x128 output chunks through
 // a one-hot matrix product on its matrix unit (its answer to indexed

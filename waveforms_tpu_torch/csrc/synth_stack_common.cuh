@@ -67,8 +67,9 @@ __device__ __forceinline__ void stack_walk(const StackDesc& t, float* acc,
 }
 
 // Store the tile's first `count` samples at out + base, coalesced (16-byte
-// f32 or 8-byte int16 vectors where the row length allows), as f32 or as
-// int16 DAC codes clip(round_half_even(acc * sc)).
+// f32 or 8-byte 16-bit vectors where the row length allows), as f32, as
+// int16 DAC codes clip(round_half_even(acc * sc)), or as bf16 / f16 (acc
+// rounded once to nearest even).
 __device__ __forceinline__ void stack_store(const float* acc, void* out,
                                             long long base, long long count,
                                             long long n_samples, int out_kind,
@@ -82,6 +83,13 @@ __device__ __forceinline__ void stack_store(const float* acc, void* out,
         reinterpret_cast<short4*>(static_cast<short*>(out) + base)[v] =
             make_short4(dac_code(x.x, sc), dac_code(x.y, sc),
                         dac_code(x.z, sc), dac_code(x.w, sc));
+      } else if (out_kind == OUT_BF16 || out_kind == OUT_F16) {
+        reinterpret_cast<ushort4*>(static_cast<unsigned short*>(out) +
+                                   base)[v] =
+            make_ushort4(narrow_bits(x.x, out_kind),
+                         narrow_bits(x.y, out_kind),
+                         narrow_bits(x.z, out_kind),
+                         narrow_bits(x.w, out_kind));
       } else {
         reinterpret_cast<float4*>(static_cast<float*>(out) + base)[v] = x;
       }

@@ -4,8 +4,9 @@
 // (its inner `kernel`, with stack_synth's _strip_builder, _emit_chunk and
 // _scatter_dot).  It computes what that kernel computes: for each shot s of a
 // shot vector ks, the stack kernel's output (K5, synth_stack.cu) for schedule
-// clamp(ks[s], 0, K - 1) of a table of K schedules, stored into out[s] as f32
-// or as int16 DAC codes clip(round_half_even(acc * scale)).
+// clamp(ks[s], 0, K - 1) of a table of K schedules, stored into out[s] as f32,
+// as bf16 or f16 (rounded once), or as int16 DAC codes
+// clip(round_half_even(acc * scale)).
 //
 // Not carried over: the TPU design -- a grid over (shot, superchunk), the
 // shot index as a scalar-prefetch operand whose BlockSpec index maps stream

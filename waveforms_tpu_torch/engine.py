@@ -20,7 +20,11 @@ float64 kernels K3 and K4): ``'auto'`` and ``'cuda'`` run
 other forced engines refuse it, as the JAX package's forced pallas engines
 do.
 
-Not ported yet (they raise ``ValueError``): bf16/f16 stores.
+``out_dtype`` takes f32, int16 DAC codes, and the narrowed float stores
+bf16 and f16 (the f32 sum rounded once at the store), on every route where
+the JAX package takes them: not with ``precision='double'`` or
+``part='complex'``, and not on a multi-bucket panel, which routes
+elsewhere as in JAX.
 """
 
 from __future__ import annotations
@@ -120,7 +124,8 @@ def classify_route(low, force=None, out_dtype=None):
                 return 'panel', plan
             if force == 'panel':
                 raise UnsupportedFactor(
-                    "int16 panel output needs a single-bucket schedule")
+                    "int16, bf16 and f16 panel output need a single-bucket "
+                    "schedule")
         if force == 'sparse' or occ < SPARSE_OCCUPANCY_THRESHOLD:
             return 'sparse', sparse_plan
     if force in (None, 'stack'):
@@ -135,10 +140,18 @@ def classify_route(low, force=None, out_dtype=None):
 
 
 def _quantize_host(out, out_dtype, dac_scale):
-    """Host-engine form of the kernels' int16 store: scale ->
-    round-half-even -> clip (same convention as the kernels)."""
-    if normalize_out_dtype(out_dtype).is_floating_point:
+    """Host-engine form of the kernels' stores, as the JAX package's
+    ``engine._quantize_host``: int16 codes by scale -> round-half-even ->
+    clip; f16 the float64 result rounded once (numpy ``astype``); bf16 as
+    ``ml_dtypes``' ``astype`` rounds it (through f32), returned as a CPU
+    ``torch.bfloat16`` tensor since numpy has no bf16 type."""
+    dt = normalize_out_dtype(out_dtype)
+    if dt == torch.float32:
         return out
+    if dt == torch.float16:
+        return np.asarray(out).astype(np.float16)
+    if dt == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(out)).to(dt)
     sc = np.asarray(dac_scale, np.float64)
     scaled = out * (sc.reshape(-1, 1) if sc.ndim else float(sc))
     return np.clip(np.round(scaled), -32768.0, 32767.0).astype(np.int16)
@@ -192,13 +205,17 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
     Returns a torch tensor on ``device`` for the kernel engines: f32, or
     with ``out_dtype=torch.int16`` (or ``np.int16``) DAC codes
     ``clip(round_half_even(x * dac_scale))`` with ``dac_scale`` a scalar or
-    per-channel vector, or with ``part='complex'`` a complex64 tensor from
-    one pair-mode pass (f32 only).  ``precision='single'`` is the f32 tier;
+    per-channel vector, with ``out_dtype=torch.bfloat16`` / ``float16``
+    the f32 sum rounded once (``dac_scale`` ignored), or with
+    ``part='complex'`` a complex64 tensor from one pair-mode pass (f32
+    only).  ``precision='single'`` is the f32 tier;
     ``'double'`` is the <= 1e-9 tier and returns float64 (the double tier
     computes real parts only: under ``engine='auto'`` a complex part, or an
     opcode outside ``HI_OPS``, goes to the numpy oracle, and on the other
     engines raises ``UnsupportedFactor``).  ``engine='numpy'`` returns the
-    float64 oracle as an ndarray (quantized the same way for int16).
+    float64 oracle as an ndarray (quantized the same way for int16,
+    narrowed by ``astype`` for f16; bf16 as a CPU ``torch.bfloat16``
+    tensor, numpy having no such type).
     ``device='cuda'`` without a GPU raises; nothing falls back to the CPU.
     """
     if engine not in ENGINES:

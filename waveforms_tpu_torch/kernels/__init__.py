@@ -27,10 +27,11 @@ checks the launch's ``cudaGetLastError()`` and raises on any failure -- it
 never falls back.  Each wrapper counts its kernel launches in
 ``launches``.
 
-Output kinds: f32; int16 DAC codes with a per-channel f32 scale; and, for
-the three descriptor walks, complex64 in pair mode (a schedule with
-``amp_im``), written as interleaved (re, im) f32 pairs.  The double-tier
-kernels store float64, or the f32 (hi, lo) planes of the f64 sums.
+Output kinds: f32; int16 DAC codes with a per-channel f32 scale; bf16 and
+f16, the f32 sum rounded once to nearest even; and, for the three
+descriptor walks, complex64 in pair mode (a schedule with ``amp_im``),
+written as interleaved (re, im) f32 pairs.  The double-tier kernels store
+float64, or the f32 (hi, lo) planes of the f64 sums.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ from ..ops import reference, reference_hi, reference_probes
 __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
            'probe_health', 'probe_grid', 'probe_walker',
-           'probe_sparse_compact', 'load_library', 'library_path',
+           'probe_sparse_compact', 'launch_dense', 'launch_dense_hi',
+           'dense_tile', 'load_library', 'library_path',
            'reset_launch_counts', 'launch_counts', 'KERNELS']
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -65,8 +67,10 @@ ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xptxas', '-v',
                            '-Xcompiler', '-fPIC')
 
-# largest dense-kernel tile (samples per thread block)
-DENSE_TILE = 2048
+# largest dense-kernel tile (samples per thread block); K1 and K3 each take
+# the smaller of it and their own (synth_dense.cu DENSE_TILE,
+# synth_dense_hi.cu HI_TILE), powers of two all
+DENSE_TILE = 8192
 
 _lock = threading.Lock()
 _lib = None
@@ -198,23 +202,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# csrc/synth_common.cuh's OutKind, by output dtype
+_OUT_KINDS = {torch.float32: 0, torch.int16: 1, torch.complex64: 2,
+              torch.bfloat16: 3, torch.float16: 4}
+
+
 def _out_kind(out, scale, shape, pair=False):
-    """0 f32, 1 int16 codes, 2 complex64 (pair mode); raises on anything
-    the kernels do not take."""
+    """0 f32, 1 int16 codes, 2 complex64 (pair mode), 3 bf16, 4 f16;
+    raises on anything the kernels do not take."""
     if tuple(out.shape) != shape:
         raise ValueError(f"out has shape {tuple(out.shape)}, expected {shape}")
     if pair != (out.dtype == torch.complex64):
         raise ValueError("a pair-mode schedule (amp_im) needs a complex64 "
                          "output, and a complex64 output needs one")
-    if out.dtype == torch.complex64:
-        return 2
-    if out.dtype == torch.float32:
-        return 0
-    if out.dtype == torch.int16:
-        if scale is None or scale.dtype != torch.float32:
-            raise ValueError("int16 output needs a per-channel f32 scale")
-        return 1
-    raise ValueError(f"unsupported output dtype {out.dtype}")
+    if out.dtype not in _OUT_KINDS:
+        raise ValueError(f"unsupported output dtype {out.dtype}")
+    if out.dtype == torch.int16 and (scale is None
+                                     or scale.dtype != torch.float32):
+        raise ValueError("int16 output needs a per-channel f32 scale")
+    return _OUT_KINDS[out.dtype]
 
 
 def _checked(d, dense, out, scale, shape, **extra):
@@ -265,10 +271,10 @@ class _Kernel:
         return out
 
 
-def _dense_tile(d):
-    """Largest power-of-two tile <= DENSE_TILE that divides the bucket, so
+def dense_tile(d, largest=DENSE_TILE):
+    """Largest power-of-two tile <= ``largest`` that divides the bucket, so
     that no tile straddles two buckets."""
-    tile = DENSE_TILE
+    tile = largest
     if d.shape[1] > 1:
         while tile > 128 and d.bucket_samples % tile:
             tile //= 2
@@ -282,14 +288,19 @@ def _stream(out):
     return torch.cuda.current_stream(out.device).cuda_stream
 
 
-def _launch_dense(d, out, scale):
+def launch_dense(d, out, scale=None, lib=None, largest=DENSE_TILE):
+    """Launch K1 on CUDA tensors, uncounted (:data:`synth_dense` counts).
+    ``lib`` (default: this build) may be another build of
+    ``csrc/synth_dense.cu`` with the same C interface, given the largest
+    tile its own wrapper passed: an A/B of two builds."""
     C, NB, S, T, F = d.shape
     kind, desc = _checked(d, True, out, scale, (C, d.n_samples))
-    lib = load_library()
+    lib = lib or load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_dense(
             *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
-            _dense_tile(d), out.data_ptr(), kind, _ptr(scale), _stream(out))
+            dense_tile(d, largest), out.data_ptr(), kind, _ptr(scale),
+            _stream(out))
     _raise_on(code, 'synth_dense')
 
 
@@ -300,8 +311,9 @@ def _launch_panel(d, work, out, scale):
     kind, desc = _checked(d, False, out, scale, (C, out.shape[1]), **plan)
     if work.n_panels > 65535:
         raise ValueError("at most 65535 panels per launch")
-    if kind == 1 and NB > 1:
-        raise ValueError("int16 panel output needs a single bucket")
+    if kind in (1, 3, 4) and NB > 1:
+        raise ValueError("int16, bf16 and f16 panel output need a single "
+                         "bucket (several accumulate in the output)")
     lib = load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_panel(
@@ -341,7 +353,7 @@ def _stack_checked(t, out, scale, shape, **extra):
         raise ValueError("the stack kernels have no pair mode")
     tables = {n: getattr(t, n) for n in _STACK_TABLES}
     _check_cuda(dict(tables, out=out, **extra,
-                     **({'scale': scale} if kind else {})), out.device)
+                     **({'scale': scale} if kind == 1 else {})), out.device)
     return kind, tables
 
 
@@ -404,14 +416,17 @@ def _hi_checked(d, dense, out, lo, shape, **extra):
     return kind, [t.data_ptr() for t in desc.values()]
 
 
-def _launch_dense_hi(d, out, lo):
+def launch_dense_hi(d, out, lo=None, lib=None, largest=DENSE_TILE):
+    """Launch K3 on CUDA tensors, uncounted; ``lib`` and ``largest`` as
+    :func:`launch_dense`'s, for another build of ``csrc/synth_dense_hi.cu``."""
     C, NB, S, T, F = d.shape
     kind, desc = _hi_checked(d, True, out, lo, (C, d.n_samples))
-    lib = load_library()
+    lib = lib or load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_dense_hi(
             *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
-            _dense_tile(d), out.data_ptr(), _ptr(lo), kind, _stream(out))
+            dense_tile(d, largest), out.data_ptr(), _ptr(lo), kind,
+            _stream(out))
     _raise_on(code, 'synth_dense_hi')
 
 
@@ -538,7 +553,7 @@ def _launch_probe_sparse_compact(d, work, out):
 synth_dense = _Kernel(
     'synth_dense', 'waveforms_tpu_torch/csrc/synth_dense.cu',
     'waveforms_tpu/ops/pallas_synth.py:583', reference.dense_walk,
-    _launch_dense)
+    launch_dense)
 
 #: K2: ``synth_panel(dev, work, out, scale)`` fills out (C, window_samples)
 synth_panel = _Kernel(
@@ -572,7 +587,7 @@ synth_stack_seq = _Kernel(
 synth_dense_hi = _Kernel(
     'synth_dense_hi', 'waveforms_tpu_torch/csrc/synth_dense_hi.cu',
     'waveforms_tpu/ops/hi_synth.py:463', reference_hi.dense_walk_hi,
-    _launch_dense_hi)
+    launch_dense_hi)
 
 #: K4: ``synth_panel_hi(hidev, work, out, lo)`` fills out (C,
 #: window_samples) from a single-bucket schedule's PanelWork

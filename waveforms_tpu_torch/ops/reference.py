@@ -417,12 +417,15 @@ def _planes(out, pair):
 def _stored(accs, dtype, scale):
     """What the kernels store: f32 as is, int16 codes
     clip(round_half_even(acc * scale)) (``scale`` broadcast to the
-    planes), complex64 re + i*im."""
+    planes), complex64 re + i*im, bf16 / f16 the f32 sum rounded once to
+    nearest even (no scale)."""
     if dtype == torch.int16:
         code = torch.round(accs[0] * scale)
         return torch.clamp(code, -32768.0, 32767.0).to(torch.int16)
     if dtype == torch.complex64:
         return torch.complex(accs[0], accs[1])
+    if dtype in (torch.bfloat16, torch.float16):
+        return accs[0].to(dtype)
     return accs[0]
 
 

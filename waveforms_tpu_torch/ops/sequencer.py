@@ -230,8 +230,9 @@ class Sequencer:
         """Synthesize schedule ``k`` -> (C, N) through the dense kernel.
 
         ``out_dtype=torch.int16`` emits DAC codes scaled by a scalar or
-        per-channel ``dac_scale``; pair-mode tables give complex64 and
-        need f32."""
+        per-channel ``dac_scale``, ``torch.bfloat16`` / ``torch.float16``
+        the f32 sum rounded once; pair-mode tables give complex64 and need
+        f32."""
         return self.play_many([k], rows_per_tile, out_dtype=out_dtype,
                               dac_scale=dac_scale)[0]
 
@@ -417,7 +418,7 @@ class Sequencer:
     def play_packed(self, ks, Rs: int = 8, out_dtype=None,
                     dac_scale=32767.0) -> torch.Tensor:
         """Synthesize the shot sequence ``ks`` in ONE panel-kernel launch
-        -> (len(ks), C, N), f32 or int16 DAC codes.
+        -> (len(ks), C, N), f32, bf16, f16 or int16 DAC codes.
 
         Real single-bucket tables with uniform clip rails only.  ``ks``
         stays on the device: each item's segment range is gathered there

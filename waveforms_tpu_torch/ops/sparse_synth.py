@@ -14,8 +14,8 @@ zeroed output.  Both take pair-mode schedules (complex64 output).
 
 The TPU kernel kept its worklist in scalar memory under a budget; a GPU
 worklist lives in global memory, so that budget is gone.  The rule that
-narrowed stores (int16) need one bucket stays: with several buckets the
-kernel accumulates straddling subtiles in the output itself.
+narrowed stores (int16, bf16, f16) need one bucket stays: with several
+buckets the kernel accumulates straddling subtiles in the output itself.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ DEFAULT_SUBTILE_ROWS = 32
 PANEL_OCCUPANCY_THRESHOLD = 0.35
 
 # Below this padded live-subtile fraction, a schedule that the panel
-# kernel cannot take (int16 with several buckets) goes to the worklist
-# kernel.  The JAX package's value (TPU v5e); unmeasured on the H100.
+# kernel cannot take (a narrowed store with several buckets) goes to the
+# worklist kernel.  The JAX package's value (TPU v5e); unmeasured on the H100.
 SPARSE_OCCUPANCY_THRESHOLD = 0.2
 
 # Panel height in rows before the exact-fit shrink (the JAX package's value,
@@ -226,8 +226,10 @@ def build_panel_plan(low: LoweredSchedule, Rs: int = DEFAULT_SUBTILE_ROWS,
 
 
 def panels_eligible(plan: PanelPlan, out_dtype) -> bool:
-    """Narrowed stores (int16) need a single bucket: with several, the
-    kernel adds bucket-straddling subtiles into the output itself."""
+    """Narrowed stores (int16, bf16, f16) need a single bucket: with
+    several, the kernel adds bucket-straddling subtiles into the output
+    itself.  (The JAX rule also refuses worklists over its SMEM budget;
+    the card keeps worklists in global memory.)"""
     return (plan.n_buckets == 1
             or normalize_out_dtype(out_dtype) == torch.float32)
 
@@ -291,7 +293,8 @@ def synthesize_panels(dev: DeviceSchedule,
                       out_dtype=None,
                       dac_scale=32767.0) -> torch.Tensor:
     """Run the panel kernel on ``dev`` -> (C, window_samples) on
-    ``dev.device`` (f32, int16 DAC codes, or complex64 in pair mode)."""
+    ``dev.device`` (f32, bf16, f16, int16 DAC codes, or complex64 in
+    pair mode)."""
     from .. import kernels
     C = dev.shape[0]
     dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device,
@@ -303,8 +306,8 @@ def synthesize_panels(dev: DeviceSchedule,
     _validate_panel_plan(plan, dev)
     if not panels_eligible(plan, out_dtype):
         raise UnsupportedFactor(
-            "int16 panel output needs a single-bucket schedule -- use the "
-            "dense path")
+            "int16, bf16 and f16 panel output need a single-bucket "
+            "schedule -- use the dense path")
     out = torch.empty((C, plan.window_samples), dtype=dt, device=dev.device)
     return kernels.synth_panel(dev, PanelWork.upload(plan, dev.device), out,
                                scale)
@@ -372,7 +375,8 @@ def synthesize_sparse(dev: DeviceSchedule,
                       out_dtype=None,
                       dac_scale=32767.0) -> torch.Tensor:
     """Run the worklist kernel on ``dev`` -> (C, window_samples) on
-    ``dev.device`` (f32, int16 DAC codes, or complex64 in pair mode).
+    ``dev.device`` (f32, bf16, f16, int16 DAC codes, or complex64 in
+    pair mode).
 
     The output starts zeroed (``torch.zeros``, the background that the
     TPU kernel, too, takes from outside) and the kernel stores each live

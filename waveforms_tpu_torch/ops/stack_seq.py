@@ -177,7 +177,9 @@ class StackSequencer:
         index to [0, K-1] itself: the host never reads it, so a shot
         vector computed on the card needs no host sync.
         ``out_dtype=torch.int16`` emits DAC codes scaled by the scalar
-        ``dac_scale`` (quantized in the kernel's store)."""
+        ``dac_scale`` (quantized in the kernel's store);
+        ``torch.bfloat16`` / ``torch.float16`` round the f32 sum once in
+        the store, with no scale."""
         from .. import kernels
         dt = normalize_out_dtype(out_dtype)
         if dt == torch.int16 and np.ndim(dac_scale) != 0:

@@ -425,11 +425,13 @@ def synthesize_stack(low: LoweredSchedule, plan: StackPlan | None = None,
     kernel over the wide residual, summed in f32.
 
     ``out_dtype=torch.int16`` emits DAC codes
-    ``clip(round_half_even(x * dac_scale))``.  As in the JAX package, the
-    stack kernel quantizes in its own store only for a plan with no
-    residual and a scalar ``dac_scale``; otherwise the f32 sum is
-    quantized after it, so codes round once.  The kernel tables are built
-    once per plan and device and cached on the plan."""
+    ``clip(round_half_even(x * dac_scale))``; ``torch.bfloat16`` and
+    ``torch.float16`` round the f32 sum once to nearest even, with no
+    scale.  As in the JAX package, the stack kernel narrows in its own
+    store only for a plan with no residual and a scalar ``dac_scale``;
+    otherwise the f32 sum is narrowed after it, so it rounds once.  The
+    kernel tables are built once per plan and device and cached on the
+    plan."""
     from .. import kernels
     if plan is None:
         plan = build_stack_plan(low)
@@ -442,7 +444,7 @@ def synthesize_stack(low: LoweredSchedule, plan: StackPlan | None = None,
     device = resolve_device(device)
     C, n = plan.n_channels, plan.n_samples
     dt, scale = validate_out_mode(out_dtype, C, dac_scale, device)
-    in_kernel = (dt == torch.int16 and plan.wide is None
+    in_kernel = (dt != torch.float32 and plan.wide is None
                  and np.ndim(dac_scale) == 0)
     out = torch.empty((C, n), dtype=dt if in_kernel else torch.float32,
                       device=device)
@@ -453,4 +455,6 @@ def synthesize_stack(low: LoweredSchedule, plan: StackPlan | None = None,
     if dt == torch.int16 and not in_kernel:
         out = torch.clamp(torch.round(out * scale[:, None]), -32768.0,
                           32767.0).to(torch.int16)
+    elif dt != torch.float32 and not in_kernel:
+        out = out.to(dt)
     return out

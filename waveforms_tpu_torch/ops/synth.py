@@ -29,28 +29,37 @@ __all__ = ['DeviceSchedule', 'synthesize_device', 'validate_out_mode',
 TUNED_ROWS_PER_TILE = 256
 
 
-def normalize_out_dtype(out_dtype):
-    """``None``/f32 -> ``torch.float32``; int16 -> ``torch.int16``.
+_BY_NAME = {'float32': torch.float32, 'int16': torch.int16,
+            'bfloat16': torch.bfloat16, 'float16': torch.float16}
 
-    Other integer widths raise ``ValueError``, and so do bf16 and f16
-    stores, which are not ported yet."""
+
+def normalize_out_dtype(out_dtype):
+    """``None``/f32 -> ``torch.float32``; int16 -> ``torch.int16``; bf16
+    and f16 -> ``torch.bfloat16`` / ``torch.float16``.
+
+    Any spelling whose dtype name is one of these is taken: torch dtypes,
+    numpy dtypes and type objects, and the JAX/ml_dtypes ``bfloat16``
+    (matched by its name, so neither is imported).  Other integer widths
+    and other floats raise ``ValueError``."""
     if out_dtype is None:
         return torch.float32
     if isinstance(out_dtype, torch.dtype):
         name = str(out_dtype).replace('torch.', '')
+    elif 'bfloat16' in (out_dtype if isinstance(out_dtype, str) else None,
+                        getattr(out_dtype, '__name__', None),
+                        str(getattr(out_dtype, 'name', ''))):
+        name = 'bfloat16'
     else:
         try:
             name = np.dtype(out_dtype).name
         except TypeError as exc:
             raise ValueError(f"unsupported out_dtype {out_dtype!r}") from exc
-    if name == 'float32':
-        return torch.float32
-    if name == 'int16':
-        return torch.int16
+    if name in _BY_NAME:
+        return _BY_NAME[name]
     if name.startswith(('int', 'uint')):
         raise ValueError("integer output supports int16 only")
-    raise ValueError(f"out_dtype must be float32 or int16 (bf16/f16 stores "
-                     f"are not ported yet), got {out_dtype}")
+    raise ValueError(f"out_dtype must be a float type (float32, bfloat16, "
+                     f"float16) or int16, got {out_dtype}")
 
 
 def resolve_device(device) -> torch.device:
@@ -81,9 +90,11 @@ def dac_scale_tensor(dtype, dac_scale, n_channels, device):
 def validate_out_mode(out_dtype, n_channels, dac_scale, device,
                       pair=False):
     """One output-mode gate for every entry point: returns
-    ``(torch dtype of the output, scale or None)``.  Pair mode (a schedule
-    lowered with ``part='complex'``) needs f32 accumulation and returns
-    ``torch.complex64``, as the JAX package's ``validate_out_mode``."""
+    ``(torch dtype of the output, scale or None)``; the scale is int16's
+    only (bf16/f16 stores ignore ``dac_scale``, as in JAX).  Pair mode (a
+    schedule lowered with ``part='complex'``) needs f32 accumulation and
+    returns ``torch.complex64``, as the JAX package's
+    ``validate_out_mode``."""
     dt = normalize_out_dtype(out_dtype)
     if pair:
         if dt != torch.float32:
@@ -179,8 +190,9 @@ def synthesize_device(dev: DeviceSchedule, out_dtype=None,
 
     ``out_dtype=torch.int16`` emits DAC codes
     ``clip(round_half_even(x * dac_scale))``; ``dac_scale`` is a scalar or a
-    per-channel vector.  A pair-mode schedule gives complex64.
-    Accumulation is f32 either way."""
+    per-channel vector.  ``torch.bfloat16`` / ``torch.float16`` store the
+    f32 sum rounded once to nearest even.  A pair-mode schedule gives
+    complex64.  Accumulation is f32 either way."""
     from .. import kernels
     C = dev.shape[0]
     dt, scale = validate_out_mode(out_dtype, C, dac_scale, dev.device,

@@ -5,7 +5,8 @@ The same constructions, seeds and widths as ``bench.py``'s
 (128 channels at 2 GS/s), and as the occupancy ladder of
 ``tools/tpu_capture.py`` (``_ladder_chans``), so the port runs what the
 JAX package's benches run without importing it.  :data:`STRATA` names each
-with its span.
+with its span.  :func:`station_channels` is the gate-train sequence table
+of ``tools/tpu_capture.py``'s ``task_seq_packed_station``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from .core import zero
 from .models import chirp, cosPulse, gaussian, mixing, square
 
 __all__ = ['FS', 'build_schedule', 'build_mid_schedule',
-           'build_dense_schedule', 'build_ladder_schedule', 'STRATA']
+           'build_dense_schedule', 'build_ladder_schedule',
+           'station_channels', 'STRATA']
 
 FS = 2e9
 
@@ -86,6 +88,26 @@ def build_ladder_schedule(n_pulses, n_channels=128, duration=524.288e-6,
                 freq=-150e6 - 2e6 * c, DRAGScaling=1e-10)
             x += I
         chans.append(x)
+    return chans
+
+
+def station_channels(rng=None):
+    """A lab's RB-like table: 16 schedules of 2 channels
+    over 100 us, an XY channel of 12 DRAG-mixed 30 ns cosPulses at random
+    phases and a Z channel of one 80 ns square at a random time.  ``rng``
+    (default ``default_rng(11)``) is consumed in that order."""
+    rng = np.random.default_rng(11) if rng is None else rng
+    chans = []
+    for _ in range(16):
+        xy = zero()
+        for g in range(12):
+            I, _ = mixing(0.5 * cosPulse(30e-9) >> (2e-6 + g * 7.5e-6),
+                          freq=-150e6, phase=float(rng.uniform(0, 6.28)),
+                          DRAGScaling=1e-10)
+            xy += I
+        z = 0.3 * (square(80e-9, edge=10e-9)
+                   >> float(rng.uniform(1e-6, 9e-5)))
+        chans.append([xy, z])
     return chans
 
 
