@@ -14,8 +14,10 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    version on the card and on the CPU, and against the float64 numpy
    oracle, in f32 and int16; one schedule per opcode, several buckets, the
    stack route's vstack / overlapping-DRAG / wide-residual / clipped /
-   multi-tone DRAG / bucketed shapes with int16 quantized in the kernel and
-   after the residual, and pair mode (``part='complex'``) on K1, K2, K7;
+   multi-tone DRAG / bucketed / odd-length / empty-chunk / overflowing
+   descriptor shapes with int16 quantized in the kernel and after the
+   residual (between them every staging path of K5, or the run fails),
+   K5 on every opcode, and pair mode (``part='complex'``) on K1, K2, K7;
    then the double tier (``precision='double'``): one schedule per
    ``HI_OPS`` opcode, powers, clip rails, several buckets, a 2M-sample
    carrier and exotic chirps through K3 (``engine='cuda-dense'``) and,
@@ -87,7 +89,9 @@ summary: each kernel's ``launches`` on the user paths (for the probe
 kernels, on the ``probes`` path) and, apart, its ``probe_launches`` on the
 ``probes`` path, whose counts are timing loops.  The last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
-passed; a spill in the tile walkers (K1, K3) fails the run.  Exits
+passed; a spill in the tile walkers (K1, K3) or the row walkers (K5, K6)
+fails the run.  The summary also gives each kernel's registers and shared
+memory per thread block from ptxas.  Exits
 non-zero without a result when no CUDA device is visible or the port is
 not importable.
 """
@@ -343,6 +347,12 @@ def stack_cases():
     p = drag_sin(5e9, 20e-9, plateau=10e-9, delta=1e6)
     for _ in range(70):
         ds += p >> rng.uniform(0, 7e-6)
+    sparse = [WaveVStack([(0.5 * cosPulse(50e-9) >> o)
+                          for o in (0.3e-6, 0.31e-6, 21.4e-6, 39.9e-6)])]
+    short = WaveVStack([(0.5 * cosPulse(20e-9) >> o)
+                        for o in np.sort(rng.uniform(0, 15e-6, 150))])
+    gcc = (gaussian(40e-9) * cos(2 * np.pi * 100e6)
+           * cos(2 * np.pi * 37e6, 0.3)) >> 1e-6
     return [
         ('vstack', [vstack, vstack >> 1e-7], 10e-6, 'auto'),
         ('overlap_drag', [overlap], 1.1e-6, 'auto'),
@@ -352,6 +362,14 @@ def stack_cases():
          8.192e-6, 'auto'),
         ('multitone_drag', [ds], 8.192e-6, 'auto'),
         ('bucketed', [vstack], 8.192e-6, 2048),
+        # 16,381 samples: rows stored sample by sample
+        ('odd_length', [vstack, vstack >> 1e-7], 8.1905e-6, 'auto'),
+        # 80,000 samples, 10 chunks of which 7 hold no block
+        ('empty_chunks', sparse * 2, 40e-6, 'auto'),
+        # 150 instances in one thread block's rows, of a table whose
+        # three-factor term gives 63 descriptor words an instance: more
+        # than the staged descriptors hold
+        ('wide_descriptors', [short, gcc], 16e-6, None),
     ]
 
 
@@ -398,6 +416,56 @@ def exotic_chirp_schedule():
     low.op[1, 0, 0, 0, 0] = OP_HYPCHIRP
     low.args[1, 0, 0, 0, 0, 1:4] = (2 * np.pi * f0 / rate, rate * 1e-9, 0.3)
     return low
+
+
+def every_opcode_schedule():
+    """A lowered schedule with every opcode of op_builders, each the only
+    factor of a channel: the lowering's own, and OP_EXPCHIRP, OP_HYPCHIRP
+    and the reserved OP_INTERP set directly into a gaussian's descriptors
+    (tests/test_torch_cuda.py's every-opcode channels).  Every channel is
+    narrow, so the stack route takes them all."""
+    import numpy as np
+
+    from waveforms_tpu_torch import (chirp, cos, cosh, drag, drag_sin,
+                                     drag_sinx, exp, gaussian, mollifier,
+                                     poly, sinc, sinh, square)
+    from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
+                                                  OP_INTERP, lower_schedule)
+    bf = (151e6, -83e6)
+    chans = [gaussian(1e-7), square(1e-7, edge=2e-8, type='erf'),
+             cos(2 * np.pi * 1e8), sinc(5e7), exp(1e6),
+             chirp(1e6, 5e7, 4e-7, 0.3, 'linear'),
+             cosh(5e6) * square(2e-7), sinh(5e6) * square(2e-7),
+             drag(100e6, 20e-9, plateau=10e-9, delta=2e6, block_freq=250e6,
+                  phase=0.4),
+             gaussian(1e-7, d=2), mollifier(1e-7, d=1),
+             drag_sin(0.2e9, 22.3e-9, plateau=6.1e-9, delta=3e6,
+                      block_freq=bf, phase=0.1),
+             drag_sinx(0.2e9, 22.3e-9, plateau=6.1e-9, delta=3e6,
+                       block_freq=bf, phase=0.1, tab=0.5),
+             poly([0.5, 1e5]) * square(3e-7)]
+    chans += [gaussian(1e-7)] * 3
+    low = lower_schedule(chans, -2e-7, 2e-7, 2e9)
+    for c, op in zip(range(len(chans) - 3, len(chans)),
+                     (OP_EXPCHIRP, OP_HYPCHIRP, OP_INTERP)):
+        low.op[c, 0, 0, 0, 0] = op
+        low.args[c, 0, 0, 0, 0, 1:4] = (2 * np.pi * 0.1, 1e-3, 0.3)
+    return low
+
+
+def staging(t):
+    """How many chunks of stack tables ``t`` the stack kernels stage in
+    shared memory, walk with their block list staged but their descriptors
+    in place, and walk with both in place (ops/stack_synth.chunk_staging)."""
+    from waveforms_tpu_torch.ops.stack_synth import (STAGE_BLOCKS,
+                                                     chunk_staging)
+    st = chunk_staging(t)
+    listed = st['blocks'] <= STAGE_BLOCKS
+    return {'staged': int(st['staged'].sum()),
+            'descriptors_in_place': int((listed & ~st['staged']).sum()),
+            'in_place': int((~listed).sum()),
+            'most_blocks': int(st['blocks'].max(initial=0)),
+            'most_slots': int(st['slots'].max(initial=0))}
 
 
 def walk_kernel(route):
@@ -533,7 +601,9 @@ def check_small(fail):
                 fail.append(f"small_pair {name} {route}")
         log(rec, brief_checks(rec))
 
-    # the stack route: K5 (and K1 on the wide residual) in f32 and int16
+    # the stack route: K5 (and K1 on the wide residual) in f32 and int16;
+    # between them the cases reach each of K5's staging paths
+    paths = set()
     for name, chans, stop, bs in stack_cases():
         low = lower_schedule(chans, 0.0, stop, 2e9, bucket_samples=bs)
         plan = build_stack_plan(low)
@@ -545,6 +615,9 @@ def check_small(fail):
                'pallas_ok': bool(low.pallas_ok)}
         # K5 alone against its plain version on the card, on one table
         t = build_stack_tables(plan, low, 'cuda')
+        rec['staging'] = staging(t)
+        paths |= {k for k in ('staged', 'descriptors_in_place', 'in_place')
+                  if rec['staging'][k]}
         kn = kernels.synth_stack(t, torch.empty((low.shape[0], low.n_samples),
                                                 device='cuda'), None)
         pn = kernels.synth_stack.plain(t, torch.empty_like(kn), None)
@@ -575,7 +648,26 @@ def check_small(fail):
                               'ok': ok}
             if not ok:
                 fail.append(f"small_stack {name} {dtype}")
-        log(rec, brief_checks(rec))
+        log(rec, brief_checks(rec) | {'staging': rec['staging']})
+    if len(paths) < 3:
+        fail.append(f"small_stack reached only the staging paths {paths}")
+
+    # K5 on every opcode, each the only factor of a channel, against its
+    # plain version on the card
+    low = every_opcode_schedule()
+    t = build_stack_tables(build_stack_plan(low), low, 'cuda')
+    kn = kernels.synth_stack(t, torch.empty((low.shape[0], low.n_samples),
+                                            device='cuda'), None)
+    pn = kernels.synth_stack.plain(t, torch.empty_like(kn), None)
+    torch.cuda.synchronize()
+    e = rel_err(kn.cpu().numpy(), pn.cpu().numpy())
+    rec = {'phase': 'small_stack', 'case': 'every_opcode',
+           'shape': list(low.shape), 'staging': staging(t),
+           'k5': {'vs_plain': e, 'ok': bool(
+               e <= TOL_PLAIN and torch.isfinite(kn).all())}}
+    if not rec['k5']['ok']:
+        fail.append("small_stack every_opcode")
+    log(rec, brief_checks(rec))
 
 
 def hi_small_cases():
@@ -1868,25 +1960,37 @@ def run_probes(fail, summary):
 
 def ptxas_entries(lines):
     """{entry function (mangled): [registers, spill store bytes, spill
-    load bytes]} from nvcc's ``-Xptxas -v`` lines, in build order."""
+    load bytes, shared memory bytes]} from nvcc's ``-Xptxas -v`` lines, in
+    build order."""
     out, name = {}, None
     for ln in lines:
         m = re.search(r"entry function '([^']+)'", ln)
         if m:
             name = m.group(1)
-            out[name] = [None, 0, 0]
+            out[name] = [None, 0, 0, 0]
             continue
         if name is None:
             continue
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
                       ln)
         if m:
-            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+            out[name][1:3] = [int(m.group(1)), int(m.group(2))]
         m = re.search(r'Used (\d+) registers', ln)
         if m:
             out[name][0] = int(m.group(1))
+            m = re.search(r'(\d+) bytes smem', ln)
+            out[name][3] = int(m.group(1)) if m else 0
             name = None
     return out
+
+
+def ptxas_resources(entries, name):
+    """Registers and static shared memory bytes per thread block of the
+    kernel wrapper ``name``'s entry functions (ptxas_entries; the largest
+    over its instances), or None where the build log names none."""
+    mine = [v for k, v in entries.items() if f'{name}_kernel' in k]
+    return {'registers': max((v[0] for v in mine), default=None),
+            'smem_bytes': max((v[3] for v in mine), default=None)}
 
 
 def write_record(path):
@@ -1948,12 +2052,14 @@ def main():
            'library': str(kernels.library_path().name), 'ptxas': ptxas}
     spills = [ln for ln in ptxas if re.search(r'[1-9][0-9]* bytes spill', ln)]
     rec['entries'] = ptxas_entries(ptxas)
-    dense = {k: v for k, v in rec['entries'].items() if 'synth_dense' in k}
+    walkers = {k: v for k, v in rec['entries'].items()
+               if 'synth_dense' in k or 'synth_stack' in k}
     log(rec, {k: rec[k] for k in ('phase', 'ok', 'seconds', 'library')}
         | {'ptxas_lines': len(ptxas), 'spilling': spills,
-           'dense_kernels': dense})
-    # the tile walkers (K1, K3) are held to no spill
-    fail += [f"{k} spills {v[1]} bytes" for k, v in dense.items() if v[1]]
+           'walker_kernels': walkers})
+    # the tile walkers (K1, K3) and the row walkers (K5, K6) are held to no
+    # spill
+    fail += [f"{k} spills {v[1]} bytes" for k, v in walkers.items() if v[1]]
 
     # P4, the health probe, before every other phase (as the TPU capture
     # script's main): a card that cannot double (8, 128) floats ends the run
@@ -1970,7 +2076,8 @@ def main():
                         'replaces': k.replaces, 'launches': 0,
                         'max_abs_err': None, 'ms': None, 'plain_ms': None,
                         'bound_ms': None, 'bound_by': None,
-                        'library_ms': None}
+                        'library_ms': None,
+                        **ptxas_resources(rec['entries'], k.name)}
                for k in kernels.KERNELS}
     for phase in (check_small, check_small_hi, check_small_seq,
                   check_small_narrow, check_probes, run_strata, run_sequences,
@@ -2016,7 +2123,7 @@ def main():
         return 1
     keys = ('name', 'route', 'source', 'replaces', 'launches',
             'probe_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms')
+            'bound_by', 'library_ms', 'registers', 'smem_bytes')
     print(smi, flush=True)
     print(json.dumps({'kernels': [{k: e[k] for k in keys}
                                   for e in summary]}), flush=True)

@@ -722,3 +722,171 @@ def test_tile_walker_wide_grid_matches_small(card, case):
     small = synthesize_hi(HiSchedule(hi, card))
     got = synthesize_hi(HiSchedule(wide, card))
     assert torch.equal(got, small.repeat(reps, 1))
+
+
+def _stack_corner_cases():
+    """Corners of the pulse-instance kernels K5 and K6, each with the
+    staging path it takes (ops/stack_synth.chunk_staging): a row touched by
+    several instances, staged; 150 instances in one thread block, more
+    than the staged descriptors hold (read in place); more blocks than the
+    staged block list holds (100 overlapping DRAGs in one channel);
+    n_samples not a multiple of 4; empty chunks and rows; and every
+    opcode."""
+    rng = np.random.default_rng(17)
+    crowded = wt.WaveVStack([(0.5 * wt.cosPulse(50e-9) >> o)
+                             for o in rng.uniform(0, 7e-6, 30)])
+    short = wt.WaveVStack([(0.5 * wt.cosPulse(20e-9) >> o)
+                           for o in np.sort(rng.uniform(0, 15e-6, 150))])
+    # three factors: the table's descriptors take 63 words an instance
+    gcc = (wt.gaussian(40e-9) * wt.cos(2 * np.pi * 100e6)
+           * wt.cos(2 * np.pi * 37e6, 0.3)) >> 1e-6
+    drags = wt.zero()
+    for _ in range(100):
+        drags += wt.drag(100e6, 300e-9, plateau=200e-9, delta=2e6,
+                         block_freq=None, phase=rng.uniform(0, 6),
+                         t0=0.0) >> rng.uniform(0, 0.6e-6)
+    sparse = wt.WaveVStack([(0.5 * wt.cosPulse(50e-9) >> o)
+                            for o in (0.3e-6, 0.31e-6, 21.4e-6, 39.9e-6)])
+    return {
+        'several_per_row': ([crowded, crowded >> 1e-7], 8.192e-6, 'staged'),
+        'descriptors_in_place': ([short, gcc], 16e-6,
+                                 'descriptors_in_place'),
+        'blocks_in_place': ([drags], 1.1e-6, 'in_place'),
+        'odd_length': ([crowded, crowded >> 1e-7], 8.1905e-6, None),
+        'empty_chunks': ([sparse, sparse >> 2e-6], 40e-6, 'staged'),
+        'every_opcode': (None, None, 'staged'),
+    }
+
+
+def _stack_corner(case, device):
+    """(lowering, K5 tables on ``device``) of a corner case, in one bucket
+    (as StackSequencer takes it), whose chunks were checked to take the
+    case's staging path."""
+    from waveforms_tpu_torch.ops.stack_synth import (STAGE_BLOCKS,
+                                                     build_stack_tables,
+                                                     chunk_staging)
+    chans, stop, path = _stack_corner_cases()[case]
+    low = (_every_opcode_lowered() if chans is None
+           else lower_schedule(chans, 0.0, stop, 2e9,
+                               bucket_samples=None))
+    plan = build_stack_plan(low)
+    assert plan is not None and plan.wide is None
+    t = build_stack_tables(plan, low, device)
+    st = chunk_staging(t)
+    listed = st['blocks'] <= STAGE_BLOCKS
+    took = {'staged': st['staged'], 'in_place': ~listed,
+            'descriptors_in_place': listed & ~st['staged']}
+    if path is not None:
+        assert took[path][st['blocks'] > 0].any(), path
+    if case == 'empty_chunks':
+        assert (st['blocks'] == 0).any()
+    if case == 'odd_length':
+        assert low.n_samples % 4
+    return low, t
+
+
+def _narrowed(f32, dtype):
+    """The stores of f32 sums in ``dtype``: int16 codes at 30000.0 a unit,
+    bf16 and f16 rounded once."""
+    if dtype == torch.int16:
+        return torch.clamp(torch.round(f32 * 30000.0), -32768,
+                           32767).to(torch.int16)
+    return f32.to(dtype)
+
+
+@pytest.mark.parametrize('case', list(_stack_corner_cases()))
+def test_stack_kernel_corners_match_plain(card, case):
+    """K5 on each corner against its plain version within TOL, and its
+    int16, bf16 and f16 stores equal to its own f32 sums stored so."""
+    low, t = _stack_corner(case, card)
+    C, n = low.shape[0], low.n_samples
+    got = kernels.synth_stack(t, torch.empty((C, n), device=card), None)
+    _, tc = _stack_corner(case, 'cpu')
+    plain = kernels.synth_stack.plain(tc, torch.empty((C, n)), None)
+    assert torch.isfinite(got).all()
+    assert rel(got.cpu(), plain) <= TOL
+    i16 = torch.full((C,), 30000.0, device=card)
+    for dtype in (torch.int16, torch.bfloat16, torch.float16):
+        out = kernels.synth_stack(t, torch.empty((C, n), dtype=dtype,
+                                                 device=card),
+                                  i16 if dtype == torch.int16 else None)
+        assert torch.equal(out, _narrowed(got, dtype)), dtype
+
+
+@pytest.mark.parametrize('case', list(_stack_corner_cases()))
+def test_stack_kernel_wide_grid_matches_small(card, case):
+    """K5 on a corner's channels repeated until its grid has 2,112 thread
+    blocks (16 per SM of the H100) equals the small grid's launch repeated,
+    bit for bit."""
+    from waveforms_tpu_torch.ops.stack_synth import build_stack_tables
+    low, t = _stack_corner(case, card)
+    reps = -(-2112 // (low.shape[0] * t.n_chunks))
+    wide = dataclasses.replace(low, **{
+        f.name: np.concatenate([v] * reps)
+        for f in dataclasses.fields(low)
+        if f.name != 'ext' and isinstance(v := getattr(low, f.name),
+                                          np.ndarray)})
+    tw = build_stack_tables(build_stack_plan(wide), wide, card)
+    small = kernels.synth_stack(t, torch.empty(low.shape[0], low.n_samples,
+                                               device=card), None)
+    got = kernels.synth_stack(tw, torch.empty(wide.shape[0], wide.n_samples,
+                                              device=card), None)
+    assert torch.equal(got, small.repeat(reps, 1))
+
+
+@pytest.mark.parametrize('case', list(_stack_corner_cases()))
+def test_stack_seq_kernel_corners(card, case):
+    """K6 on a table of a corner and the same channels rolled by one: each
+    shot equals K5 on its clamped schedule bit for bit (one walk), in f32
+    and in the int16, bf16 and f16 stores; f32 within TOL of the plain
+    version."""
+    from waveforms_tpu_torch.ops import StackSequencer
+    from waveforms_tpu_torch.ops.stack_synth import build_stack_tables
+    low, _ = _stack_corner(case, card)
+    rolled = dataclasses.replace(low, **{
+        f.name: np.roll(v, 1, axis=0)
+        for f in dataclasses.fields(low)
+        if f.name != 'ext' and isinstance(v := getattr(low, f.name),
+                                          np.ndarray)})
+    lows = [low, rolled]
+    seq = StackSequencer(lows, device=card)
+    ks = [1, 0, 99, -3, 1]
+    got = seq.play_packed(ks)
+    C, n = low.shape[0], low.n_samples
+    k5 = [kernels.synth_stack(build_stack_tables(build_stack_plan(x), x,
+                                                 card),
+                              torch.empty((C, n), device=card), None)
+          for x in lows]
+    want = torch.stack([k5[min(max(k, 0), 1)] for k in ks])
+    assert torch.equal(got, want)
+    plain = StackSequencer(lows, device='cpu').play_packed(ks)
+    assert rel(got.cpu().reshape(-1, n), plain.reshape(-1, n)) <= TOL
+    for dtype in (torch.int16, torch.bfloat16, torch.float16):
+        kw = {'dac_scale': 30000.0} if dtype == torch.int16 else {}
+        assert torch.equal(seq.play_packed(ks, out_dtype=dtype, **kw),
+                           _narrowed(want, dtype)), dtype
+
+
+def test_stack_seq_kernel_1000_shots(card):
+    """K6 on 16 schedules of 30 cosPulses for 1000 shots, some past both
+    ends of the table: every shot equals K5 on its clamped schedule, bit for
+    bit, and the plain version's within TOL."""
+    from waveforms_tpu_torch.ops import StackSequencer
+    from waveforms_tpu_torch.ops.stack_synth import build_stack_tables
+    rng = np.random.default_rng(99)
+    lows = [lower_schedule([wt.WaveVStack([
+        (float(a) * wt.cosPulse(50e-9) >> o)
+        for a, o in zip(rng.uniform(0.2, 1.0, 30),
+                        rng.uniform(0, 5.02e-6, 30))])], 0.0, 5.12e-6, 2e9)
+        for _ in range(16)]
+    ks = np.arange(1000) % 16
+    ks[::97], ks[1::89] = -7, 16
+    seq = StackSequencer(lows, device=card)
+    got = seq.play_packed(torch.as_tensor(ks, device=card))
+    n = lows[0].n_samples
+    k5 = torch.stack([kernels.synth_stack(
+        build_stack_tables(build_stack_plan(x), x, card),
+        torch.empty((1, n), device=card), None) for x in lows])
+    assert torch.equal(got, k5[np.clip(ks, 0, 15)])
+    plain = StackSequencer(lows, device='cpu').play_packed(ks[:64])
+    assert rel(got[:64].cpu().reshape(-1, n), plain.reshape(-1, n)) <= TOL

@@ -17,6 +17,7 @@ JAX's (the f32 sums they quantize may differ in the last bit).
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -28,9 +29,12 @@ import waveforms_tpu.ops.stack_synth as sj
 from waveforms_tpu.ops.lowering import lower_schedule as lower_j
 from waveforms_tpu_torch import kernels
 from waveforms_tpu_torch.convert import lowered_from_jax
-from waveforms_tpu_torch.ops.stack_synth import (CHUNK_ROWS,
+from waveforms_tpu_torch.ops.stack_synth import (CHUNK_ROWS, CTA_CHUNKS,
+                                                 STAGE_BLOCKS, STAGE_WORDS,
+                                                 StackTables,
                                                  build_stack_plan,
                                                  build_stack_tables,
+                                                 chunk_staging,
                                                  synthesize_stack)
 from test_torch_lowering import ARRAYS
 from test_torch_synth import RTOL, TOL_JAX, oracle, rel
@@ -69,6 +73,8 @@ def cases():
         mixed += I
     imag = wj.WaveVStack([((0.3 + 0.7j) * wj.cosPulse(60e-9) >> o)
                           for o in rng.uniform(0, 7e-6, 40)])
+    sparse = wj.WaveVStack([(0.5 * wj.cosPulse(50e-9) >> o)
+                            for o in (0.3e-6, 0.31e-6, 10.4e-6, 19.9e-6)])
     return {
         'vstack': ([vstack, vstack >> 1e-7], 10e-6, 'auto', 'real'),
         'overlap_drag': ([overlap], 1.1e-6, 'auto', 'real'),
@@ -80,6 +86,10 @@ def cases():
         'multitone_drag': ([ds], 8.192e-6, 'auto', 'real'),
         'mixing_drag': ([mixed], 8.192e-6, 'auto', 'real'),
         'imag': ([imag], 8.192e-6, 'auto', 'imag'),
+        # 16,381 samples: the kernels store such rows sample by sample
+        'odd_length': ([vstack, vstack >> 1e-7], 8.1905e-6, 'auto', 'real'),
+        # 40,000 samples in 10 chunks, 4 of them without a block
+        'empty_chunks': ([sparse, sparse >> 2e-6], 20e-6, 'auto', 'real'),
     }
 
 
@@ -195,6 +205,64 @@ def test_per_channel_scale_quantizes_after_the_kernel():
     want = torch.clamp(torch.round(f32 * torch.as_tensor(scales)[:, None]),
                        -32768, 32767).to(torch.int16)
     assert torch.equal(got, want)
+
+
+def test_stack_constants_match_the_kernels():
+    """CHUNK_ROWS and the staging sizes are one constant each, shared by
+    the host's tables and the stack kernels' header."""
+    text = (kernels.CSRC / 'synth_stack_common.cuh').read_text()
+    for name, value in (('CHUNK_ROWS', CHUNK_ROWS),
+                        ('CTA_CHUNKS', CTA_CHUNKS),
+                        ('STAGE_BLOCKS', STAGE_BLOCKS),
+                        ('STAGE_WORDS', STAGE_WORDS)):
+        m = re.search(rf'constexpr int {name} = (\d+);', text)
+        assert m is not None and int(m.group(1)) == value, name
+
+
+def _block_tables(blk_inst, chunk_start, n_chunks, NT=1, TF=1):
+    """StackTables holding only a block list (the instance arrays empty),
+    one channel of ``n_chunks`` chunks."""
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32)
+    empty = torch.zeros(0, dtype=torch.int32)
+    return StackTables(
+        n_channels=1, n_samples=128 * CHUNK_ROWS * n_chunks,
+        n_chunks=n_chunks, NT=NT, TF=TF, inst=empty, amp=empty.float(),
+        term_nfac=empty, op=empty, power=empty, shift_hi=empty, q32=empty,
+        args=empty.float(), ext=torch.zeros(1), blk_inst=i32(blk_inst),
+        blk_row=i32([0] * len(blk_inst)), chunk_start=i32(chunk_start))
+
+
+def test_chunk_staging_counts_each_run_of_an_instance_once():
+    """A thread block takes CTA_CHUNKS chunks; a run of consecutive blocks
+    of one instance takes one staging slot, across the chunks of one thread
+    block too, and a thread block's first block opens a slot even when the
+    previous one ended on the same instance.  A thread block is staged when
+    its blocks and its slots' descriptors fit; an empty one always is."""
+    G = CTA_CHUNKS
+    # thread block 0: chunk 0 holds [0, 0, 1], chunk 1 [1]; thread block 1:
+    # its first chunk [1, 1]; thread block 2 is empty
+    n_chunks = 3 * G
+    start = [0, 3] + [4] * (G - 1) + [6] * G + [6] * G
+    t = _block_tables([0, 0, 1, 1, 1, 1], start, n_chunks)
+    st = chunk_staging(t)
+    np.testing.assert_array_equal(st['blocks'], [4, 2, 0])
+    np.testing.assert_array_equal(st['slots'], [2, 1, 0])
+    np.testing.assert_array_equal(st['staged'], [True, True, True])
+    # descriptors of 2 slots do not fit: 4 + 2 NT + 19 TF words a slot
+    tf = (STAGE_WORDS // 2 - 4 - 2) // 19 + 1
+    st = chunk_staging(_block_tables([0, 0, 1, 1, 1, 1], start, n_chunks,
+                                     TF=tf))
+    np.testing.assert_array_equal(st['staged'], [False, True, True])
+    # a block list past STAGE_BLOCKS, one schedule per row of chunk_start
+    n = STAGE_BLOCKS + 1
+    st = chunk_staging(_block_tables(
+        [5] * n + [6, 7], [[0] + [n] * (2 * G), [n] * (G + 1) + [n + 2] * G],
+        2 * G))
+    np.testing.assert_array_equal(st['blocks'], [[n, 0], [0, 2]])
+    np.testing.assert_array_equal(st['slots'], [[1, 0], [0, 2]])
+    np.testing.assert_array_equal(st['staged'], [[False, True],
+                                                 [True, True]])
 
 
 def test_tables_are_cached_per_device():

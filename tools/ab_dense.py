@@ -57,19 +57,19 @@ MIN_DENSE_BLOCKS = 1024   # csrc/synth_common.cuh: from here K1 runs
                           # DENSE_N (8) samples a thread
 
 
-def other_library(tree):
-    """K1's and K3's sources of checkout ``tree`` built into one library
-    under ``build/`` (one nvcc per source, at once) and loaded with this
-    checkout's argument types -> (library, its largest tile, ptxas entries
-    of its kernels)."""
+def build_other(tree, srcs, fns, stem):
+    """Sources ``srcs`` of checkout ``tree``'s ``waveforms_tpu_torch/csrc``
+    built into one library under ``build/`` (one nvcc per source, at once),
+    its C functions ``fns`` given this checkout's argument types -> (library,
+    ptxas entries of its kernels).  The library is named by ``stem`` and a
+    hash of the tree's sources, and reused when it exists."""
     import ctypes
 
     from waveforms_tpu_torch import kernels
     csrc = Path(tree) / 'waveforms_tpu_torch' / 'csrc'
-    srcs = ('synth_dense.cu', 'synth_dense_hi.cu')
     tag = hashlib.sha256(b''.join(
         p.read_bytes() for p in sorted(csrc.iterdir()))).hexdigest()[:12]
-    out = kernels.BUILD_DIR / f'libwfdense_other_{tag}.so'
+    out = kernels.BUILD_DIR / f'{stem}_{tag}.so'
     lines = []
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -87,30 +87,43 @@ def other_library(tree):
                         '-o', str(out), *objs], check=True)
     lib = ctypes.CDLL(str(out))
     mine = kernels.load_library()
-    for fn in ('wf_synth_dense', 'wf_synth_dense_hi'):
+    for fn in fns:
         getattr(lib, fn).argtypes = getattr(mine, fn).argtypes
         getattr(lib, fn).restype = ctypes.c_int
-    m = re.search(r'^DENSE_TILE = (\d+)', (
-        Path(tree) / 'waveforms_tpu_torch' / 'kernels' / '__init__.py')
-        .read_text(), re.M)
-    return lib, int(m.group(1)), chip_smoke.ptxas_entries(
+    return lib, chip_smoke.ptxas_entries(
         [ln.strip() for ln in '\n'.join(lines).splitlines()])
 
 
-def wide(low):
-    """``low`` with its channels repeated until K1's grid has at least
-    MIN_DENSE_BLOCKS tiles."""
-    import numpy as np
+def other_library(tree):
+    """K1's and K3's sources of checkout ``tree`` built into one library
+    and loaded with this checkout's argument types -> (library, its largest
+    tile, ptxas entries of its kernels)."""
+    lib, entries = build_other(tree, ('synth_dense.cu', 'synth_dense_hi.cu'),
+                               ('wf_synth_dense', 'wf_synth_dense_hi'),
+                               'libwfdense_other')
+    m = re.search(r'^DENSE_TILE = (\d+)', (
+        Path(tree) / 'waveforms_tpu_torch' / 'kernels' / '__init__.py')
+        .read_text(), re.M)
+    return lib, int(m.group(1)), entries
 
-    from waveforms_tpu_torch import kernels
-    C = low.shape[0]
-    tiles = -(-low.n_samples // kernels.dense_tile(low)) * C
-    reps = -(-MIN_DENSE_BLOCKS // tiles)
+
+def repeat_channels(low, reps):
+    """Lowering ``low`` with its channels repeated ``reps`` times."""
+    import numpy as np
     return dataclasses.replace(low, **{
         f.name: np.concatenate([v] * reps)
         for f in dataclasses.fields(low)
         if f.name != 'ext' and isinstance(v := getattr(low, f.name),
                                           np.ndarray)})
+
+
+def wide(low):
+    """``low`` with its channels repeated until K1's grid has at least
+    MIN_DENSE_BLOCKS tiles."""
+    from waveforms_tpu_torch import kernels
+    C = low.shape[0]
+    tiles = -(-low.n_samples // kernels.dense_tile(low)) * C
+    return repeat_channels(low, -(-MIN_DENSE_BLOCKS // tiles))
 
 
 def masked_cmin():
@@ -128,12 +141,61 @@ def masked_cmin():
 
 
 def sha(ts):
+    """sha256 (16 hex digits) of the outputs' bytes, copied to the host a
+    piece at a time."""
     import torch
     h = hashlib.sha256()
     for t in ts:
         t = torch.view_as_real(t) if t.is_complex() else t
-        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        for part in t.contiguous().view(torch.uint8).reshape(-1).split(1 << 28):
+            h.update(part.cpu().numpy())
     return h.hexdigest()[:16]
+
+
+def differences(outs, trees):
+    """Bit-for-bit comparison of this build's outputs ``outs['this']`` with
+    each tree's -> (identical, {tree: the largest absolute difference, the
+    number of samples that differ, the largest one relative to the
+    channel's peak (floats only)} for each tree that differs).  Outputs of
+    more than two dimensions are compared one leading index at a time."""
+    import torch
+
+    def pieces(a, b):
+        return zip(a, b) if a.dim() > 2 else [(a, b)]
+
+    diff = {}
+    for tree in trees:
+        if all(torch.equal(a, b) for a, b in zip(outs['this'], outs[tree])):
+            continue
+        d = {'max_abs': 0.0, 'n': 0, 'max_rel': None}
+        for a0, b0 in zip(outs['this'], outs[tree]):
+            for a, b in pieces(a0, b0):
+                wa, wb = ((x.to(torch.complex128) if x.is_complex()
+                           else x.double()) for x in (a, b))
+                e = (wa - wb).abs()
+                d['max_abs'] = max(d['max_abs'], float(e.max()))
+                d['n'] += int((e > 0).sum())
+                if a.is_floating_point() or a.is_complex():
+                    d['max_rel'] = max(d['max_rel'] or 0.0,
+                                       chip_smoke.rel_err_t(a, b))
+                del wa, wb, e
+        diff[tree] = d
+    return not diff, diff
+
+
+def in_turns(fns, trees, run):
+    """Time ``run(fns[key])`` (a call to time) for each build in turns: the
+    others, this, this, the others backwards, AB_ROUNDS rounds -> each
+    side's median time, its interquartile range and every run (ms)."""
+    import numpy as np
+    order = (list(trees) + ['this', 'this'] + list(trees)[::-1]) * AB_ROUNDS
+    runs = {}
+    for key in order:
+        runs.setdefault(key, []).append(chip_smoke.cuda_ms(run(fns[key])))
+    return {'ms': {k: float(np.median(v)) for k, v in runs.items()},
+            'iqr': {k: float(np.subtract(*np.percentile(v, [75, 25])))
+                    for k, v in runs.items()},
+            'runs': runs}
 
 
 def run_ab(trees):
@@ -178,27 +240,14 @@ def run_ab(trees):
                 res += [out] + ([lo] if split else [])
             torch.cuda.synchronize()
             outs[key] = res
+        same, diff = differences(outs, trees)
         rec = {'cell': name, 'launches': len(calls),
                'tiles': max(-(-d.n_samples // kernels.dense_tile(d))
                             * d.shape[0] for d, *_ in calls),
-               'sha': {k: sha(v) for k, v in outs.items()}, 'identical': True}
-        for tree in trees:
-            if all(torch.equal(a, b)
-                   for a, b in zip(outs['this'], outs[tree])):
-                continue
-            rec['identical'] = False
-            wide_t = [(a.to(torch.complex128) if a.is_complex()
-                       else a.double(),
-                       b.to(torch.complex128) if b.is_complex()
-                       else b.double())
-                      for a, b in zip(outs['this'], outs[tree])]
-            diffs = [(a - b).abs() for a, b in wide_t]
-            rec.setdefault('diff', {})[tree] = {
-                'max_abs': max(float(d.max()) for d in diffs),
-                'n': int(sum(int((d > 0).sum()) for d in diffs)),
-                'max_rel': max((chip_smoke.rel_err_t(a, b) for a, b in
-                                zip(outs['this'], outs[tree])
-                                if a.dtype != torch.int16), default=None)}
+               'sha': {k: sha(v) for k, v in outs.items()},
+               'identical': same}
+        if diff:
+            rec['diff'] = diff
         if timed:
             bufs = outs['this']
 
@@ -207,16 +256,7 @@ def run_ab(trees):
                     for (dev, _, scale, _), out in zip(calls, bufs):
                         fn(dev, out, scale, None)
                 return go
-            order = (list(trees) + ['this', 'this']
-                     + list(trees)[::-1]) * AB_ROUNDS
-            runs = {}
-            for key in order:
-                runs.setdefault(key, []).append(
-                    chip_smoke.cuda_ms(run(fns[key])))
-            rec['ms'] = {k: float(np.median(v)) for k, v in runs.items()}
-            rec['iqr'] = {k: float(np.subtract(*np.percentile(v, [75, 25])))
-                          for k, v in runs.items()}
-            rec['runs'] = runs
+            rec.update(in_turns(fns, trees, run))
         del outs
         torch.cuda.empty_cache()
         log(rec)

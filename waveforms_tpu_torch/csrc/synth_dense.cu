@@ -25,7 +25,8 @@
 // pass, holds their accumulators in registers, and walks the pass's
 // segments, their terms and their factors in an outer loop, reading each
 // descriptor word once per factor for all its samples.  Inside, one switch
-// per factor picks the opcode and evaluates it over the DENSE_N samples:
+// per factor (factor_span, synth_span.cuh, shared with K5 and K6) picks the
+// opcode and evaluates it over the DENSE_N samples:
 // DENSE_N independent chains of transcendental math that overlap, where
 // the per-sample walker (walk_sample, kept for K2, K7 and P1) re-read the
 // whole dependent descriptor chain (segment -> terms -> factors -> opcode
@@ -50,7 +51,7 @@
 // the card (a short table's schedule, a few hundred thousand samples) is
 // bound by its slowest block's chain instead: it runs with 4 samples per
 // thread on smaller tiles (launch_dense).
-#include "synth_common.cuh"
+#include "synth_span.cuh"
 
 namespace wfsynth {
 
@@ -67,50 +68,6 @@ constexpr int DENSE_TILE = DENSE_N * DENSE_THREADS * DENSE_SUBS;
 // warp-wide range lookups and stores want whole warps
 static_assert(DENSE_N <= 32 && DENSE_N_SMALL <= 32, "mask is 32 bits");
 static_assert(DENSE_THREADS % 32 == 0, "whole warps");
-
-// One opcode over N consecutive samples: v[j] = op(di0 + j), di wrapping as
-// int32 (the sample walker's idx - shift)
-template <int OP, int N>
-__device__ __forceinline__ void op_span(float* v, int di0, const float* a,
-                                        const int* q, const float* ext) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    v[j] = op_value_inl(OP, wrap_add(di0, j), a, q, ext);
-}
-
-// One factor over N samples: a single switch on its opcode
-template <int N>
-__device__ __forceinline__ void factor_span(float* v, int op, int di0,
-                                            const float* a, const int* q,
-                                            const float* ext) {
-  switch (op) {
-    case OP_LINEAR:
-    case OP_INTERP: op_span<OP_LINEAR, N>(v, di0, a, q, ext); break;
-    case OP_GAUSSIAN: op_span<OP_GAUSSIAN, N>(v, di0, a, q, ext); break;
-    case OP_ERF: op_span<OP_ERF, N>(v, di0, a, q, ext); break;
-    case OP_COS: op_span<OP_COS, N>(v, di0, a, q, ext); break;
-    case OP_SINC: op_span<OP_SINC, N>(v, di0, a, q, ext); break;
-    case OP_EXP: op_span<OP_EXP, N>(v, di0, a, q, ext); break;
-    case OP_LINEARCHIRP: op_span<OP_LINEARCHIRP, N>(v, di0, a, q, ext); break;
-    case OP_EXPCHIRP: op_span<OP_EXPCHIRP, N>(v, di0, a, q, ext); break;
-    case OP_HYPCHIRP: op_span<OP_HYPCHIRP, N>(v, di0, a, q, ext); break;
-    case OP_COSH: op_span<OP_COSH, N>(v, di0, a, q, ext); break;
-    case OP_SINH: op_span<OP_SINH, N>(v, di0, a, q, ext); break;
-    case OP_DRAG: op_span<OP_DRAG, N>(v, di0, a, q, ext); break;
-    case OP_POLY_GAUSS: op_span<OP_POLY_GAUSS, N>(v, di0, a, q, ext); break;
-    case OP_MOLLIFIER: op_span<OP_MOLLIFIER, N>(v, di0, a, q, ext); break;
-    case OP_DRAG_SIN:
-    case OP_DRAG_SINX:
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        v[j] = drag_sin_like_ool(wrap_add(di0, j), a, q, ext,
-                                 op == OP_DRAG_SINX);
-      break;
-    default:
-#pragma unroll
-      for (int j = 0; j < N; ++j) v[j] = __int_as_float(0x7fc00000);
-  }
-}
 
 // The tile walker for samples [idx0, idx0 + N) of (channel c, bucket b) over
 // slots [s0, s1): acc[j] (and acc_im[j] in pair mode) is what walk_sample

@@ -12,49 +12,41 @@
 // Not carried over: the TPU added blocks into 128x128 output chunks through
 // a one-hot matrix product on its matrix unit (its answer to indexed
 // accumulation, which needed Precision.HIGHEST or a three-way bf16 split to
-// stay exact).  Here a direct add is exact and cheaper:
+// stay exact).  Here a direct add is exact and cheaper.
 //
-// Layout: one thread block of 128 threads per (channel, chunk of CHUNK_ROWS
-// 128-sample rows).  The host (ops/stack_synth.build_stack_tables) flattens
-// every group into one instance table padded to the widest term and factor
-// counts, and sorts the blocks by (channel, chunk) into CSR offsets, so one
-// launch covers the whole plan.  The thread block zeroes its CHUNK_ROWS x
-// 128 f32 tile in shared memory (32 KB), then walks its blocks in order:
-// thread `lane` evaluates sample `lane` of each block and adds it into its
-// own column.  Every tile sample has one owner thread, so there is no race,
-// no atomic, and the sum order is the table's -- deterministic.  Then the
-// tile is stored once, coalesced (16-byte f32 or 8-byte int16 vectors where
-// the row length allows), masked at the channel's end: every output sample
-// is written exactly once, so the zero fill is fused.  The multi-tone DRAG
-// opcodes read their coefficients from the schedule's ext buffer in global
+// Layout: one thread block of STACK_THREADS per CTA_CHUNKS consecutive
+// chunks (of CHUNK_ROWS 128-sample rows) of a channel.  The host
+// (ops/stack_synth.build_stack_tables) flattens every group into one
+// instance table padded to the widest term and factor counts, and sorts the
+// blocks by (channel, chunk) into CSR offsets, so one launch covers the
+// whole plan.  The thread block stages its block list and instance
+// descriptors in shared memory, and its warps walk whole rows in
+// registers, each row stored once, coalesced, with the zero fill fused
+// (stack_rows, synth_stack_common.cuh, shared with the sequenced twin K6).
+// Every output sample has one owner lane, which adds its row's blocks in
+// table order: no race, no atomic, deterministic.  The multi-tone DRAG
+// opcodes read their coefficients from the schedule's ext buffer in device
 // memory, so the TPU's one-ext-factor-per-instance limit does not apply.
-// The walk and the store are synth_stack_common.cuh's, shared with the
-// sequenced twin K6 (synth_stack_seq.cu).
 //
-// What bounds it on the H100: the output store.  The 120-pulse ladder
-// (128 ch x 1,048,576 samples) evaluates 69,228 blocks (8.9 M samples) but
-// stores 537 MB as f32; 16,384 thread blocks keep every SM storing.
+// What bounds it on the H100: the 120-pulse ladder (128 ch x 1,048,576
+// samples) stores 537 MB as f32 but also evaluates 69,228 blocks of 7.3
+// cosine factors each; the evaluation, not the store, sets its pace (its
+// int16 store takes the f32 time).
 #include "synth_stack_common.cuh"
 
 namespace wfsynth {
 
-__global__ void __launch_bounds__(LANES)
+__global__ void __launch_bounds__(STACK_THREADS, STACK_MIN_BLOCKS)
 synth_stack_kernel(StackDesc t, const int* __restrict__ chunk_start,
                    int n_chunks, long long n_samples, void* out, int out_kind,
                    const float* scale) {
-  __shared__ __align__(16) float acc[CHUNK_ROWS * LANES];
-  const int q = blockIdx.x;                 // (channel, chunk), channel-major
-  const int c = q / n_chunks;
-  const long long row0 = (long long)(q - c * n_chunks) * CHUNK_ROWS;
-
-  // zero and walk touch only this thread's column: no barrier between them
-  stack_walk(t, acc, chunk_start[q], chunk_start[q + 1], row0, threadIdx.x);
-  __syncthreads();
-
-  const long long s0 = row0 * LANES;
-  const long long count = min((long long)CHUNK_ROWS * LANES, n_samples - s0);
-  stack_store(acc, out, (long long)c * n_samples + s0, count, n_samples,
-              out_kind, out_kind == OUT_I16 ? scale[c] : 1.0f);
+  const int groups = chunk_groups(n_chunks);
+  const int c = blockIdx.x / groups;        // (channel, chunk group)
+  const int g = (blockIdx.x - c * groups) * CTA_CHUNKS;
+  const int* cs = chunk_start + (long long)c * n_chunks;
+  stack_rows(t, cs[g], cs[min(g + CTA_CHUNKS, n_chunks)],
+             (long long)g * CHUNK_ROWS, out, (long long)c * n_samples,
+             n_samples, out_kind, out_kind == OUT_I16 ? scale[c] : 1.0f);
 }
 
 }  // namespace wfsynth
@@ -69,10 +61,10 @@ int wf_synth_stack(const int* inst, const float* amp, const int* term_nfac,
                    const int* chunk_start, int NT, int TF, int C,
                    int n_chunks, long long n_samples, void* out, int out_kind,
                    const float* scale, void* stream) {
-  const long long blocks = (long long)C * n_chunks;
+  const long long blocks = (long long)C * wfsynth::chunk_groups(n_chunks);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   if (blocks > 0)
-    wfsynth::synth_stack_kernel<<<(unsigned)blocks, wfsynth::LANES, 0,
+    wfsynth::synth_stack_kernel<<<(unsigned)blocks, wfsynth::STACK_THREADS, 0,
                                   (cudaStream_t)stream>>>(
         wfsynth::StackDesc{inst, amp, term_nfac, op, power, shift_hi, q32,
                            args, ext, blk_inst, blk_row, NT, TF},

@@ -16,46 +16,47 @@
 // the block lists one after another, and per schedule one row of absolute
 // CSR offsets, chunk_start (K, C * n_chunks + 1).  The drag_sin ext offsets
 // were rewritten into the concatenated ext buffer on the host, so the walk
-// is K5's, unchanged (synth_stack_common.cuh).
+// is K5's, unchanged (stack_rows, synth_stack_common.cuh).
 //
-// Layout: one thread block of 128 threads per (shot, channel, chunk of
-// CHUNK_ROWS rows), shot-major.  The block reads ks[shot] itself from device
-// memory and clamps it -- the host never reads ks, so a shot vector that
-// came from a measurement on the card needs no host sync -- then walks that
-// schedule's blocks of its (channel, chunk) into a shared-memory tile and
-// stores the tile once, coalesced, into out[shot, c, ...]: every output
-// sample is written exactly once, so the zero fill is fused.
+// Layout: one thread block of STACK_THREADS per (shot, channel, CTA_CHUNKS
+// consecutive chunks of CHUNK_ROWS rows), shot-major.  The block reads
+// ks[shot] itself from device memory and clamps it -- the host never reads
+// ks, so a shot vector that came from a measurement on the card needs no
+// host sync -- then stages that schedule's blocks of its chunks and their
+// descriptors in shared memory and walks the rows in registers, each row
+// stored once, coalesced, into out[shot, c, ...]: every output sample is
+// written exactly once, so the zero fill is fused.
 //
-// What bounds it on the H100: the (n_shots, C, N) store, as for K5 -- and K6
-// inherits K5's latency-bound walk (each thread follows its chunk's blocks
-// through a chain of dependent descriptor loads).  Making either fast is
-// later work; this kernel is the simple, right version.
+// What bounds it on the H100: as for K5, evaluating each shot's blocks, not
+// the (n_shots, C, N) store; a shot vector that plays one schedule many
+// times evaluates it each time.
 #include "synth_stack_common.cuh"
 
 namespace wfsynth {
 
-__global__ void __launch_bounds__(LANES)
+// K5's layout, but its shot index and per-shot offsets take a few more
+// registers: at K5's STACK_MIN_BLOCKS (96 registers) ptxas spills 8 bytes
+constexpr int SEQ_MIN_BLOCKS = STACK_MIN_BLOCKS - 1;
+
+__global__ void __launch_bounds__(STACK_THREADS, SEQ_MIN_BLOCKS)
 synth_stack_seq_kernel(StackDesc t, const int* __restrict__ chunk_start,
                        const int* __restrict__ ks, int K, int C, int n_chunks,
                        long long n_samples, void* out, int out_kind,
                        const float* scale) {
-  __shared__ __align__(16) float acc[CHUNK_ROWS * LANES];
-  const long long blk = blockIdx.x;         // (shot, channel, chunk)
-  const int q = (int)(blk % ((long long)C * n_chunks));   // (channel, chunk)
-  const long long shot = blk / ((long long)C * n_chunks);
-  const int c = q / n_chunks;
-  const long long row0 = (long long)(q - c * n_chunks) * CHUNK_ROWS;
+  const int groups = chunk_groups(n_chunks);
+  const long long blk = blockIdx.x;         // (shot, channel, chunk group)
+  const long long shot = blk / ((long long)C * groups);
+  const int q = (int)(blk - shot * C * groups);
+  const int c = q / groups;
+  const int g = (q - c * groups) * CTA_CHUNKS;
   int sched = ks[shot];
   sched = sched < 0 ? 0 : (sched >= K ? K - 1 : sched);
-  const int* cs = chunk_start + (long long)sched * ((long long)C * n_chunks + 1);
-
-  stack_walk(t, acc, cs[q], cs[q + 1], row0, threadIdx.x);
-  __syncthreads();
-
-  const long long s0 = row0 * LANES;
-  const long long count = min((long long)CHUNK_ROWS * LANES, n_samples - s0);
-  stack_store(acc, out, (shot * C + c) * n_samples + s0, count, n_samples,
-              out_kind, out_kind == OUT_I16 ? scale[c] : 1.0f);
+  const int* cs = chunk_start +
+                  (long long)sched * ((long long)C * n_chunks + 1) +
+                  (long long)c * n_chunks;
+  stack_rows(t, cs[g], cs[min(g + CTA_CHUNKS, n_chunks)],
+             (long long)g * CHUNK_ROWS, out, (shot * C + c) * n_samples,
+             n_samples, out_kind, out_kind == OUT_I16 ? scale[c] : 1.0f);
 }
 
 }  // namespace wfsynth
@@ -72,10 +73,12 @@ int wf_synth_stack_seq(const int* inst, const float* amp, const int* term_nfac,
                        int K, int C, int n_chunks, long long n_samples,
                        int n_shots, void* out, int out_kind,
                        const float* scale, void* stream) {
-  const long long blocks = (long long)n_shots * C * n_chunks;
+  const long long blocks =
+      (long long)n_shots * C * wfsynth::chunk_groups(n_chunks);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   if (blocks > 0)
-    wfsynth::synth_stack_seq_kernel<<<(unsigned)blocks, wfsynth::LANES, 0,
+    wfsynth::synth_stack_seq_kernel<<<(unsigned)blocks,
+                                      wfsynth::STACK_THREADS, 0,
                                       (cudaStream_t)stream>>>(
         wfsynth::StackDesc{inst, amp, term_nfac, op, power, shift_hi, q32,
                            args, ext, blk_inst, blk_row, NT, TF},

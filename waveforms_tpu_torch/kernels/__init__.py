@@ -52,6 +52,7 @@ __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
            'probe_health', 'probe_grid', 'probe_walker',
            'probe_sparse_compact', 'launch_dense', 'launch_dense_hi',
+           'launch_stack', 'launch_stack_seq',
            'dense_tile', 'load_library', 'library_path',
            'reset_launch_counts', 'launch_counts', 'KERNELS']
 
@@ -60,7 +61,7 @@ CSRC = _PKG / 'csrc'
 SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
            'synth_stack.cu', 'synth_stack_seq.cu', 'synth_dense_hi.cu',
            'synth_panel_hi.cu', 'probes.cu')
-HEADERS = ('synth_common.cuh', 'synth_stack_common.cuh',
+HEADERS = ('synth_common.cuh', 'synth_span.cuh', 'synth_stack_common.cuh',
            'synth_hi_common.cuh')
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
@@ -357,11 +358,15 @@ def _stack_checked(t, out, scale, shape, **extra):
     return kind, tables
 
 
-def _launch_stack(t, out, scale):
+def launch_stack(t, out, scale=None, lib=None):
+    """Launch K5 on CUDA tensors, uncounted (:data:`synth_stack` counts).
+    ``lib`` (default: this build) may be another build of
+    ``csrc/synth_stack.cu`` with the same C interface: an A/B of two
+    builds."""
     if t.chunk_start.dim() != 1:
         raise ValueError("stacked tables (a 2-D chunk_start) are K6's")
     kind, tables = _stack_checked(t, out, scale, (t.n_channels, t.n_samples))
-    lib = load_library()
+    lib = lib or load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_stack(
             *(v.data_ptr() for v in tables.values()), t.NT, t.TF,
@@ -370,7 +375,10 @@ def _launch_stack(t, out, scale):
     _raise_on(code, 'synth_stack')
 
 
-def _launch_stack_seq(t, ks, out, scale):
+def launch_stack_seq(t, ks, out, scale=None, lib=None):
+    """Launch K6 on CUDA tensors, uncounted (:data:`synth_stack_seq`
+    counts); ``lib`` as :func:`launch_stack`'s, for another build of
+    ``csrc/synth_stack_seq.cu``."""
     K = t.chunk_start.shape[0]
     if tuple(t.chunk_start.shape) != (K, t.n_channels * t.n_chunks + 1):
         raise ValueError("chunk_start must be (K, C * n_chunks + 1)")
@@ -379,7 +387,7 @@ def _launch_stack_seq(t, ks, out, scale):
     n_shots = ks.shape[0]
     kind, tables = _stack_checked(t, out, scale,
                                   (n_shots, t.n_channels, t.n_samples), ks=ks)
-    lib = load_library()
+    lib = lib or load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_stack_seq(
             *(v.data_ptr() for v in tables.values()), ks.data_ptr(), t.NT,
@@ -573,14 +581,14 @@ synth_sparse = _Kernel(
 synth_stack = _Kernel(
     'synth_stack', 'waveforms_tpu_torch/csrc/synth_stack.cu',
     'waveforms_tpu/ops/stack_synth.py:1145', reference.stack_eval,
-    _launch_stack)
+    launch_stack)
 
 #: K6: ``synth_stack_seq(tables, ks, out, scale)`` fills out (n_shots, C,
 #: n_samples) from stacked StackTables, shot s from schedule clamp(ks[s])
 synth_stack_seq = _Kernel(
     'synth_stack_seq', 'waveforms_tpu_torch/csrc/synth_stack_seq.cu',
     'waveforms_tpu/ops/stack_seq.py:488', reference.stack_seq_eval,
-    _launch_stack_seq)
+    launch_stack_seq)
 
 #: K3: ``synth_dense_hi(hidev, out, lo)`` fills out (C, n_samples), f64
 #: (``lo`` None) or the f32 hi plane with ``lo`` the lo plane

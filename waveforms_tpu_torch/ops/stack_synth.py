@@ -21,8 +21,8 @@ adds the residual.
 
 The TPU kernel's table layouts, its one-hot scatter matmul and the
 scalar/vector memory caps that shaped them are not carried over: on the
-GPU one thread block owns one (channel, 8192-sample chunk) of the output
-and adds each block's samples directly (see the kernel's source).
+GPU one thread block owns CTA_CHUNKS chunks (32,768 samples) of a channel
+and adds each block's samples directly (see the kernels' source).
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from .synth import (DeviceSchedule, resolve_device, synthesize_device,
 __all__ = ['GroupData', 'StackPlan', 'StackTables', 'build_stack_plan',
            'build_stack_tables', 'synthesize_stack', 'DEFAULT_MAX_WIDTH',
            'DEFAULT_ADVANTAGE', 'STACK_MIN_NARROW', 'STACK_OCC_FLOOR',
-           'CHUNK_ROWS']
+           'CHUNK_ROWS', 'CTA_CHUNKS', 'STAGE_BLOCKS', 'STAGE_WORDS',
+           'chunk_staging']
 
 # instances at most this many samples wide run batched; wider ones go to
 # the dense kernel as the residual (the JAX package's value)
@@ -60,10 +61,19 @@ STACK_MIN_NARROW = 64
 # occupancy ladder; unmeasured on the H100)
 STACK_OCC_FLOOR = 0.15
 
-# 128-sample rows per output chunk of the stack kernel: one thread block
-# accumulates one (channel, chunk) tile of CHUNK_ROWS x 128 f32 in shared
-# memory (32 KB)
+# 128-sample rows per chunk of the stack kernels' block lists (the CSR
+# offsets chunk_start of StackTables)
 CHUNK_ROWS = 64
+
+# the stack kernels' layout (csrc/synth_stack_common.cuh): one thread block
+# fills CTA_CHUNKS consecutive chunks of one channel, its warps holding
+# whole rows in registers, and stages the chunks' block list, up to
+# STAGE_BLOCKS blocks, and their instances' descriptors, up to STAGE_WORDS
+# 4-byte words, in shared memory; a thread block past either reads them
+# from device memory in place
+CTA_CHUNKS = 4
+STAGE_BLOCKS = 256
+STAGE_WORDS = 8192
 
 
 @dataclass
@@ -415,6 +425,32 @@ def build_stack_tables(plan: StackPlan, low: LoweredSchedule,
         chunk_start=put(np.cumsum(start), np.int32))
     plan.tables[str(device)] = tables
     return tables
+
+
+def chunk_staging(t: StackTables) -> dict:
+    """How the stack kernels stage tables ``t``: numpy arrays with one
+    entry per thread block -- CTA_CHUNKS consecutive chunks of one channel,
+    channel-major (per schedule of stacked tables, one row each) -- of its
+    ``blocks``, its ``slots`` (runs of consecutive blocks of one instance,
+    each staged once) and whether it is ``staged``: its block list and
+    descriptors fit STAGE_BLOCKS and STAGE_WORDS, else it walks them in
+    place."""
+    cs = t.chunk_start.cpu().numpy().astype(np.int64)
+    n = t.n_chunks
+    first = (np.arange(t.n_channels)[:, None] * n
+             + np.arange(0, n, CTA_CHUNKS)[None, :])
+    last = np.minimum(first + CTA_CHUNKS, (first // n + 1) * n)
+    k0, k1 = cs[..., first.ravel()], cs[..., last.ravel()]
+    bi = t.blk_inst.cpu().numpy()
+    opens = np.ones(len(bi), np.int64)
+    opens[1:] = bi[1:] != bi[:-1]
+    opens[k0[k1 > k0]] = 1          # a thread block's first block opens a slot
+    runs = np.concatenate([[0], np.cumsum(opens)])
+    blocks, slots = k1 - k0, runs[k1] - runs[k0]
+    words = 4 + 2 * t.NT + (3 + 4 + W_ARGS) * t.TF
+    fit = min(STAGE_BLOCKS, STAGE_WORDS // words)
+    return {'blocks': blocks, 'slots': slots,
+            'staged': (blocks <= STAGE_BLOCKS) & (slots <= fit)}
 
 
 def synthesize_stack(low: LoweredSchedule, plan: StackPlan | None = None,
