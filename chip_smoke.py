@@ -87,11 +87,13 @@ Each phase prints one compact JSON line (``--record PATH`` writes every
 record in full to one JSON file).  The line before the last is the kernel
 summary: each kernel's ``launches`` on the user paths (for the probe
 kernels, on the ``probes`` path) and, apart, its ``probe_launches`` on the
-``probes`` path, whose counts are timing loops.  The last line is
-``{"ok": true, "device": {...}}`` and is printed only when every phase
-passed; a spill in the tile walkers (K1, K3) or the row walkers (K5, K6)
-fails the run.  The summary also gives each kernel's registers and shared
-memory per thread block from ptxas.  Exits
+``probes`` path, whose counts are timing loops, and ``launch_floor_ms``:
+one empty launch (``torch.cuda._sleep(0)``) under the same timer, also in
+K7's, P1's and P4's rows, the least time a kernel can show there.  The
+last line is ``{"ok": true, "device": {...}}`` and is printed only when
+every phase passed; a spill in the tile walkers (K1, K3, K7, P1) or the
+row walkers (K5, K6) fails the run.  The summary also gives each
+kernel's registers and shared memory per thread block from ptxas.  Exits
 non-zero without a result when no CUDA device is visible or the port is
 not importable.
 """
@@ -1822,6 +1824,22 @@ def check_probes(fail):
     log(rec, brief_checks(rec))
 
 
+# the kernels held to no spill: the tile walkers K1, K3, K7 and P1 and the
+# row walkers K5 and K6 (their ptxas entry functions contain these names)
+WALKERS = ('synth_dense', 'synth_stack', 'synth_sparse',
+           'probe_sparse_compact')
+# the kernels whose summary rows carry the one-launch floor: the short ones
+FLOOR_ROWS = ('synth_sparse', 'probe_sparse_compact', 'probe_health')
+
+
+def launch_floor_ms():
+    """The time one empty kernel launch takes under the kernels' timer:
+    ``torch.cuda._sleep(0)`` timed by ``cuda_ms`` (CUDA events behind the
+    queued sleep), the least time any kernel can show there."""
+    import torch
+    return cuda_ms(lambda: torch.cuda._sleep(0))
+
+
 # the probe variant whose time stands in the kernel summary (the others
 # are in the probes' own lines)
 SUMMARY_GRID, SUMMARY_WALKER = 'op13_dyn', 'base'
@@ -2053,12 +2071,12 @@ def main():
     spills = [ln for ln in ptxas if re.search(r'[1-9][0-9]* bytes spill', ln)]
     rec['entries'] = ptxas_entries(ptxas)
     walkers = {k: v for k, v in rec['entries'].items()
-               if 'synth_dense' in k or 'synth_stack' in k}
+               if any(w in k for w in WALKERS)}
     log(rec, {k: rec[k] for k in ('phase', 'ok', 'seconds', 'library')}
         | {'ptxas_lines': len(ptxas), 'spilling': spills,
            'walker_kernels': walkers})
-    # the tile walkers (K1, K3) and the row walkers (K5, K6) are held to no
-    # spill
+    # the tile walkers (K1, K3, K7, P1) and the row walkers (K5, K6) are
+    # held to no spill
     fail += [f"{k} spills {v[1]} bytes" for k, v in walkers.items() if v[1]]
 
     # P4, the health probe, before every other phase (as the TPU capture
@@ -2115,8 +2133,12 @@ def main():
         if None in (entry['ms'], entry['plain_ms'], entry['bound_ms'],
                     entry['max_abs_err']):
             fail.append(f"{name}: a summary number was not measured")
+    floor = launch_floor_ms()
+    for name in FLOOR_ROWS:
+        summary[name]['launch_floor_ms'] = floor
     summary = list(summary.values())
-    RECORDS.append({'phase': 'kernels', 'kernels': summary})
+    RECORDS.append({'phase': 'kernels', 'kernels': summary,
+                    'launch_floor_ms': floor})
     write_record(args.record)
     if fail:
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
@@ -2125,8 +2147,9 @@ def main():
             'probe_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'registers', 'smem_bytes')
     print(smi, flush=True)
-    print(json.dumps({'kernels': [{k: e[k] for k in keys}
-                                  for e in summary]}), flush=True)
+    print(json.dumps({'kernels': [
+        {k: e[k] for k in keys + ('launch_floor_ms',) if k in e}
+        for e in summary], 'launch_floor_ms': floor}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -17,6 +17,9 @@ kernels P2, P3 and P4 (f32 add chains) are held to their plain versions
 bit for bit, P1's compact worklist kernel within 1e-6 of each channel's
 peak.  K1 and K3 on a grid wide enough for K1's 8-samples-a-thread layout
 are held to their small-grid launches of the same channels bit for bit.
+K7 and P1, which walk with K1's tile walker, are held to K1 and to each
+other bit for bit on every live subtile, at subtile heights of 1, 3, 8 and
+32 rows and on a worklist of more items than a grid's y axis holds.
 """
 
 import dataclasses
@@ -32,7 +35,8 @@ from waveforms_tpu_torch.ops.hi_synth import (HiSchedule, synthesize_hi,
 from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
                                               lower_schedule)
 from waveforms_tpu_torch.ops.reference_probes import WALKER_BODIES
-from waveforms_tpu_torch.ops.sparse_synth import (build_panel_plan,
+from waveforms_tpu_torch.ops.sparse_synth import (SparseWork,
+                                                  build_panel_plan,
                                                   build_sparse_plan,
                                                   synthesize_panels,
                                                   synthesize_sparse)
@@ -890,3 +894,101 @@ def test_stack_seq_kernel_1000_shots(card):
     assert torch.equal(got, k5[np.clip(ks, 0, 15)])
     plain = StackSequencer(lows, device='cpu').play_packed(ks[:64])
     assert rel(got[:64].cpu().reshape(-1, n), plain.reshape(-1, n)) <= TOL
+
+
+def _live_subtiles(plan):
+    """(channel, first sample, samples) of each live item of a sparse plan
+    inside its window."""
+    tile = plan.Rs * 128
+    return [(int(c), int(o) * tile,
+             min(tile, plan.window_samples - int(o) * tile))
+            for c, o in zip(plan.work_c[:plan.n_live],
+                            plan.work_o[:plan.n_live])]
+
+
+@pytest.mark.parametrize('case', list(_cases()))
+def test_sparse_kernel_equals_dense_kernel_on_live_subtiles(card, case):
+    """K7 and K1 (``engine='cuda-dense'``) walk each sample with the same
+    tile walker (walk_tile), so every live subtile of K7's output equals
+    K1's samples there bit for bit, and K7 stores nothing else."""
+    low = _lowered(case)
+    plan = build_sparse_plan(low)
+    got = synthesize_sparse(DeviceSchedule(low, card), plan=plan)
+    dense = synthesize_device(DeviceSchedule(low, card))
+    live = torch.zeros(got.shape, dtype=torch.bool, device=card)
+    for c, s, n in _live_subtiles(plan):
+        assert torch.equal(got[c, s:s + n], dense[c, s:s + n]), (c, s)
+        live[c, s:s + n] = True
+    assert (got[~live] == 0).all()
+
+
+def _ragged(case, Rs):
+    """A case lowered one sample short (3999 or 15,999 samples: not a
+    multiple of 128), in buckets of 4 subtiles of Rs rows."""
+    chans, start, stop, fs, _ = _cases()[case]
+    return lower_schedule(chans, start, stop - 1 / fs, fs,
+                          bucket_samples=Rs * 128 * 4)
+
+
+@pytest.mark.parametrize('Rs', [1, 3, 8, 32])
+@pytest.mark.parametrize('case', ['shapes', 'chirps'])
+def test_sparse_kernel_subtile_heights(card, case, Rs):
+    """K7 at Rs 1, 3, 8 and 32 (passes of 1024 samples: part of one at Rs 1
+    and 3, one at 8, four at 32) within TOL of its plain version, its int16
+    codes the quantized f32 output, and P1 on the same worklist equal to K7
+    on every live subtile bit for bit."""
+    low = _ragged(case, Rs)
+    plan = build_sparse_plan(low, Rs=Rs)
+    assert low.n_samples % (Rs * 128)
+    got = synthesize_sparse(DeviceSchedule(low, card), plan=plan)
+    plain = synthesize_sparse(DeviceSchedule(low, 'cpu'), plan=plan)
+    assert rel(got.cpu(), plain) <= TOL
+    codes = synthesize_sparse(DeviceSchedule(low, card), plan=plan,
+                              out_dtype=torch.int16, dac_scale=30000.0)
+    expected = torch.clamp(torch.round(got * 30000.0), -32768, 32767)
+    assert torch.equal(codes, expected.to(torch.int16))
+    dev = DeviceSchedule(low, card)
+    work = SparseWork.upload(plan, card)
+    compact = kernels.probe_sparse_compact(
+        dev, work, torch.full((len(plan.work_c), Rs, 128), 7.0,
+                              device=card)).reshape(len(plan.work_c), -1)
+    for k, (c, s, n) in enumerate(_live_subtiles(plan)):
+        assert torch.equal(compact[k, :n], got[c, s:s + n]), (k, c, s)
+    assert (compact[plan.n_live:] == 0).all()
+
+
+def test_sparse_kernel_more_items_than_a_grid_axis(card):
+    """An occupancy-1 schedule at Rs 1: 131,072 live items, more than the
+    65,535 blocks of a grid's y axis.  K7 equals K1 bit for bit and its
+    plain version within TOL."""
+    low = lower_schedule(build_dense_schedule(128, 65.536e-6), 0.0,
+                         65.536e-6, 2e9)
+    plan = build_sparse_plan(low, Rs=1)
+    assert plan.n_live == 131072
+    dev = DeviceSchedule(low, card)
+    got = synthesize_sparse(dev, plan=plan)
+    assert torch.equal(got, synthesize_device(dev))
+    plain = kernels.synth_sparse.plain(
+        dev, SparseWork.upload(plan, card), torch.zeros_like(got), None)
+    assert rel(got.cpu(), plain.cpu()) <= TOL
+
+
+@pytest.mark.parametrize('padded', [False, True])
+def test_probe_sparse_compact_equals_the_sparse_kernel(card, padded):
+    """P1 runs K7's item walker: block k of its compact output equals K7's
+    subtile of item k bit for bit, padding items store zeros, and a K7
+    launch on the padded worklist equals the unpadded one."""
+    inp = probes.sparse_inputs(8, 32.768e-6, card)
+    dev, plan = inp['dev'], inp['plan']
+    work = inp['padded'] if padded else inp['work']
+    n = work.work_c.shape[0]
+    window = plan.window_samples
+    k7 = kernels.synth_sparse(dev, work, torch.zeros((8, window),
+                                                     device=card), None)
+    assert torch.equal(k7, kernels.synth_sparse(
+        dev, inp['work'], torch.zeros_like(k7), None))
+    got = kernels.probe_sparse_compact(
+        dev, work, torch.full((n, 32, 128), 7.0, device=card)).reshape(n, -1)
+    for k, (c, s, m) in enumerate(_live_subtiles(plan)):
+        assert torch.equal(got[k, :m], k7[c, s:s + m]), (k, c, s)
+    assert (got[plan.n_live:] == 0).all()

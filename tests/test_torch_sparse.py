@@ -8,7 +8,9 @@ worklist path on ``device='cpu'``, the plain version of
 ``csrc/synth_sparse.cu`` (``ops.reference.sparse_walk``): a zeroed output,
 and every live subtile of the worklist evaluated over its own segment range
 and stored once.  f32, int16 and pair mode, with one bucket and with
-several.  Tolerances as in test_torch_synth (1e-6 of each channel's peak
+several, and at subtile heights of Rs 1, 8 and 32 rows on windows that
+are not a multiple of the subtile, both plans built by each package's own
+``build_sparse_plan(low, Rs=...)``.  Tolerances as in test_torch_synth (1e-6 of each channel's peak
 against the JAX kernel, 2e-6 against the oracle); int16 codes within one
 code of JAX's.
 """
@@ -38,28 +40,40 @@ def cases():
                                            'chirps')}
     c['sparse_pulses'] = sparse_pulses()
     c['pulses_4_buckets'] = sparse_pulses()[:4] + (4096,)
+    # 15,999 samples: the last subtile is ragged at every Rs
+    c['ragged_pulses'] = sparse_pulses(stop=7.9995e-6)
     return c
 
 
-def both(case, out_dtype=None, dac_scale=32767.0):
-    """(port, JAX, lowering, plan) for one case."""
+# subtile heights: the default 32 keeps each case's own test id
+RS = (32, 8, 1)
+
+
+def rs_params(names):
+    return [pytest.param(n, rs, id=n if rs == 32 else f'{n}-Rs{rs}')
+            for n in names for rs in RS]
+
+
+def both(case, out_dtype=None, dac_scale=32767.0, Rs=32):
+    """(port, JAX, lowering, plan) for one case, both plans at ``Rs``."""
     chans, start, stop, fs, bs = cases()[case]
     low = lower_j(chans, start, stop, fs, bucket_samples=bs)
     low_t = lowered_from_jax(low)
-    plan = build_sparse_plan(low_t)
+    plan = build_sparse_plan(low_t, Rs=Rs)
     got = synthesize_sparse(DeviceSchedule(low_t, 'cpu'), plan=plan,
                             out_dtype=out_dtype, dac_scale=dac_scale).numpy()
     ref = np.asarray(sj.synthesize_sparse(
-        DeviceJ(low), plan=sj.build_sparse_plan(low), interpret=True,
+        DeviceJ(low), plan=sj.build_sparse_plan(low, Rs=Rs), interpret=True,
         out_dtype=jnp.int16 if out_dtype is not None else jnp.float32,
         dac_scale=dac_scale))
     return got, ref, low, plan
 
 
-@pytest.mark.parametrize('case', list(cases()))
-def test_sparse_walk_matches_jax_and_oracle(case):
+@pytest.mark.parametrize('case, Rs', rs_params(cases()))
+def test_sparse_walk_matches_jax_and_oracle(case, Rs):
     chans, start, stop, fs, bs = cases()[case]
-    got, ref, low, plan = both(case)
+    got, ref, low, plan = both(case, Rs=Rs)
+    assert plan.Rs == Rs
     assert got.dtype == np.float32 and got.shape == ref.shape
     assert rel(got, ref) <= TOL_JAX
     assert rel(got, oracle(chans, start, stop, fs)) <= ORACLE_TOL.get(
@@ -68,11 +82,13 @@ def test_sparse_walk_matches_jax_and_oracle(case):
         assert low.n_buckets > 1
 
 
-@pytest.mark.parametrize('case', ['sparse_pulses', 'pulses_4_buckets'])
-def test_sparse_int16_codes_match_jax(case):
+@pytest.mark.parametrize('case, Rs', rs_params(
+    ['sparse_pulses', 'pulses_4_buckets', 'ragged_pulses']))
+def test_sparse_int16_codes_match_jax(case, Rs):
     """int16 needs no single-bucket rule on the worklist kernel: buckets
     are whole subtiles, so each subtile's codes are stored once."""
-    got, ref, low, _ = both(case, out_dtype=np.int16, dac_scale=30000.0)
+    got, ref, low, _ = both(case, out_dtype=np.int16, dac_scale=30000.0,
+                            Rs=Rs)
     assert got.dtype == np.int16 and ref.dtype == np.int16
     assert np.abs(got.astype(int) - ref).max() <= 1
 

@@ -67,11 +67,12 @@ FILL_BLOCKS = 132 * 16    # thread blocks of a grid that fills the H100: 16
 _CTYPES = {'int': ctypes.c_int, 'long long': ctypes.c_longlong}
 
 
-def c_prototypes(tree):
-    """{C function: [(parameter type, name)]} of K5's and K6's sources in
-    checkout ``tree``."""
+def c_prototypes(tree, srcs=SRCS, fns=FNS):
+    """{C function: [(parameter type, name)]} of the C functions ``fns``
+    (default: K5's and K6's) in their sources ``srcs`` of checkout
+    ``tree``."""
     out = {}
-    for src, fn in zip(SRCS, FNS):
+    for src, fn in zip(srcs, fns):
         text = (Path(tree) / 'waveforms_tpu_torch' / 'csrc' / src).read_text()
         m = re.search(r'\bint ' + fn + r'\(([^)]*)\)', text)
         params = [' '.join(p.split()) for p in m.group(1).split(',')]

@@ -13,21 +13,24 @@
 // the card's output equals the plain versions (ops/reference_probes.py) bit
 // for bit; that equality is also the check that nvcc kept each construct.
 //
-// Layout: one thread block of PROBE_THREADS threads per grid step (worklist
-// item), as K7 (synth_sparse.cu); block i owns one Rs x 128 f32 output block
-// and its threads store consecutive samples, so stores coalesce.  Every
-// thread does the step's scalar reads itself, as walk_sample does in the
-// walkers, so the probes price what the port's walkers pay.  P2's table
-// pointers travel in a struct passed by value (the kernel-parameter bank,
-// the GPU's counterpart of the TPU's scalar-memory operands).
+// Layout: P2 and P3 run one thread block of PROBE_THREADS threads per grid
+// step; block i owns one Rs x 128 f32 output block and its threads store
+// consecutive samples, so stores coalesce.  Every thread does the step's
+// scalar reads itself, as walk_sample does in the panel walker K2, so the
+// probes price what that walker pays.  P1 runs K7's own body, the item
+// walker of synth_item.cuh (passes of 1024 samples a block, 8 a thread,
+// walk_tile), so it prices the step K7 ships.  P2's table pointers travel
+// in a struct passed by value (the kernel-parameter bank, the GPU's
+// counterpart of the TPU's scalar-memory operands).
 //
 // What bounds them on the H100: P2 and P3 store 16 KB per step, so a run of
 // K steps is store-bound at K * 16 KB over HBM (64 MB for P2's K = 4096) or
-// at the L2 for P2's dynamic output map (4096 steps into 256 blocks); P1 and
-// P4 launch few blocks and are bound by launch latency.  On the GPU the
-// blocks run at once, so a probe's time / K is a throughput, not the
-// latency of one step as on the TPU's sequential grid.
-#include "synth_common.cuh"
+// at the L2 for P2's dynamic output map (4096 steps into 256 blocks); P1
+// (4 MB of stores at K = 256) and P4 are short enough that one launch's
+// fixed cost is a large part of their time.  On the GPU the blocks run at
+// once, so a probe's time / K is a throughput, not the latency of one step
+// as on the TPU's sequential grid.
+#include "synth_item.cuh"
 
 namespace wfsynth {
 
@@ -137,26 +140,13 @@ probe_walker_kernel(const int* __restrict__ wc, const float* __restrict__ ftab,
   for (int e = threadIdx.x; e < tile; e += blockDim.x) dst[e] = acc;
 }
 
-// P1: K7's body (synth_sparse.cu) with item k's subtile stored at output
-// block k of a (K, Rs * 128) f32 output, and no background.  Padding items
-// (an empty segment range) store zeros.
-__global__ void __launch_bounds__(PROBE_THREADS)
-probe_sparse_compact_kernel(Desc d, const int* __restrict__ work_c,
-                            const int* __restrict__ work_b,
-                            const int* __restrict__ work_t,
-                            const int* __restrict__ work_s0,
-                            const int* __restrict__ work_s1, int Rs,
-                            float* out) {
-  const int k = blockIdx.x;
-  const int c = work_c[k], b = work_b[k];
-  const int s0 = work_s0[k], s1 = work_s1[k];
-  const long long tile = (long long)Rs * 128;
-  const long long base = (long long)work_t[k] * tile;
-  const long long obase = (long long)k * tile;
-  for (long long i = threadIdx.x; i < tile; i += blockDim.x) {
-    const float2 acc = walk_sample<false>(d, c, b, s0, s1, base + i);
-    store_walk<false>(out, obase + i, acc, OUT_F32, 1.0f);
-  }
+// P1: K7's body (synth_sparse.cu), the same item walker (synth_item.cuh),
+// with item k's subtile stored at output block k of a (K, Rs * 128) f32
+// output, and no background.  Padding items (an empty segment range) store
+// zeros.
+__global__ void __launch_bounds__(ITEM_THREADS, ITEM_MIN_BLOCKS)
+probe_sparse_compact_kernel(Desc d, Worklist w, int Rs, float* out) {
+  walk_item<false, true>(d, w, Rs, 0, 0, out, OUT_F32, nullptr);
 }
 
 template <int N>
@@ -259,10 +249,16 @@ int wf_probe_sparse_compact(const int* seg_lo, const int* seg_hi,
   wfsynth::Desc d{seg_lo, seg_hi, nullptr, nterm, nfac, amp, op, power,
                   shift_hi, q32, args, ext, clip, nullptr, C, NB, S, T, F,
                   n_samples, bucket_samples};
+  const wfsynth::Worklist w{work_c, work_b, work_t, nullptr, work_s0,
+                            work_s1};
+  const long long grid_y = wfsynth::item_blocks_y(Rs);
+  if (Rs < 1 || grid_y > 65535) return (int)cudaErrorInvalidValue;
   if (K > 0)
-    wfsynth::probe_sparse_compact_kernel<<<K, wfsynth::PROBE_THREADS, 0,
-                                           (cudaStream_t)stream>>>(
-        d, work_c, work_b, work_t, work_s0, work_s1, Rs, out);
+    wfsynth::probe_sparse_compact_kernel<<<dim3((unsigned)K,
+                                                (unsigned)grid_y),
+                                           wfsynth::ITEM_THREADS, 0,
+                                           (cudaStream_t)stream>>>(d, w, Rs,
+                                                                   out);
   return (int)cudaGetLastError();
 }
 

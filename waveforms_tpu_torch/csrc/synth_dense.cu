@@ -28,7 +28,7 @@
 // per factor (factor_span, synth_span.cuh, shared with K5 and K6) picks the
 // opcode and evaluates it over the DENSE_N samples:
 // DENSE_N independent chains of transcendental math that overlap, where
-// the per-sample walker (walk_sample, kept for K2, K7 and P1) re-read the
+// the per-sample walker (walk_sample, kept for K2 alone) re-read the
 // whole dependent descriptor chain (segment -> terms -> factors -> opcode
 // -> args) and switched once per sample.  A thread skips a segment that
 // none of its samples is in; within one, samples outside [lo, hi) are
@@ -39,9 +39,11 @@
 // bit-identical to the per-sample walker's.  The multi-tone DRAG bodies
 // stay out of line (drag_sin_like_ool).
 //
-// A pass's samples go through shared memory (padded one word in 32, so
-// neither side has bank conflicts) and are stored by consecutive threads at
-// consecutive samples, coalesced, in every output kind.
+// The tile walker lives in synth_span.cuh, shared with the worklist kernel
+// K7 and its probe P1 (synth_item.cuh).  A pass's samples go through shared
+// memory (padded one word in 32, so neither side has bank conflicts) and are
+// stored by consecutive threads at consecutive samples, coalesced, in every
+// output kind.
 //
 // What bounds it on the H100: on an occupancy-1 schedule (every sample in a
 // chirp x gaussian product) the per-sample transcendental math, now that the
@@ -68,79 +70,6 @@ constexpr int DENSE_TILE = DENSE_N * DENSE_THREADS * DENSE_SUBS;
 // warp-wide range lookups and stores want whole warps
 static_assert(DENSE_N <= 32 && DENSE_N_SMALL <= 32, "mask is 32 bits");
 static_assert(DENSE_THREADS % 32 == 0, "whole warps");
-
-// The tile walker for samples [idx0, idx0 + N) of (channel c, bucket b) over
-// slots [s0, s1): acc[j] (and acc_im[j] in pair mode) is what walk_sample
-// returns for sample idx0 + j, bit for bit.
-template <bool PAIR, int N>
-__device__ __forceinline__ void walk_tile(const Desc& d, int c, int b, int s0,
-                                          int s1, long long idx0, float* acc,
-                                          float* acc_im) {
-  const long long row = ((long long)c * d.NB + b) * d.S;
-  const float cmin = d.clip[2 * c];
-  const float cmax = d.clip[2 * c + 1];
-#pragma unroll
-  for (int j = 0; j < N; ++j) acc[j] = acc_im[j] = 0.0f;
-  for (int s = s0; s < s1; ++s) {
-    const int nt = d.nterm[row + s];
-    const long long lo = d.seg_lo[row + s], hi = d.seg_hi[row + s];
-    if (nt <= 0 || idx0 >= hi || idx0 + N <= lo) continue;
-    unsigned in = 0;                       // bit j: sample idx0 + j is in
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      in |= (unsigned)(idx0 + j >= lo && idx0 + j < hi) << j;
-    float seg[N], seg_im[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) seg[j] = seg_im[j] = 0.0f;
-    for (int t = 0; t < nt; ++t) {
-      const long long tf = (row + s) * d.T + t;
-      const float amp = d.amp[tf];
-      float prod[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j) prod[j] = PAIR ? 1.0f : amp;
-      const int nf = d.nfac[tf];
-      for (int f = 0; f < nf; ++f) {
-        const long long ff = tf * d.F + f;
-        const int di0 = (int)((uint32_t)idx0 - (uint32_t)d.shift_hi[ff]);
-        const int p = d.power[ff];
-        float v[N];
-        factor_span<N>(v, d.op[ff], di0, d.args + ff * W_ARGS, d.q32 + ff * 4,
-                       d.ext);
-#pragma unroll
-        for (int j = 0; j < N; ++j) prod[j] = prod[j] * raise_power(v[j], p);
-      }
-      if (PAIR) {
-        const float amp_im = d.amp_im[tf];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          seg[j] = seg[j] + amp * prod[j];
-          seg_im[j] = seg_im[j] + amp_im * prod[j];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < N; ++j) seg[j] = seg[j] + prod[j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      // the sample walker's `continue`: a sample outside the segment adds
-      // nothing (a select, so a NaN or inf evaluated there cannot leak)
-      const bool inj = (in >> j) & 1u;
-      // clip with NaN propagation, as jnp.minimum(jnp.maximum(v, lo), hi)
-      float x = seg[j] < cmin ? cmin : seg[j];
-      x = x > cmax ? cmax : x;
-      acc[j] = inj ? acc[j] + x : acc[j];
-      if (PAIR) {
-        float y = seg_im[j] < cmin ? cmin : seg_im[j];
-        y = y > cmax ? cmax : y;
-        acc_im[j] = inj ? acc_im[j] + y : acc_im[j];
-      }
-    }
-  }
-}
-
-// shared-memory word of tile sample i: one pad word per 32
-__device__ __forceinline__ int staged(int i) { return i + (i >> 5); }
 
 template <bool PAIR, int N>
 __global__ void __launch_bounds__(DENSE_THREADS)

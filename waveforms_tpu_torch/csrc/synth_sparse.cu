@@ -10,50 +10,51 @@
 // DAC codes clip(round_half_even(acc * scale)), or, in pair mode, as
 // complex64.
 //
-// Layout: one thread block per worklist item; consecutive threads own
-// consecutive samples of the subtile, so stores coalesce.  Padding items
-// (work_o == n_tiles) return at once: the TPU wrote them into a scratch row
-// block, the card needs none.  The output is written at its final
-// (C, window) shape, masked at the window's end.
+// Layout (the item walker, synth_item.cuh, shared with the probe P1): each
+// item's subtile is cut into passes of ITEM_N * ITEM_THREADS samples (8 x 128
+// = 1024), items on blockIdx.x and passes on blockIdx.y: on the flagship,
+// 457 live items at Rs 32 (512 with the padding) make 1,828 working thread
+// blocks of 2,048.  A thread walks its 8
+// consecutive samples once with K1's tile walker (walk_tile): one read of
+// each factor's descriptors and one opcode switch for the 8, where the
+// per-sample walker (walk_sample) re-read the whole dependent chain for each
+// of the 16 samples a thread of a 256-thread block owned.  The pass goes
+// through shared memory and consecutive threads store consecutive samples in
+// every output kind, masked at the window's end.  Padding items (work_o ==
+// n_tiles) return at once from every one of their blocks: the TPU wrote them
+// into a scratch row block, the card needs none.  The output is written at
+// its final (C, window) shape.
 //
 // Race freedom and the background: the output arrives zeroed (the TPU kernel
 // too takes its zero background from outside, _run_sparse), and every item
-// only stores.  build_sparse_plan requires buckets that are whole subtiles,
-// so no output subtile has two items: no read-modify-write, no atomics, and
-// int16 codes are stored once.
+// only stores, every sample of its subtile, zeros included.
+// build_sparse_plan requires buckets that are whole subtiles, so no output
+// subtile has two items: no read-modify-write, no atomics, and int16 codes
+// are stored once.
 //
-// What bounds it on the H100: the work is the live subtiles only (457 of
-// 62,500 per-channel subtiles on the flagship, 1.9 M samples), so the kernel
-// itself is short and launch- and latency-bound; the path's cost is the
-// zero fill of the output before it (1.02 GB as f32 on the flagship).
-#include "synth_common.cuh"
+// What bounds it on the H100: not the bytes (457 of 62,500 per-channel
+// subtiles live on the flagship, 7.5 MB of f32 stores, 0.0025 ms at the HBM
+// rate) but latency: one launch's floor (0.0049 ms under probes.cuda_ms's
+// timer), a grid of short blocks each waiting on its chain of dependent
+// loads (the item's scalars, then its segments' descriptors), and the
+// passes that meet a pulse walking its 5 terms of 1-2 cos factors one after
+// another.  On an NVIDIA H100 80GB HBM3 at 700 W, K7 takes about 0.0163 ms on
+// the flagship (0.0193 with one block an item and walk_sample); with 4
+// samples a thread, 0.0176 ms, 0.0132 without the factor math, 0.0081
+// without the walk and 0.0072 with no store either (tools/ab_sparse.py
+// layout runs).  The path's cost is the zero fill of the output before it
+// (1.02 GB as f32 on the flagship, 0.314 ms).
+#include "synth_item.cuh"
 
 namespace wfsynth {
 
 template <bool PAIR>
-__global__ void synth_sparse_kernel(Desc d, const int* __restrict__ work_c,
-                                    const int* __restrict__ work_b,
-                                    const int* __restrict__ work_t,
-                                    const int* __restrict__ work_o,
-                                    const int* __restrict__ work_s0,
-                                    const int* __restrict__ work_s1, int Rs,
-                                    int n_tiles, long long window, void* out,
-                                    int out_kind, const float* scale) {
-  const int k = blockIdx.x;
-  const int o = work_o[k];
-  if (o >= n_tiles) return;                 // padding item
-  const int c = work_c[k], b = work_b[k];
-  const int s0 = work_s0[k], s1 = work_s1[k];
-  const long long tile = (long long)Rs * 128;
-  const long long base = (long long)work_t[k] * tile;
-  const long long obase = (long long)o * tile;
-  const long long out_row = (long long)c * window;
-  const float sc = out_kind == OUT_I16 ? scale[c] : 1.0f;
-  for (long long i = threadIdx.x; i < tile && obase + i < window;
-       i += blockDim.x) {
-    const float2 acc = walk_sample<PAIR>(d, c, b, s0, s1, base + i);
-    store_walk<PAIR>(out, out_row + obase + i, acc, out_kind, sc);
-  }
+__global__ void __launch_bounds__(
+    ITEM_THREADS, PAIR ? ITEM_MIN_BLOCKS_PAIR : ITEM_MIN_BLOCKS)
+synth_sparse_kernel(Desc d, Worklist w, int Rs, int n_tiles,
+                    long long window, void* out, int out_kind,
+                    const float* scale) {
+  walk_item<PAIR, false>(d, w, Rs, n_tiles, window, out, out_kind, scale);
 }
 
 }  // namespace wfsynth
@@ -76,17 +77,20 @@ int wf_synth_sparse(const int* seg_lo, const int* seg_hi, const int* nterm,
   wfsynth::Desc d{seg_lo, seg_hi, nullptr, nterm, nfac, amp, op, power,
                   shift_hi, q32, args, ext, clip, amp_im, C, NB, S, T, F,
                   n_samples, bucket_samples};
-  const int threads = 256;
+  const wfsynth::Worklist w{work_c, work_b, work_t, work_o, work_s0, work_s1};
+  const long long grid_y = wfsynth::item_blocks_y(Rs);
+  if (Rs < 1 || grid_y > 65535) return (int)cudaErrorInvalidValue;
   if (K > 0) {
     cudaStream_t st = (cudaStream_t)stream;
+    const dim3 grid((unsigned)K, (unsigned)grid_y);
     if (out_kind == wfsynth::OUT_C64)
-      wfsynth::synth_sparse_kernel<true><<<K, threads, 0, st>>>(
-          d, work_c, work_b, work_t, work_o, work_s0, work_s1, Rs, n_tiles,
-          window, out, out_kind, scale);
+      wfsynth::synth_sparse_kernel<true><<<grid, wfsynth::ITEM_THREADS, 0,
+                                           st>>>(d, w, Rs, n_tiles, window,
+                                                 out, out_kind, scale);
     else
-      wfsynth::synth_sparse_kernel<false><<<K, threads, 0, st>>>(
-          d, work_c, work_b, work_t, work_o, work_s0, work_s1, Rs, n_tiles,
-          window, out, out_kind, scale);
+      wfsynth::synth_sparse_kernel<false><<<grid, wfsynth::ITEM_THREADS, 0,
+                                            st>>>(d, w, Rs, n_tiles, window,
+                                                  out, out_kind, scale);
   }
   return (int)cudaGetLastError();
 }

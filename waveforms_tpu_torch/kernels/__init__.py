@@ -52,7 +52,8 @@ __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
            'probe_health', 'probe_grid', 'probe_walker',
            'probe_sparse_compact', 'launch_dense', 'launch_dense_hi',
-           'launch_stack', 'launch_stack_seq',
+           'launch_sparse', 'launch_probe_sparse_compact', 'launch_stack',
+           'launch_stack_seq',
            'dense_tile', 'load_library', 'library_path',
            'reset_launch_counts', 'launch_counts', 'KERNELS']
 
@@ -61,8 +62,8 @@ CSRC = _PKG / 'csrc'
 SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
            'synth_stack.cu', 'synth_stack_seq.cu', 'synth_dense_hi.cu',
            'synth_panel_hi.cu', 'probes.cu')
-HEADERS = ('synth_common.cuh', 'synth_span.cuh', 'synth_stack_common.cuh',
-           'synth_hi_common.cuh')
+HEADERS = ('synth_common.cuh', 'synth_span.cuh', 'synth_item.cuh',
+           'synth_stack_common.cuh', 'synth_hi_common.cuh')
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xptxas', '-v',
@@ -325,7 +326,13 @@ def _launch_panel(d, work, out, scale):
     _raise_on(code, 'synth_panel')
 
 
-def _launch_sparse(d, work, out, scale):
+def launch_sparse(d, work, out, scale=None, lib=None):
+    """Launch K7 on CUDA tensors, uncounted (:data:`synth_sparse` counts):
+    items on the grid's x axis, each item's Rs x 128 subtile cut into
+    passes of 1024 samples on its y axis (``csrc/synth_item.cuh``).
+    ``lib`` (default: this build) may be another build of
+    ``csrc/synth_sparse.cu`` with the same C interface: an A/B of two
+    builds."""
     C, NB, S, T, F = d.shape
     plan = {n: getattr(work, n) for n in
             ('work_c', 'work_b', 'work_t', 'work_o', 'work_s0', 'work_s1')}
@@ -333,7 +340,7 @@ def _launch_sparse(d, work, out, scale):
     if NB > 1 and d.bucket_samples % (work.Rs * 128):
         raise ValueError("buckets must be whole subtiles, so that no output "
                          "subtile has two worklist items")
-    lib = load_library()
+    lib = lib or load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_sparse(
             *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
@@ -536,7 +543,10 @@ def _launch_probe_walker(body, wc, ftab, itab, out):
     _raise_on(code, 'probe_walker')
 
 
-def _launch_probe_sparse_compact(d, work, out):
+def launch_probe_sparse_compact(d, work, out, lib=None):
+    """Launch P1 on CUDA tensors, uncounted (:data:`probe_sparse_compact`
+    counts): K7's item walker with item k stored at ``out[k]``.  ``lib``
+    as :func:`launch_sparse`'s, for another build of ``csrc/probes.cu``."""
     C, NB, S, T, F = d.shape
     K = work.work_c.shape[0]
     if d.amp_im is not None:
@@ -547,7 +557,7 @@ def _launch_probe_sparse_compact(d, work, out):
             ('work_c', 'work_b', 'work_t', 'work_s0', 'work_s1')}
     desc = _descriptors(d, False)
     _check_cuda(dict(desc, out=out, **plan), out.device)
-    lib = load_library()
+    lib = lib or load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_probe_sparse_compact(
             *(t.data_ptr() for t in desc.values()), C, NB, S, T, F,
@@ -574,7 +584,7 @@ synth_panel = _Kernel(
 synth_sparse = _Kernel(
     'synth_sparse', 'waveforms_tpu_torch/csrc/synth_sparse.cu',
     'waveforms_tpu/ops/sparse_synth.py:199', reference.sparse_walk,
-    _launch_sparse)
+    launch_sparse)
 
 #: K5: ``synth_stack(tables, out, scale)`` fills out (C, n_samples) from
 #: StackTables
@@ -625,10 +635,10 @@ probe_walker = _Kernel(
     reference_probes.walker, _launch_probe_walker, out_at=-1)
 
 #: P1: ``probe_sparse_compact(dev, work, out)``: the worklist kernel's
-#: subtiles stored at out[k] (K, Rs, 128), one block per item
+#: subtiles stored at out[k] (K, Rs, 128), through K7's item walker
 probe_sparse_compact = _Kernel(
     'probe_sparse_compact', _PROBES, 'tools/tpu_capture.py:1424',
-    reference_probes.sparse_compact, _launch_probe_sparse_compact,
+    reference_probes.sparse_compact, launch_probe_sparse_compact,
     out_at=-1)
 
 KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack,
