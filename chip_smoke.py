@@ -60,7 +60,21 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    schedules of 30 cosPulses, 1000 shots -> K6), each kernel against its
    plain version, the oracle on a few channels of a few shots, and the
    kernel's, the plain version's and the fill's times;
-6. the measurement probes (``waveforms_tpu_torch.probes``): at small size
+6. the signal chain at full width (the flagship, 128 x 2,000,000, and the
+   seq_station table), each stage a main path with its counts read right
+   after it: ``signal_flagship`` -- the flagship's f32 plane (K2) in f64
+   through ``lfilter`` of the station's Z-settle pair (the doubling scan),
+   ``lfilter`` of the clustered three-pole filter (the recurrence kernel
+   S1) and ``filter_zpk`` of it, a 31-tap Hann ``fft_convolve_centered``
+   and ``demodulate`` at the two readout tones, each against scipy on 4
+   seeded rows with its route and device time, then S1 against its plain
+   version on (8, 20,000) rows; ``stream_flagship`` -- ``synthesize_stream``
+   in chunks of 512 rows (31 K1 windows a pass), f32 equal to one-shot K1
+   bit for bit, filtered against the port's whole-row ``sosfilt`` and
+   scipy, int16 codes equal to one-shot K1's; ``seq_station_chain`` --
+   ``run_sequence`` of 1000 shots with the Z-settle pair and two tones,
+   8 shots against ``Sequencer.play`` + scipy ``lfilter`` + ``getFTMatrix``;
+7. the measurement probes (``waveforms_tpu_torch.probes``): at small size
    (K = 64) P4, every P2 variant and every P3 body against its plain
    version on the card, bit for bit, and P1's compact worklist kernel on 8
    flagship channels over 32.768 us, padded and not, within TOL_PLAIN;
@@ -78,7 +92,9 @@ plain version that waits on the card) is timed unqueued, and the
 ``timing`` line records both.  Every kernel's summary entry carries its
 bound: the larger of the bytes its call must move (inputs read once,
 the output written once) over the card's HBM rate and the operations that call needs (counted from the
-descriptors, ``OP_COST``) over the FP32 (FP64 for K3/K4) peak.  The probe
+descriptors, ``OP_COST``) over the FP32 (FP64 for K3/K4) peak; S1's are
+the flagship rows read and written once and its multiply-adds over the FP64
+peak (no PyTorch call computes an IIR recurrence).  The probe
 kernels' entries time one variant each (P2 ``op13_dyn``, P3 ``base``);
 ``library_ms`` is ``torch.mul`` for P4 and null for the rest (no PyTorch
 call computes a table-read-and-fill probe or a descriptor walk).
@@ -116,6 +132,7 @@ REPS_PLAIN_HI = 3     # the double tier's plain versions take seconds
 RECORDS = []
 MAIN_COUNTS = []      # (path, launch counts) of every main path, read right
                       # after it
+MAIN_WINDOWED = []    # (path, K1's launches with row0 != 0) of the same
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at its full
 # 700 W): HBM3 bytes/s, and FP32 / FP64 operations/s outside the tensor
@@ -869,6 +886,8 @@ def run_strata(fail, summary):
         walls[cell] = time.perf_counter() - t0
         counts[cell] = kernels.launch_counts()
         MAIN_COUNTS.append((cell_name(cell), counts[cell]))
+        MAIN_WINDOWED.append((cell_name(cell),
+                              kernels.synth_dense.windowed_launches))
         for k in must:
             if counts[cell][k] == 0:
                 fail.append(f"{k} never launched on main path "
@@ -1411,6 +1430,7 @@ def main_path(label, fn, fail, must, absent=()):
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     MAIN_COUNTS.append((label, counts))
+    MAIN_WINDOWED.append((label, kernels.synth_dense.windowed_launches))
     for k, n in must.items():
         if counts[k] == 0 or (n is not None and counts[k] != n):
             fail.append(f"{label}: {k} launched {counts[k]} times, "
@@ -1976,6 +1996,409 @@ def run_probes(fail, summary):
     log(rec)
 
 
+# The signal chain's filters (tests/test_station_e2e.py, test_ops_iir_fft.py):
+# the station's Z-settle inverse pair (d = 2 combined: the doubling scan),
+# the clustered three-pole exp-settling filter (d = 3: the recurrence kernel
+# S1 as (b, a), the parallel scan as zpk), and the readout tones FR - READ_LO.
+Z_SETTLE = ([0.02, 0.005], [3e-6, 20e-6])
+CLUSTERED = ([0.02, 0.008, 0.004], [2e-6, 9e-6, 30e-6])
+TONES = [6.87836e9 - 6.99e9, 6.92248e9 - 6.99e9]
+# vs scipy on the host, of each row's peak.  The doubling scan's bound is
+# set by the JAX package's own accuracy there: its doubling lfilter of the
+# Z-settle pair (poles 1 - 2.5e-5, 1 - 1.7e-4) is 5.8e-9 off scipy on row
+# 109 of these rows (float64, on the CPU, where the port's path equals it;
+# tests/test_torch_signal.py holds both to this bound and the reference
+# above 1e-9), and the card's matrix products round in another order; the
+# direct form and zpk bounds are the JAX suite's
+# (tests/test_ops_iir_fft.py), the FFT's its rtol.
+TOL_DOUBLING = 2e-8
+TOL_DIRECT_FORM = 1e-5
+TOL_ZPK = 2e-8
+TOL_FFT = 1e-9
+TOL_DEMOD = 1e-4       # IQ points, of their peak (tests/test_station_e2e.py)
+TOL_S1 = {'butter5': 1e-12, 'near_unit_double_pole': 1e-12,
+          'clustered': 1e-9}  # S1 vs its plain version, of the peak
+# S1 on the main path's rows: the first S1_COLS columns of all 128 rows,
+# against its plain version over them.  The filter is causal and both run
+# the same operations in the same order, so they agree bit for bit.
+S1_COLS = 20_000
+TOL_STREAM_SOS = 1e-9  # streamed sosfilt vs the whole row's, of the peak
+TOL_STREAM_HOST = 2e-7  # absolute, vs scipy (tests/test_streaming.py)
+
+
+def seeded_rows(n, k, seed):
+    import numpy as np
+    return sorted(int(r) for r in np.random.default_rng(seed).choice(
+        n, k, replace=False))
+
+
+def rows_err(got, want):
+    """max over rows of max|got - want| / max|want| (numpy rows)."""
+    import numpy as np
+    return max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+               for g, w in zip(got, want))
+
+
+def s1_rows(b, a, x):
+    """Normalised coefficients of (b, a) and a zero state for S1 over x."""
+    import numpy as np
+    import torch
+    b = np.asarray(b, float) / a[0]
+    a = np.asarray(a, float) / a[0]
+    coef = torch.tensor(np.concatenate([b, a]), dtype=x.dtype,
+                        device=x.device)
+    zi = torch.zeros((x.shape[0], len(a) - 1), dtype=x.dtype,
+                     device=x.device)
+    return coef, zi
+
+
+def s1_main_check(coef, zi, x, y_main):
+    """S1 against its plain version on the main path's rows: the plain
+    recurrence over the first S1_COLS columns of every row of x, from the
+    state zi, against those columns of the main path's output ``y_main``,
+    and against an S1 launch on the same columns with its final state
+    -> (record, the plain output)."""
+    import torch
+
+    from waveforms_tpu_torch import kernels
+    xk = x[:, :S1_COLS].contiguous()
+    yp, zfp = torch.empty_like(xk), torch.empty_like(zi)
+    kernels.iir_df2t.plain(xk, coef, zi, yp, zfp)
+    yk, zfk = torch.empty_like(xk), torch.empty_like(zi)
+    kernels.iir_df2t(xk, coef, zi, yk, zfk)
+    head = y_main[:, :S1_COLS]
+    rec = {'shape': list(xk.shape),
+           'main_path_equal': bool(torch.equal(head, yp)),
+           'launch_equal': bool(torch.equal(yk, yp)),
+           'zf_equal': bool(torch.equal(zfk, zfp)),
+           'max_abs_err': float(max((head - yp).abs().max(),
+                                    (yk - yp).abs().max(),
+                                    (zfk - zfp).abs().max())),
+           'plain_ms': cuda_ms(lambda: kernels.iir_df2t.plain(
+               xk, coef, zi, torch.empty_like(xk), torch.empty_like(zi)),
+               reps=1)}
+    rec['ok'] = (rec['main_path_equal'] and rec['launch_equal']
+                 and rec['zf_equal'])
+    return rec, yp
+
+
+def signal_flagship(fail, summary):
+    """The flagship's f32 plane from ``synthesize`` (K2), pre-compensated
+    in f64 on all 128 rows -- lfilter of the Z-settle pair (the doubling
+    scan), lfilter of the clustered filter (S1) and filter_zpk of it --
+    then the Z-settle output through a 31-tap Hann FFT convolution and
+    demodulated against the two readout tones -> (128, 2).  Each stage is
+    a main path with its counts read right after it; each against scipy on
+    4 seeded rows.  S1 against its plain version on the main path's rows
+    (s1_main_check) and on (8, 20,000) random rows; S1's summary entry
+    timed on the flagship's rows, its output held to the plain version's
+    over the first S1_COLS columns."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.distortion import (combine_filters,
+                                                exp_decay_filter)
+    from waveforms_tpu_torch.ops import (demod_matrix, demodulate,
+                                         fft_convolve_centered, filter_zpk,
+                                         lfilter, predistort_device)
+    from waveforms_tpu_torch.schedules import FS, build_schedule
+    from waveforms_tpu_torch.utils.signal import getFTMatrix
+
+    b_s, a_s = combine_filters([exp_decay_filter(a, t, FS, inv=True)
+                                for a, t in zip(*Z_SETTLE)])
+    b_c, a_c = exp_decay_filter(*CLUSTERED, FS, output='ba')
+    z_c, p_c, k_c = exp_decay_filter(*CLUSTERED, FS, output='zpk')
+    hann = sps.windows.hann(31)
+    hann /= hann.sum()
+    chans = build_schedule()
+    sig, wall, cnt = main_path(
+        'signal_flagship synthesize',
+        lambda: wt.synthesize(chans, 0.0, 1e-3, FS, device='cuda'), fail,
+        {'synth_panel': 1})
+    x = sig.double()
+    del sig
+    C, N = x.shape
+    rows = seeded_rows(C, 4, 9)
+    host = x[rows].cpu().numpy()
+    rec = {'phase': 'signal_flagship', 'shape': [C, N], 'rows': rows,
+           'synthesize': {'launches': cnt, 'wall_s': wall}}
+    ok = True
+    stages = (
+        ('lfilter_z_settle', lambda: lfilter(b_s, a_s, x),
+         lambda h: sps.lfilter(b_s, a_s, h), TOL_DOUBLING),
+        ('lfilter_clustered', lambda: lfilter(b_c, a_c, x),
+         lambda h: sps.lfilter(b_c, a_c, h), TOL_DIRECT_FORM),
+        ('filter_zpk_clustered', lambda: filter_zpk(z_c, p_c, k_c, x),
+         lambda h: sps.sosfilt(sps.zpk2sos(z_c, p_c, k_c), h), TOL_ZPK))
+    settled = None
+    for name, run, ref, tol in stages:
+        torch.cuda.empty_cache()
+        out, wall, cnt = main_path(f'signal_flagship {name}', run, fail, {})
+        route = 'S1' if cnt.get('iir_df2t') else 'doubling'
+        want = 'S1' if name == 'lfilter_clustered' else 'doubling'
+        err = rows_err(out[rows].cpu().numpy(), [ref(h) for h in host])
+        stage = {'route': route, 'launches': cnt, 'wall_s': wall,
+                 'vs_scipy': err, 'tol': tol, 'finite': bool(
+                     torch.isfinite(out).all()),
+                 'ms': cuda_ms(run, reps=3)}
+        stage['ok'] = bool(route == want and err <= tol and stage['finite']
+                           and cnt.get('iir_df2t', 0) == (route == 'S1'))
+        rec[name] = stage
+        ok &= stage['ok']
+        if name == 'lfilter_clustered':
+            coef_c, zi_c = s1_rows(b_c, a_c, x)
+            s1_main, yp_main = s1_main_check(coef_c, zi_c, x, out)
+            rec['s1_main_path_vs_plain'] = s1_main
+            ok &= s1_main['ok']
+        if name == 'lfilter_z_settle':
+            settled = out
+        del out
+    torch.cuda.empty_cache()
+    ker = torch.tensor(hann, device='cuda')
+    conv, wall, cnt = main_path('signal_flagship fft_convolve_centered',
+                                lambda: fft_convolve_centered(settled, ker),
+                                fail, {})
+    h_set = settled[rows].cpu().numpy()
+    want = []
+    for h in h_set:
+        padded = np.hstack([np.zeros(N), h, np.zeros(N)])
+        start = N + len(hann) // 2
+        want.append(sps.fftconvolve(padded, hann, mode='full')
+                    [start:start + N])
+    stage = {'vs_scipy': rows_err(conv[rows].cpu().numpy(), want),
+             'tol': TOL_FFT, 'wall_s': wall,
+             'ms': cuda_ms(lambda: fft_convolve_centered(settled, ker),
+                           reps=3)}
+    stage['ok'] = bool(stage['vs_scipy'] <= TOL_FFT)
+    rec['fft_convolve_centered'] = stage
+    ok &= stage['ok']
+    del settled
+    m = demod_matrix(TONES, N, FS, device='cuda')
+    iq, wall, cnt = main_path('signal_flagship demodulate',
+                              lambda: demodulate(conv, m), fail, {})
+    h_conv = conv[rows].float().double().cpu().numpy()
+    ref = h_conv @ getFTMatrix(TONES, N, sampleRate=FS)
+    got = iq[rows].cpu().numpy()
+    stage = {'shape': list(iq.shape), 'dtype': str(iq.dtype)[6:],
+             'vs_host': float(np.abs(got - ref).max() / np.abs(ref).max()),
+             'tol': TOL_DEMOD, 'wall_s': wall,
+             'ms': cuda_ms(lambda: demodulate(conv, m), reps=3)}
+    stage['ok'] = bool(stage['vs_host'] <= TOL_DEMOD
+                       and tuple(iq.shape) == (C, 2)
+                       and iq.dtype == torch.complex64)
+    rec['demodulate'] = stage
+    ok &= stage['ok']
+    del conv, iq
+    torch.cuda.empty_cache()
+    # predistort_device as a user calls it (the same doubling scan, from
+    # lfiltic's steady state, then the kernel), and its doubling scan alone
+    settle = [exp_decay_filter(a, t, FS, inv=True) for a, t in zip(*Z_SETTLE)]
+    rec['predistort_device'] = {
+        'ms': cuda_ms(lambda: predistort_device(x, settle, ker=hann),
+                      reps=3),
+        'doubling_scan_ms': rec['lfilter_z_settle']['ms']}
+    torch.cuda.empty_cache()
+
+    # S1 against its plain version on the card
+    rng = np.random.default_rng(12)
+    xs = torch.tensor(rng.standard_normal((8, 20_000)), device='cuda')
+    r = 1 - 1e-8
+    s1 = {}
+    for name, (b, a) in {
+            'butter5': sps.butter(5, 0.15),
+            'near_unit_double_pole': ([1.0, 0.0, 0.0], [1.0, -2 * r, r * r]),
+            'clustered': (b_c, a_c)}.items():
+        coef, zi = s1_rows(b, a, xs)
+        y, zf = torch.empty_like(xs), torch.empty_like(zi)
+        kernels.iir_df2t(xs, coef, zi, y, zf)
+        yp, zfp = torch.empty_like(xs), torch.empty_like(zi)
+        kernels.iir_df2t.plain(xs, coef, zi, yp, zfp)
+        err = rel_err_t(y, yp)
+        s1[name] = {'vs_plain': err, 'tol': TOL_S1[name],
+                    'zf_equal': bool(torch.equal(zf, zfp)),
+                    'max_abs_err': float((y - yp).abs().max())}
+        s1[name]['ok'] = bool(err <= TOL_S1[name])
+        ok &= s1[name]['ok']
+    rec['s1_vs_plain'] = s1
+    # S1 on the flagship's rows: the clustered filter, 128 x 2,000,000 f64,
+    # its first S1_COLS columns against the plain version's
+    y, zf = torch.empty_like(x), torch.empty_like(zi_c)
+    ms = cuda_ms(lambda: kernels.iir_df2t(x, coef_c, zi_c, y, zf), reps=3)
+    timed_err = float((y[:, :S1_COLS] - yp_main).abs().max())
+    rec['s1_flagship'] = {'ms': ms, 'max_abs_err': timed_err,
+                          'equal': bool(torch.equal(y[:, :S1_COLS],
+                                                    yp_main))}
+    ok &= rec['s1_flagship']['equal']
+    d = zi_c.shape[1]
+    summary['iir_df2t'].update(
+        max_abs_err=max([v['max_abs_err'] for v in s1.values()]
+                        + [s1_main['max_abs_err'], timed_err]), ms=ms,
+        plain_ms=s1_main['plain_ms'], plain_shape=s1_main['shape'],
+        shape=[C, N, d],
+        dynamic_smem_bytes=kernels.iir_df2t_smem_bytes(x.dtype),
+        **bound(2 * x.numel() * 8 + 2 * zi_c.numel() * 8, x.numel()
+                * (2 + 4 * d), peak='fp64'))
+    rec['ok'] = bool(ok)
+    del x, y, xs, yp_main
+    torch.cuda.empty_cache()
+    brief = {k: {kk: vv for kk, vv in v.items()
+                 if kk in ('route', 'vs_scipy', 'vs_host', 'ms', 'ok')}
+             for k, v in rec.items() if isinstance(v, dict)
+             and k not in ('synthesize', 's1_vs_plain', 'predistort_device',
+                           's1_main_path_vs_plain', 's1_flagship')}
+    log(rec, dict(brief, phase='signal_flagship', ok=rec['ok'],
+                  s1_vs_plain={k: v['vs_plain'] for k, v in s1.items()},
+                  s1_main_path_vs_plain={
+                      k: s1_main[k] for k in ('main_path_equal',
+                                              'launch_equal', 'zf_equal',
+                                              'max_abs_err', 'plain_ms')},
+                  s1_flagship=rec['s1_flagship'],
+                  predistort_device_ms=rec['predistort_device']['ms']))
+    if not ok:
+        fail.append('signal_flagship')
+
+
+def stream_flagship(fail, summary):
+    """``synthesize_stream`` of the flagship, chunk_rows=512 (65,536 samples
+    a chunk, 31 chunks, the last trimmed), K1 from row0 = k * 65,536: f32
+    equal to one-shot K1 bit for bit; with ``filters=(tf2sos(butter(3,
+    0.02)), 0)`` against one-shot K1 plus the port's sosfilt over the whole
+    row and against scipy on 4 seeded rows; int16 codes equal to one-shot
+    K1's.  Each pass a main path with 31 K1 launches."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+
+    from waveforms_tpu_torch.ops import sosfilt, synthesize_stream
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.synth import (DeviceSchedule,
+                                               synthesize_device)
+    from waveforms_tpu_torch.schedules import FS, build_schedule
+
+    dev = DeviceSchedule(lower_schedule(build_schedule(), 0.0, 1e-3, FS),
+                         'cuda')
+    C, N = dev.shape[0], dev.n_samples
+    chunk_rows = 512
+    n_chunks = -(-N // (chunk_rows * 128))
+    sos = sps.tf2sos(*sps.butter(3, 0.02))
+    rows = seeded_rows(C, 4, 10)
+    one = synthesize_device(dev)
+    rec = {'phase': 'stream_flagship', 'shape': [C, N],
+           'chunk_samples': chunk_rows * 128, 'chunks': n_chunks}
+    ok = True
+
+    def stream(**kw):
+        return torch.cat(list(synthesize_stream(dev, chunk_rows=chunk_rows,
+                                                **kw)), 1)
+
+    def per_chunk_ms(**kw):
+        def run():
+            for _ in synthesize_stream(dev, chunk_rows=chunk_rows, **kw):
+                pass
+        return cuda_ms(run, reps=3) / n_chunks
+
+    got, wall, cnt = main_path('stream_flagship f32', stream, fail,
+                               {'synth_dense': n_chunks})
+    f32 = {'launches': cnt, 'wall_s': wall,
+           'equal_one_shot': bool(torch.equal(got, one)),
+           'ms_per_chunk': per_chunk_ms()}
+    f32['ok'] = f32['equal_one_shot']
+    rec['f32'] = f32
+    del got
+    got, wall, cnt = main_path('stream_flagship filtered',
+                               lambda: stream(filters=(sos, 0.0)), fail,
+                               {'synth_dense': n_chunks})
+    whole = sosfilt(sos, one.double())
+    host = [sps.sosfilt(sos, one[r].double().cpu().numpy()) for r in rows]
+    filt = {'launches': cnt, 'wall_s': wall,
+            'vs_whole_row': rel_err_t(got, whole),
+            'vs_scipy_abs': max(float(np.abs(got[r].cpu().numpy() - h).max())
+                                for r, h in zip(rows, host)),
+            'ms_per_chunk': per_chunk_ms(filters=(sos, 0.0))}
+    filt['ok'] = bool(got.dtype == torch.float64
+                      and filt['vs_whole_row'] <= TOL_STREAM_SOS
+                      and filt['vs_scipy_abs'] <= TOL_STREAM_HOST)
+    rec['filtered'] = filt
+    del got, whole
+    torch.cuda.empty_cache()
+    codes = synthesize_device(dev, out_dtype=torch.int16)
+    got, wall, cnt = main_path('stream_flagship int16',
+                               lambda: stream(out_dtype=torch.int16), fail,
+                               {'synth_dense': n_chunks})
+    i16 = {'launches': cnt, 'wall_s': wall,
+           'equal_one_shot': bool(torch.equal(got, codes)),
+           'ms_per_chunk': per_chunk_ms(out_dtype=torch.int16)}
+    i16['ok'] = i16['equal_one_shot']
+    rec['int16'] = i16
+    ok = f32['ok'] and filt['ok'] and i16['ok']
+    rec['ok'] = bool(ok)
+    del got, codes, one
+    torch.cuda.empty_cache()
+    log(rec)
+    if not ok:
+        fail.append('stream_flagship')
+
+
+def seq_station_chain(fail, summary):
+    """``run_sequence`` on the seq_station table (16 schedules, 2 ch x
+    200,000 samples), 1000 shots in the replay's seeded order, with the
+    Z-settle pre-compensation and the two readout tones -> (1000, 2, 2);
+    8 shots' IQ points against ``Sequencer.play`` plus scipy's lfilter
+    (from lfiltic's zero history) plus ``getFTMatrix`` on the host."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+
+    from waveforms_tpu_torch.distortion import (combine_filters,
+                                                exp_decay_filter)
+    from waveforms_tpu_torch.ops import Sequencer
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.parallel import run_sequence
+    from waveforms_tpu_torch.schedules import FS, station_channels
+    from waveforms_tpu_torch.utils.signal import getFTMatrix
+
+    rng = np.random.default_rng(11)      # the seq_station phase's draws
+    chans = station_channels(rng)
+    rng.integers(0, 16, 50)
+    ks = rng.integers(0, 16, 1000)
+    seq = Sequencer([lower_schedule(ch, 0.0, 1e-4, FS) for ch in chans],
+                    device='cuda')
+    ba = [exp_decay_filter(a, t, FS, inv=True) for a, t in zip(*Z_SETTLE)]
+
+    def run():
+        return run_sequence(seq, ks, ba_filters=ba, demod_freqs=TONES)
+
+    iq, wall, cnt = main_path('seq_station_chain', run, fail,
+                              {'synth_dense': len(ks)})
+    b, a = combine_filters(ba)
+    zi = sps.lfiltic(b, a, np.zeros(len(a) - 1), np.zeros(len(b) - 1))
+    ft = getFTMatrix(TONES, seq.n_samples, sampleRate=FS)
+    errs = []
+    for i in seeded_rows(len(ks), 8, 13):
+        sig = seq.play(int(ks[i])).double().cpu().numpy()
+        ref = np.stack([sps.lfilter(b, a, r, zi=zi)[0] for r in sig]) @ ft
+        got = iq[i].cpu().numpy()
+        errs.append(float(np.abs(got - ref).max() / np.abs(ref).max()))
+    rec = {'phase': 'seq_station_chain', 'table': seq.describe(),
+           'shots': len(ks), 'shape': list(iq.shape),
+           'dtype': str(iq.dtype)[6:], 'launches': cnt, 'wall_s': wall,
+           'us_per_shot_wall': wall * 1e6 / len(ks),
+           'vs_host': max(errs), 'tol': TOL_DEMOD}
+    rec['device_ms'] = cuda_ms(run, reps=1)
+    rec['us_per_shot'] = rec['device_ms'] * 1e3 / len(ks)
+    rec['ok'] = bool(rec['vs_host'] <= TOL_DEMOD
+                     and tuple(iq.shape) == (len(ks), 2, 2)
+                     and bool(torch.isfinite(torch.view_as_real(iq)).all()))
+    del iq, seq
+    torch.cuda.empty_cache()
+    log(rec)
+    if not rec['ok']:
+        fail.append('seq_station_chain')
+
+
 def ptxas_entries(lines):
     """{entry function (mangled): [registers, spill store bytes, spill
     load bytes, shared memory bytes]} from nvcc's ``-Xptxas -v`` lines, in
@@ -2099,10 +2522,12 @@ def main():
                for k in kernels.KERNELS}
     for phase in (check_small, check_small_hi, check_small_seq,
                   check_small_narrow, check_probes, run_strata, run_sequences,
+                  signal_flagship, stream_flagship, seq_station_chain,
                   run_probes):
         t0 = time.perf_counter()
         try:
-            if phase in (run_strata, run_sequences, run_probes):
+            if phase in (run_strata, run_sequences, signal_flagship,
+                         stream_flagship, seq_station_chain, run_probes):
                 phase(fail, summary)
             else:
                 phase(fail)
@@ -2128,6 +2553,8 @@ def main():
                                 if path != 'probes')
         if name.startswith('probe_'):
             entry['launches'] = entry['probe_launches']
+        if name == 'synth_dense':     # of them, the windowed (row0 != 0)
+            entry['windowed_launches'] = sum(n for _, n in MAIN_WINDOWED)
         if entry['launches'] == 0:
             fail.append(f"{name} never launched on the main paths")
         if None in (entry['ms'], entry['plain_ms'], entry['bound_ms'],
@@ -2144,8 +2571,10 @@ def main():
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
         return 1
     keys = ('name', 'route', 'source', 'replaces', 'launches',
-            'probe_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms', 'registers', 'smem_bytes')
+            'probe_launches', 'windowed_launches', 'max_abs_err', 'ms',
+            'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms', 'registers', 'smem_bytes',
+            'dynamic_smem_bytes')
     print(smi, flush=True)
     print(json.dumps({'kernels': [
         {k: e[k] for k in keys + ('launch_floor_ms',) if k in e}

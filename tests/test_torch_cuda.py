@@ -19,7 +19,11 @@ peak.  K1 and K3 on a grid wide enough for K1's 8-samples-a-thread layout
 are held to their small-grid launches of the same channels bit for bit.
 K7 and P1, which walk with K1's tile walker, are held to K1 and to each
 other bit for bit on every live subtile, at subtile heights of 1, 3, 8 and
-32 rows and on a worklist of more items than a grid's y axis holds.
+32 rows and on a worklist of more items than a grid's y axis holds.  K1's
+windows (row0, n_out) are held to the same columns of its unwindowed
+launch bit for bit.  The IIR recurrence kernel S1 is held to its plain
+version bit for bit in f64 and f32 (neither contracts a multiply-add), and
+an f32 demodulation to itself with TF32 on.
 """
 
 import dataclasses
@@ -169,7 +173,8 @@ def test_slice_goes_through_the_kernels(card):
                                        'synth_panel_hi': 0,
                                        'probe_health': 0, 'probe_grid': 0,
                                        'probe_walker': 0,
-                                       'probe_sparse_compact': 0}
+                                       'probe_sparse_compact': 0,
+                                       'iir_df2t': 0}
     plain = wt.synthesize(chans, start, stop, fs, device='cpu')
     assert rel(got.cpu(), plain) <= TOL
     assert rel(dense.cpu(), plain) <= TOL
@@ -992,3 +997,129 @@ def test_probe_sparse_compact_equals_the_sparse_kernel(card, padded):
     for k, (c, s, m) in enumerate(_live_subtiles(plan)):
         assert torch.equal(got[k, :m], k7[c, s:s + m]), (k, c, s)
     assert (got[plan.n_live:] == 0).all()
+
+
+def _s1_filters():
+    """(b, a) of chip_smoke.py's S1 checks: butter(5, 0.15), the near-unit
+    double pole of tests/test_ops_iir_fft.py, the clustered three-pole
+    exp-settling filter."""
+    from scipy.signal import butter
+    from waveforms_tpu_torch.distortion import exp_decay_filter
+    r = 1 - 1e-8
+    return {'butter5': butter(5, 0.15),
+            'near_unit_double_pole': ([1.0, 0.0, 0.0], [1.0, -2 * r, r * r]),
+            'clustered': exp_decay_filter([0.02, 0.008, 0.004],
+                                          [2e-6, 9e-6, 30e-6], 2e9,
+                                          output='ba')}
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('name', list(_s1_filters()))
+def test_iir_recurrence_kernel_matches_plain(card, name, dtype):
+    """S1 against its plain version on the same rows, y and zf, from a
+    non-zero state: bit for bit (the kernel contracts no multiply-add, the
+    plain version's separate ops round the same way), over rows that are
+    not a whole number of blocks and a length that is not a whole number
+    of tiles."""
+    b, a = (np.asarray(v, float) for v in _s1_filters()[name])
+    b, a = b / a[0], a / a[0]
+    d = len(a) - 1
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.standard_normal((19, 3001)), dtype=dtype)
+    zi = torch.tensor(rng.standard_normal((19, d)) * 0.01, dtype=dtype)
+    coef = torch.tensor(np.concatenate([b, a]), dtype=dtype)
+    y, zf = torch.empty_like(x), torch.empty_like(zi)
+    kernels.iir_df2t.plain(x, coef, zi, y, zf)
+    xc, yc, zfc = x.to(card), torch.empty_like(x, device=card), \
+        torch.empty_like(zi, device=card)
+    before = kernels.iir_df2t.launches
+    kernels.iir_df2t(xc, coef.to(card), zi.to(card), yc, zfc)
+    torch.cuda.synchronize()
+    assert kernels.iir_df2t.launches == before + 1
+    assert torch.equal(yc.cpu(), y) and torch.equal(zfc.cpu(), zf)
+
+
+def test_iir_recurrence_kernel_refusals(card):
+    x = torch.zeros(2, 64, dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match='1 to 16'):
+        kernels.iir_df2t(x, torch.zeros(36, dtype=torch.float64,
+                                        device=card),
+                         torch.zeros(2, 17, dtype=torch.float64, device=card),
+                         torch.empty_like(x),
+                         torch.zeros(2, 17, dtype=torch.float64, device=card))
+    with pytest.raises(ValueError, match='float64 or float32'):
+        kernels.iir_df2t(x, torch.zeros(6, device=card),
+                         torch.zeros(2, 2, dtype=torch.float64, device=card),
+                         torch.empty_like(x),
+                         torch.zeros(2, 2, dtype=torch.float64, device=card))
+
+
+@pytest.mark.parametrize('mode', ['f32', 'int16', 'pair', 'bucketed',
+                                  'bf16', 'f16'])
+def test_dense_window_equals_the_whole_schedule(card, mode):
+    """K1 over windows [row0, row0 + n_out) equals the same columns of its
+    unwindowed launch bit for bit, and its plain version's window within
+    TOL (a narrowed window: the f32 window rounded once): offsets on and
+    off a tile, a ragged last window, a multi-bucket schedule."""
+    chans = [(0.5 * wt.cosPulse(300e-9) >> (0.4e-6 + 0.9e-6 * k))
+             * wt.cos(2 * np.pi * (90e6 + 7e6 * k)) for k in range(3)]
+    low = lower_schedule(chans, 0, 12e-6, 2e9,
+                         part='complex' if mode == 'pair' else 'real',
+                         bucket_samples=8192 if mode == 'bucketed' else None)
+    dev = DeviceSchedule(low, card)
+    C, n = low.shape[0], low.n_samples
+    dtype = {'int16': torch.int16, 'pair': torch.complex64,
+             'bf16': torch.bfloat16, 'f16': torch.float16}.get(
+        mode, torch.float32)
+    scale = (torch.full((C,), 1000.0, device=card) if mode == 'int16'
+             else None)
+    whole = kernels.synth_dense(dev, torch.empty(C, n, dtype=dtype,
+                                                 device=card), scale)
+    for row0 in (0, 128, 8192, 12288, n // 128 * 128 - 1024):
+        n_out = min(5000, -(-n // 128) * 128 - row0)
+        windowed = kernels.synth_dense.windowed_launches
+        got = kernels.synth_dense(dev, torch.empty(C, n_out, dtype=dtype,
+                                                   device=card), scale,
+                                  row0, n_out)
+        # K1's windowed count takes the launches with row0 != 0 only
+        assert kernels.synth_dense.windowed_launches == windowed + (row0 > 0)
+        stop = min(row0 + n_out, n)
+        assert torch.equal(got[:, :stop - row0], whole[:, row0:stop])
+        if mode in ('bf16', 'f16'):
+            f32 = kernels.synth_dense(dev, torch.empty(C, n_out, device=card),
+                                      None, row0, n_out)
+            assert torch.equal(got, f32.to(dtype))
+            continue
+        plain = kernels.synth_dense.plain(
+            DeviceSchedule(low, 'cpu'), torch.empty(C, n_out, dtype=dtype),
+            None if scale is None else scale.cpu(), row0, n_out)
+        if mode == 'int16':
+            assert (got.cpu().int() - plain.int()).abs().max() <= 1
+        elif mode == 'pair':
+            assert rel(got.cpu().real, plain.real) <= TOL
+            assert rel(got.cpu().imag, plain.imag) <= TOL
+        else:
+            assert rel(got.cpu(), plain) <= TOL
+    with pytest.raises(ValueError, match='multiple of 128'):
+        kernels.synth_dense(dev, torch.empty(C, 128, dtype=dtype,
+                                             device=card), scale, 64, 128)
+
+
+def test_demodulate_ignores_the_callers_tf32(card):
+    """An f32 demodulation gives the same IQ points with TF32 on as off:
+    the call runs its products at full f32."""
+    from waveforms_tpu_torch.ops.demod import demod_matrix, demodulate
+    rng = np.random.default_rng(2)
+    sig = torch.tensor(rng.standard_normal((64, 200_000)),
+                       dtype=torch.float32, device=card)
+    m = demod_matrix([11e6, -40e6], 200_000, 2e9, device=card)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = demodulate(sig, m)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = demodulate(sig, m)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(on, off)

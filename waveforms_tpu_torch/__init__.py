@@ -5,9 +5,13 @@ The same lazy symbolic waveform IR and host lowering as ``waveforms_tpu``
 CUDA kernels over the flat descriptor tensors: a dense grid kernel, a
 panel kernel and a worklist kernel that walk only the live subtiles of
 pulse-sparse schedules, a stack kernel over pulse instances, and the double
-tier's float64 dense and panel kernels (``precision='double'``).  Every
-kernel has a plain PyTorch version beside it (:mod:`.ops.reference`,
-:mod:`.ops.reference_hi`), which runs for tensors on the CPU.
+tier's float64 dense and panel kernels (``precision='double'``).  The
+signal chain -- IIR pre-compensation, FFT deconvolution, readout
+demodulation, streaming synthesis and the shot pipeline -- runs on the card
+too (:mod:`.ops`, :mod:`.parallel`), with a recurrence kernel where the
+doubling scan is unstable.  Every kernel has a plain PyTorch version beside
+it (:mod:`.ops.reference`, :mod:`.ops.reference_hi`,
+:mod:`.ops.reference_iir`), which runs for tensors on the CPU.
 
 This package imports ``torch`` and numpy, never ``jax``.
 """
@@ -15,7 +19,7 @@ This package imports ``torch`` and numpy, never ``jax``.
 from numpy import e, pi
 
 from .core import Waveform, WaveVStack, const, one, zero
-from .engine import classify_route, synthesize
+from .engine import classify_route, sample, synthesize
 from .ir.registry import registerBaseFunc, registerDerivative
 from .models import (D, chirp, cos, cosh, coshPulse, cosPulse, cut, drag,
                      drag_sin, drag_sinx, exp, function, gaussian,
@@ -33,7 +37,8 @@ __all__ = [
     'cos', 'cosh', 'coshPulse', 'cosPulse', 'cut',
     'drag', 'drag_sin', 'drag_sinx', 'e', 'exp', 'function', 'gaussian',
     'general_cosine', 'hanning', 'interp', 'mixing', 'mollifier', 'one', 'pi',
-    'poly', 'registerBaseFunc', 'registerDerivative', 'samplingPoints',
+    'poly', 'registerBaseFunc', 'registerDerivative', 'sample',
+    'samplingPoints',
     'sign', 'sin', 'sinc', 'sinh', 'slepian', 'square', 'step', 'synthesize',
     'synthesize_hi', 'synthesize_hi_panels', 'synthesize_hi_routed', 't',
     'zero',

@@ -25,6 +25,11 @@ bf16 and f16 (the f32 sum rounded once at the store), on every route where
 the JAX package takes them: not with ``precision='double'`` or
 ``part='complex'``, and not on a multi-bucket panel, which routes
 elsewhere as in JAX.
+
+:func:`sample` is the engine-selected analog of ``Waveform.sample()``: it
+synthesizes one waveform and applies the SOS filters attached to it, on
+the card (:func:`.ops.iir.iir_apply`) for the kernel engines and with scipy
+on the host for ``'numpy'``.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from .ops.synth import (DeviceSchedule, default_rows_per_tile,
                         normalize_out_dtype, resolve_device,
                         synthesize_device)
 
-__all__ = ['synthesize', 'classify_route', 'ENGINES']
+__all__ = ['synthesize', 'sample', 'classify_route', 'ENGINES']
 
 ENGINES = ('auto', 'cuda', 'cuda-dense', 'cuda-panel', 'cuda-sparse',
            'cuda-stack', 'numpy')
@@ -255,3 +260,36 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
         return synthesize_sparse(dev, plan=plan, out_dtype=dt,
                                  dac_scale=dac_scale)
     return synthesize_device(dev, out_dtype=dt, dac_scale=dac_scale)
+
+
+def sample(wav, sample_rate=None, engine: str = 'auto', device='cuda'):
+    """Engine-selected analog of ``Waveform.sample()``, in the JAX
+    package's argument order (``waveforms_tpu.engine.sample``), then
+    ``device``.
+
+    SOS filters attached to the waveform (``wav.filters = (sos,
+    initial)``) apply on ``device`` in the synthesized signal's dtype for
+    the kernel engines (:func:`.ops.iir.iir_apply`: the doubling scan, or
+    the recurrence kernel where that is unstable) and with scipy on the
+    host for ``engine='numpy'``, which returns an ndarray.
+    """
+    if sample_rate is None:
+        sample_rate = wav.sample_rate
+    if wav.start is None or wav.stop is None or sample_rate is None:
+        raise ValueError('Waveform is not initialized')
+    sig = synthesize([wav], wav.start, wav.stop, sample_rate,
+                     engine=engine, device=device)[0]
+    if wav.filters is None:
+        return sig
+    sos, initial = wav.filters
+    if isinstance(sig, np.ndarray):
+        from scipy.signal import sosfilt as _sosfilt
+        sos = np.asarray(sos, dtype=float)
+        if initial:
+            return _sosfilt(sos, sig - initial) + initial
+        return _sosfilt(sos, sig)
+    from .ops.iir import iir_apply
+    # the kernel engines give f32: the coefficients are rounded to it, as
+    # JAX casts them to the signal's dtype (routing reads the rounded ones)
+    return iir_apply(np.asarray(sos, dtype=float).astype(np.float32), sig,
+                     initial)

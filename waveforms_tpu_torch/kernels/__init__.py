@@ -17,15 +17,17 @@ One wrapper per kernel: :data:`synth_dense` (K1, the dense grid),
 worklist walk), :data:`synth_stack` (K5, pulse instances), its sequenced
 twin :data:`synth_stack_seq` (K6, one launch for a shot vector over stacked
 tables), the double tier's :data:`synth_dense_hi` (K3) and
-:data:`synth_panel_hi` (K4), and the measurement probes of
-``csrc/probes.cu`` (:data:`probe_health`, :data:`probe_grid`,
-:data:`probe_walker`, :data:`probe_sparse_compact`; run by
-:mod:`..probes`).  A wrapper given tensors on the CPU runs the kernel's
-plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`,
-:mod:`..ops.reference_probes`); given CUDA tensors it launches the kernel,
-checks the launch's ``cudaGetLastError()`` and raises on any failure -- it
-never falls back.  Each wrapper counts its kernel launches in
-``launches``.
+:data:`synth_panel_hi` (K4), the signal chain's sequential IIR recurrence
+:data:`iir_df2t` (S1, a port kernel with no Pallas counterpart), and the
+measurement probes of ``csrc/probes.cu`` (:data:`probe_health`,
+:data:`probe_grid`, :data:`probe_walker`, :data:`probe_sparse_compact`;
+run by :mod:`..probes`).  A wrapper given tensors on the CPU runs the
+kernel's plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`,
+:mod:`..ops.reference_iir`, :mod:`..ops.reference_probes`); given CUDA
+tensors it launches the kernel, checks the launch's ``cudaGetLastError()``
+and raises on any failure -- it never falls back.  Each wrapper counts its
+kernel launches in ``launches``; K1's counts those with a window that starts
+after sample 0 again in ``windowed_launches``.
 
 Output kinds: f32; int16 DAC codes with a per-channel f32 scale; bf16 and
 f16, the f32 sum rounded once to nearest even; and, for the three
@@ -46,13 +48,15 @@ from pathlib import Path
 
 import torch
 
-from ..ops import reference, reference_hi, reference_probes
+from ..ops import reference, reference_hi, reference_iir, reference_probes
 
 __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
            'probe_health', 'probe_grid', 'probe_walker',
-           'probe_sparse_compact', 'launch_dense', 'launch_dense_hi',
-           'launch_sparse', 'launch_probe_sparse_compact', 'launch_stack',
+           'probe_sparse_compact', 'iir_df2t', 'iir_df2t_smem_bytes',
+           'launch_dense',
+           'launch_dense_hi', 'launch_sparse', 'launch_probe_sparse_compact',
+           'launch_stack',
            'launch_stack_seq',
            'dense_tile', 'load_library', 'library_path',
            'reset_launch_counts', 'launch_counts', 'KERNELS']
@@ -61,7 +65,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
            'synth_stack.cu', 'synth_stack_seq.cu', 'synth_dense_hi.cu',
-           'synth_panel_hi.cu', 'probes.cu')
+           'synth_panel_hi.cu', 'probes.cu', 'iir_df2t.cu')
 HEADERS = ('synth_common.cuh', 'synth_span.cuh', 'synth_item.cuh',
            'synth_stack_common.cuh', 'synth_hi_common.cuh')
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
@@ -149,7 +153,7 @@ def load_library():
             build_log = _build(path)
         lib = ctypes.CDLL(str(path))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.wf_synth_dense.argtypes = ([P] * 14 + [I] * 5 + [L, L, I]
+        lib.wf_synth_dense.argtypes = ([P] * 14 + [I] * 5 + [L, L, L, L, I]
                                        + [P, I, P, P])
         lib.wf_synth_panel.argtypes = ([P] * 13 + [I] * 5 + [L, L]
                                        + [P] * 5 + [I, I, I, L]
@@ -171,12 +175,15 @@ def load_library():
         lib.wf_probe_walker.argtypes = [I, P, P, P, I, I, I, P, P]
         lib.wf_probe_sparse_compact.argtypes = ([P] * 12 + [I] * 5 + [L, L]
                                                 + [P] * 5 + [I, I, P, P])
+        lib.wf_iir_df2t.argtypes = [P] * 5 + [I, L, I, I, P]
+        lib.wf_iir_df2t_smem_bytes.argtypes = [I]
+        lib.wf_iir_df2t_smem_bytes.restype = I
         for fn in (lib.wf_synth_dense, lib.wf_synth_panel,
                    lib.wf_synth_sparse, lib.wf_synth_stack,
                    lib.wf_synth_stack_seq, lib.wf_synth_dense_hi,
                    lib.wf_synth_panel_hi, lib.wf_probe_health,
                    lib.wf_probe_grid, lib.wf_probe_walker,
-                   lib.wf_probe_sparse_compact):
+                   lib.wf_probe_sparse_compact, lib.wf_iir_df2t):
             fn.restype = I
         lib.wf_error_string.argtypes = [I]
         lib.wf_error_string.restype = ctypes.c_char_p
@@ -273,9 +280,25 @@ class _Kernel:
         return out
 
 
-def dense_tile(d, largest=DENSE_TILE):
+class _DenseKernel(_Kernel):
+    """K1's wrapper: of its launches, those whose window starts after
+    sample 0 (``row0 != 0``) are counted again in ``windowed_launches``."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.windowed_launches = 0
+
+    def __call__(self, dev, out, scale=None, row0=0, n_out=None):
+        result = super().__call__(dev, out, scale, row0, n_out)
+        if out.device.type == 'cuda' and row0:
+            self.windowed_launches += 1
+        return result
+
+
+def dense_tile(d, largest=DENSE_TILE, row0=0):
     """Largest power-of-two tile <= ``largest`` that divides the bucket, so
-    that no tile straddles two buckets."""
+    that no tile straddles two buckets, and the window's offset ``row0`` (a
+    multiple of 128), from which the tiles are placed."""
     tile = largest
     if d.shape[1] > 1:
         while tile > 128 and d.bucket_samples % tile:
@@ -283,6 +306,8 @@ def dense_tile(d, largest=DENSE_TILE):
         if d.bucket_samples % tile:
             raise ValueError(f"bucket_samples {d.bucket_samples} must be a "
                              "multiple of 128")
+    while tile > 128 and row0 % tile:
+        tile //= 2
     return tile
 
 
@@ -290,19 +315,24 @@ def _stream(out):
     return torch.cuda.current_stream(out.device).cuda_stream
 
 
-def launch_dense(d, out, scale=None, lib=None, largest=DENSE_TILE):
-    """Launch K1 on CUDA tensors, uncounted (:data:`synth_dense` counts).
+def launch_dense(d, out, scale=None, row0=0, n_out=None, lib=None,
+                 largest=DENSE_TILE):
+    """Launch K1 on CUDA tensors, uncounted (:data:`synth_dense` counts),
+    over the window [row0, row0 + n_out) of the schedule
+    (:func:`..ops.reference.dense_window`: ``row0`` a multiple of 128,
+    ``n_out`` by default the rest of the schedule; a bad window raises).
     ``lib`` (default: this build) may be another build of
     ``csrc/synth_dense.cu`` with the same C interface, given the largest
     tile its own wrapper passed: an A/B of two builds."""
     C, NB, S, T, F = d.shape
-    kind, desc = _checked(d, True, out, scale, (C, d.n_samples))
+    n_out = reference.dense_window(d, row0, n_out)
+    kind, desc = _checked(d, True, out, scale, (C, n_out))
     lib = lib or load_library()
     with torch.cuda.device(out.device):
         code = lib.wf_synth_dense(
-            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples,
-            dense_tile(d, largest), out.data_ptr(), kind, _ptr(scale),
-            _stream(out))
+            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples, int(row0),
+            n_out, dense_tile(d, largest, int(row0)), out.data_ptr(), kind,
+            _ptr(scale), _stream(out))
     _raise_on(code, 'synth_dense')
 
 
@@ -567,11 +597,49 @@ def launch_probe_sparse_compact(d, work, out, lib=None):
     _raise_on(code, 'probe_sparse_compact')
 
 
-#: K1:``synth_dense(dev, out, scale)`` fills out (C, n_samples)
-synth_dense = _Kernel(
+# csrc/iir_df2t.cu's dtype codes
+_IIR_DTYPES = {torch.float64: 0, torch.float32: 1}
+
+
+def _launch_iir_df2t(x, coef, zi, y, zf):
+    """Launch S1 on CUDA tensors: rows x (R, n) -> y, state zi (R, d) ->
+    zf, coefficients ``coef`` = b then a, d + 1 each."""
+    if x.dim() != 2 or y.shape != x.shape:
+        raise ValueError("x and y are (rows, n) tensors of one shape")
+    d = zi.shape[-1] if zi.dim() == 2 else -1
+    if not 1 <= d <= reference_iir.MAX_STATE:
+        raise ValueError(f"the recurrence kernel takes a state of 1 to "
+                         f"{reference_iir.MAX_STATE} entries, got {d}")
+    if (tuple(zi.shape) != (x.shape[0], d) or zf.shape != zi.shape
+            or tuple(coef.shape) != (2 * (d + 1),)):
+        raise ValueError("zi and zf are (rows, d), coef (2 * (d + 1),)")
+    if x.dtype not in _IIR_DTYPES or any(
+            t.dtype != x.dtype for t in (coef, zi, y, zf)):
+        raise ValueError("the recurrence runs in float64 or float32, every "
+                         "tensor in one of them")
+    _check_cuda({'x': x, 'coef': coef, 'zi': zi, 'y': y, 'zf': zf},
+                y.device)
+    lib = load_library()
+    with torch.cuda.device(y.device):
+        code = lib.wf_iir_df2t(x.data_ptr(), coef.data_ptr(), zi.data_ptr(),
+                               y.data_ptr(), zf.data_ptr(), x.shape[0],
+                               x.shape[1], d, _IIR_DTYPES[x.dtype],
+                               _stream(y))
+    _raise_on(code, 'iir_df2t')
+
+
+def iir_df2t_smem_bytes(dtype) -> int:
+    """The dynamic shared memory S1 takes per thread block for a signal of
+    ``dtype`` (torch.float64 or torch.float32), from this build."""
+    return load_library().wf_iir_df2t_smem_bytes(_IIR_DTYPES[dtype])
+
+
+#: K1:``synth_dense(dev, out, scale, row0=0, n_out=None)`` fills out (C,
+#: n_out) with samples [row0, row0 + n_out) (default: all n_samples)
+synth_dense = _DenseKernel(
     'synth_dense', 'waveforms_tpu_torch/csrc/synth_dense.cu',
     'waveforms_tpu/ops/pallas_synth.py:583', reference.dense_walk,
-    launch_dense)
+    launch_dense, out_at=1)
 
 #: K2: ``synth_panel(dev, work, out, scale)`` fills out (C, window_samples)
 synth_panel = _Kernel(
@@ -641,14 +709,24 @@ probe_sparse_compact = _Kernel(
     reference_probes.sparse_compact, launch_probe_sparse_compact,
     out_at=-1)
 
+#: S1: ``iir_df2t(x, coef, zi, y, zf)``: direct form II transposed over the
+#: rows of x (R, n) into y, state zi (R, d) -> zf; a port kernel with no
+#: Pallas counterpart (it replaces the lax.scan of the JAX package's
+#: ``_sequential_filter``)
+iir_df2t = _Kernel(
+    'iir_df2t', 'waveforms_tpu_torch/csrc/iir_df2t.cu',
+    'waveforms_tpu/ops/iir.py:171', reference_iir.df2t,
+    _launch_iir_df2t, out_at=3)
+
 KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack,
            synth_stack_seq, synth_dense_hi, synth_panel_hi, probe_health,
-           probe_grid, probe_walker, probe_sparse_compact)
+           probe_grid, probe_walker, probe_sparse_compact, iir_df2t)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    synth_dense.windowed_launches = 0
 
 
 def launch_counts() -> dict:

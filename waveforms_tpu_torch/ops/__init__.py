@@ -1,16 +1,27 @@
 """Host lowering, plans and the synthesis entry points over the kernels.
 
 Submodules are imported where they are used; the double tier's entry
-points (:mod:`.hi_synth`) and the sequence tables (:mod:`.sequencer`,
-:mod:`.stack_seq`) are exported here.
+points (:mod:`.hi_synth`), the sequence tables (:mod:`.sequencer`,
+:mod:`.stack_seq`) and the signal chain -- IIR filtering (:mod:`.iir`),
+FFT pipelines (:mod:`.fft`), readout demodulation (:mod:`.demod`) and
+streaming synthesis (:mod:`.streaming`) -- are exported here.
 """
 
+from .demod import demod_matrix, demodulate
+from .fft import (correct_reflection_device, extract_kernel_device,
+                  fft_convolve_centered, reflection_device)
 from .hi_synth import (HI_OPS, HiSchedule, classify_hi_route,
                        synthesize_hi, synthesize_hi_panels,
                        synthesize_hi_routed)
+from .iir import filter_zpk, iir_apply, lfilter, predistort_device, sosfilt
 from .sequencer import Sequencer
 from .stack_seq import StackSequencer
+from .streaming import synthesize_stream
 
 __all__ = ['HI_OPS', 'HiSchedule', 'classify_hi_route', 'synthesize_hi',
            'synthesize_hi_panels', 'synthesize_hi_routed', 'Sequencer',
-           'StackSequencer']
+           'StackSequencer', 'sosfilt', 'lfilter', 'filter_zpk',
+           'iir_apply', 'predistort_device', 'fft_convolve_centered',
+           'reflection_device', 'correct_reflection_device',
+           'extract_kernel_device', 'demod_matrix', 'demodulate',
+           'synthesize_stream']

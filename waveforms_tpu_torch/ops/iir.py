@@ -1,0 +1,362 @@
+"""IIR filtering on the card: doubling scans, and a kernel for the rest.
+
+The port of the JAX package's ``waveforms_tpu/ops/iir.py``; the names map
+one to one, except ``predistort_jax`` -> :func:`predistort_device`.
+
+An IIR filter is a linear recurrence.  Where it is well conditioned, the
+same recurrence runs in O(log n) depth as a doubling scan over affine
+state maps, exactly as the JAX module writes it (XLA code there, plain
+torch here, in the same order of operations: concatenate, ``@``, add):
+each sample contributes ``k * x[n]`` to the direct-form-II-transposed
+state, and level ``j`` of the scan adds ``M^(2^j)`` times the state
+``2^j`` samples back.  Where the doubling scan is numerically unstable
+(clustered near-unit poles, a defective biquad), the JAX module runs the
+direct form as a ``lax.scan``; PyTorch has no scan, so the port runs the
+hand-written recurrence kernel S1 (``csrc/iir_df2t.cu``, through
+``kernels.iir_df2t``; its plain version ``ops/reference_iir.py`` for CPU
+tensors).  The routing is the JAX module's host numpy, copied unchanged
+(:func:`_doubling_unstable` and the defective-section test), so every
+filter takes the route it takes in JAX.
+
+Signals are tensors of any leading batch shape with time on the last axis
+(JAX ``vmap``s a 1-D function over rows; here the batch is written out).
+``zi`` is one state for every row, or one per row.  A signal given as a
+host array goes to ``device`` (default ``'cuda'``, which raises without a
+GPU; pass ``'cpu'`` for the plain versions).  Results keep the signal's
+dtype on every route (JAX's doubling ``lfilter`` promotes an f32 signal
+to f64 through its float64 ``b[0]``; the port does not).
+
+``sosfilt``/``lfilter`` accept and return ``zi``/``zf`` with scipy's
+semantics, for chunked streaming.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .synth import resolve_device
+
+__all__ = ['sosfilt', 'lfilter', 'filter_zpk', 'iir_apply',
+           'predistort_device']
+
+
+def _as_signal(x, device='cuda') -> torch.Tensor:
+    """``x`` itself when it is a tensor, else a tensor of it on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def _like(values, x) -> torch.Tensor:
+    """Host values as a tensor of ``x``'s dtype on ``x``'s device."""
+    if isinstance(values, torch.Tensor):
+        return values.to(dtype=x.dtype, device=x.device)
+    return torch.as_tensor(np.asarray(values)).to(dtype=x.dtype,
+                                                  device=x.device)
+
+
+def _affine_scan_const(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """s[n] = M @ s[n-1] + v[n] (s[-1] = 0) for a CONSTANT recurrence map,
+    over axis -2 of ``v`` (..., n, d).
+
+    At doubling level j the operator is the same ``M^(2^j)`` for every
+    sample, squared once per level on the d x d matrix, so the state sweep
+    is a weighted prefix sum,
+
+        s_j+1[i] = s_j[i] + M^(2^j) @ s_j[i - 2^j],
+
+    O(n d^2 log n) operations through (..., n, d) tensors.  ``v`` is
+    scanned in place and returned (the product of each level is formed in
+    full before it is added), so callers pass a tensor of their own."""
+    n = v.shape[-2]
+    s = v
+    P = M
+    shift = 1
+    while shift < n:
+        s[..., shift:, :] += s[..., :-shift, :] @ P.T
+        P = P @ P
+        shift *= 2
+    return s
+
+
+def _doubling_unstable(M_np: np.ndarray, n: int,
+                       limit: float = 1e6) -> bool:
+    """Host probe: walk the squarings the doubling scan would perform.
+
+    Clustered near-unit poles (multi-exponential precompensation at
+    d >= 3) make the companion matrix highly non-normal: ``M^(2^k)`` has
+    a huge transient before decaying, and every squaring amplifies
+    rounding error by that transient -- at d = 3 with poles ~1e-4 apart,
+    f64 squaring of M^2048 is already wrong in its second digit.  Any
+    power-magnitude excursion past ``limit`` routes to the direct-form
+    recurrence.  (Copied unchanged from the JAX module.)
+    """
+    P = np.asarray(M_np, np.float64)
+    shift = 1
+    while shift < n:
+        if not np.all(np.isfinite(P)) or np.abs(P).max() > limit:
+            return True
+        P = P @ P
+        shift *= 2
+    return False
+
+
+def _ar1_doubling(lam, u: torch.Tensor) -> torch.Tensor:
+    """Prefix scan of the first-order section s[n] = lam*s[n-1] + u[n]
+    along the last axis of ``u``.
+
+    Scalar (or complex-scalar) operator powers ``lam^(2^k)`` carry no
+    companion-matrix cancellation, so doubling is stable for any
+    |lam| <= 1; each level adds true partial sums with coefficients
+    bounded by 1.  The powers are squared in ``u``'s dtype, as JAX does.
+    ``u`` is scanned in place and returned: callers pass a tensor of their
+    own.
+    """
+    s = u
+    p = torch.tensor(lam, dtype=u.dtype, device=u.device)
+    shift = 1
+    n = u.shape[-1]
+    while shift < n:
+        s[..., shift:] += p * s[..., :-shift]
+        p = p * p
+        shift *= 2
+    return s
+
+
+def _delay(y: torch.Tensor, k: int = 1) -> torch.Tensor:
+    return torch.cat([y.new_zeros(y.shape[:-1] + (k,)), y[..., :-k]], -1)
+
+
+def filter_zpk(z, p, k, x, device='cuda') -> torch.Tensor:
+    """Numerically stable parallel IIR from the FACTORED (zpk) form.
+
+    H(z) = k * prod (1 - z_i/z) / (1 - p_i/z), applied as a series of
+    first-order sections: real poles as real AR1 doubling scans, complex
+    pairs as a complex AR1 scan (complex128 for an f64 signal, complex64
+    for f32) followed by its conjugate, zeros as 1- or 2-tap FIR sections,
+    each pole next to the zero that nearly cancels it.  Zero initial state.
+    The parallel path for clustered-pole pre-compensation: keep the
+    factored form end to end (``exp_decay_filter(..., output='zpk')``).
+    """
+    x = _as_signal(x, device)
+    z = np.atleast_1d(np.asarray(z, complex))
+    p = np.atleast_1d(np.asarray(p, complex))
+    if abs(np.imag(k)) > 1e-12 * max(1.0, abs(k)):
+        raise ValueError(f"filter_zpk gain must be real, got {k!r}")
+    g = float(np.real(k))
+
+    def split(roots):
+        real, cplx, neg = [], [], []
+        for r in roots:
+            if abs(r.imag) <= 1e-12 * max(1.0, abs(r)):
+                real.append(float(r.real))
+            elif r.imag > 0:
+                cplx.append(complex(r))
+            else:
+                neg.append(complex(np.conj(r)))
+        # a real transfer function needs conjugate symmetry; silently
+        # dropping an unpaired root would yield a wrong filter
+        key = lambda c: (c.real, c.imag)                     # noqa: E731
+        pos_s, neg_s = sorted(cplx, key=key), sorted(neg, key=key)
+        if len(pos_s) != len(neg_s) or any(
+                abs(a - b) > 1e-9 * max(1.0, abs(a))
+                for a, b in zip(pos_s, neg_s)):
+            raise ValueError(
+                "filter_zpk requires conjugate-symmetric roots (real "
+                f"transfer function); got {list(roots)}")
+        return real, cplx
+
+    zr, zc = split(z)
+    pr, pc = split(p)
+    zr.sort(reverse=True)
+    pr.sort(reverse=True)
+    zc.sort(key=lambda c: -c.real)
+    pc.sort(key=lambda c: -c.real)
+
+    y = x * g                       # a tensor of our own from here on
+    for i in range(max(len(pr), len(zr))):
+        if i < len(zr):
+            y = y - zr[i] * _delay(y)
+        if i < len(pr):
+            y = _ar1_doubling(pr[i], y)
+    cdt = torch.complex128 if x.dtype == torch.float64 else torch.complex64
+    for i in range(max(len(pc), len(zc))):
+        if i < len(zc):
+            zeta = zc[i]
+            y = (y - 2 * zeta.real * _delay(y)
+                 + abs(zeta) ** 2 * _delay(y, 2))
+        if i < len(pc):
+            lam = pc[i]
+            yc = _ar1_doubling(lam, y.to(cdt))
+            yc = _ar1_doubling(np.conj(lam), yc)
+            y = yc.real.to(x.dtype)
+    return y
+
+
+def _sequential_filter(bb: np.ndarray, aa: np.ndarray, x: torch.Tensor,
+                       zi0: torch.Tensor):
+    """Direct form II transposed, exact scipy semantics including zi/zf,
+    O(n) sequential depth: the recurrence kernel S1 over the rows of ``x``
+    (JAX: a ``lax.scan``).  The correctness fallback where the doubling
+    scan is numerically unstable: (b, a) coefficient semantics can only be
+    reproduced by direct-form arithmetic (see :func:`filter_zpk`)."""
+    from .. import kernels
+    d = len(bb) - 1
+    lead, n = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, n).contiguous()
+    zi = zi0.expand(lead + (d,)).reshape(-1, d).contiguous()
+    coef = _like(np.concatenate([bb, aa]), x)
+    y = torch.empty_like(rows)
+    zf = torch.empty_like(zi)
+    kernels.iir_df2t(rows, coef, zi, y, zf)
+    return y.reshape(x.shape), zf.reshape(lead + (d,))
+
+
+def _doubling_df2t(M: torch.Tensor, k: torch.Tensor, b0, x: torch.Tensor,
+                   zi: torch.Tensor):
+    """Direct form II transposed by the doubling scan:
+    s[n] = M s[n-1] + k x[n], y[n] = b0 x[n] + s0[n-1], from state ``zi``
+    injected through the first element -> (y, zf)."""
+    zi = zi.expand(x.shape[:-1] + zi.shape[-1:])
+    vs = x[..., None] * k
+    vs[..., 0, :] += zi @ M.T
+    s = _affine_scan_const(M, vs)
+    s0_prev = torch.cat([zi[..., :1], s[..., :-1, 0]], -1)
+    y = b0 * x + s0_prev
+    return y, s[..., -1, :]
+
+
+def _biquad(x, b, a, zi):
+    """One second-order section (direct form II transposed), parallel in n.
+
+    State s = (z0, z1):
+        y[n]  = b0 x[n] + z0[n-1]
+        z0[n] = b1 x[n] - a1 y[n] + z1[n-1]
+        z1[n] = b2 x[n] - a2 y[n]
+    which is affine in s with a *constant* M.  ``b``, ``a`` are host
+    tensors of ``x``'s dtype; M and k are formed in it, as JAX forms them.
+    """
+    b0, b1, b2 = b[0], b[1], b[2]
+    a1, a2 = a[1], a[2]
+    M = torch.stack([torch.stack([-a1, torch.ones_like(a1)]),
+                     torch.stack([-a2, torch.zeros_like(a2)])])
+    k = torch.stack([b1 - a1 * b0, b2 - a2 * b0])
+    return _doubling_df2t(_like(M, x), _like(k, x), b0.to(x.device), x, zi)
+
+
+def _defective(a_np) -> bool:
+    """A DEFECTIVE near-unit section (repeated root at |r| ~ 1, e.g. the
+    matched-z transform of a double pole) grows only linearly -- under the
+    norm limit -- yet its non-diagonalizable powers still amplify scan
+    rounding to ~1e-3 over 1e5 samples; caught by the discriminant.
+    (The JAX module's test, unchanged.)"""
+    disc = a_np[1] ** 2 - 4.0 * a_np[2]
+    return bool(abs(disc) <= 1e-9 * max(1.0, a_np[1] ** 2)
+                and np.abs(np.roots([1.0, a_np[1], a_np[2]])).max()
+                > 1.0 - 1e-4)
+
+
+def sosfilt(sos, x, zi=None, device='cuda'):
+    """Cascaded second-order sections, scipy-compatible, over the last axis
+    of ``x``.
+
+    sos: (n_sections, 6).  With ``zi`` of shape (n_sections, 2) or
+    (..., n_sections, 2), returns ``(y, zf)`` with zf (..., n_sections, 2);
+    without, returns ``y`` (zero initial state).  A section whose doubling
+    scan would be unstable runs the recurrence kernel instead, as the JAX
+    module routes it.
+    """
+    x = _as_signal(x, device)
+    sos_np = np.asarray(sos.cpu() if isinstance(sos, torch.Tensor) else sos,
+                        dtype=float)
+    sos_x = torch.as_tensor(sos_np).to(x.dtype)      # JAX: sos in x.dtype
+    return_zf = zi is not None
+    zi = (x.new_zeros((sos_np.shape[0], 2)) if zi is None
+          else _like(zi, x))
+    n = x.shape[-1]
+    zf = []
+    for k in range(sos_np.shape[0]):
+        a_np = sos_np[k, 3:] / sos_np[k, 3]
+        M_np = np.array([[-a_np[1], 1.0], [-a_np[2], 0.0]])
+        if _defective(a_np) or _doubling_unstable(M_np, n):
+            b_np = sos_np[k, :3] / sos_np[k, 3]
+            x, z = _sequential_filter(b_np, a_np, x, zi[..., k, :])
+        else:
+            x, z = _biquad(x, sos_x[k, :3] / sos_x[k, 3],
+                           sos_x[k, 3:] / sos_x[k, 3], zi[..., k, :])
+        zf.append(z)
+    if return_zf:
+        return x, torch.stack(zf, -2)
+    return x
+
+
+def lfilter(b, a, x, zi=None, device='cuda'):
+    """General (b, a) IIR over the last axis of ``x``: direct form II
+    transposed with state dimension ``max(len(a), len(b)) - 1``, by the
+    doubling scan or, where that is unstable, the recurrence kernel;
+    scipy-compatible ``zi`` (d,) or (..., d) and ``zf``.
+    """
+    x = _as_signal(x, device)
+    b = np.atleast_1d(np.asarray(b, dtype=float))
+    a = np.atleast_1d(np.asarray(a, dtype=float))
+    d = max(len(a), len(b)) - 1
+    bb = np.zeros(d + 1)
+    aa = np.zeros(d + 1)
+    bb[:len(b)] = b / a[0]
+    aa[:len(a)] = a / a[0]
+
+    return_zf = zi is not None
+    zi0 = x.new_zeros((d,)) if zi is None else _like(zi, x)
+
+    if d == 0:
+        y = bb[0] * x
+        return (y, zi0) if return_zf else y
+
+    # s[n] = M s[n-1] + k x[n];  y[n] = b0 x[n] + s0[n-1]
+    M = np.zeros((d, d))
+    M[:, 0] = -aa[1:]
+    M[:-1, 1:] = np.eye(d - 1)
+    k = bb[1:] - aa[1:] * bb[0]
+
+    if _doubling_unstable(M, x.shape[-1]):
+        # clustered near-unit poles: doubling diverges numerically, and no
+        # factored realization reproduces (b, a) semantics either, so the
+        # exact direct form runs sequentially; callers who hold the
+        # factored form should use filter_zpk, both stable and parallel
+        y, zf = _sequential_filter(bb, aa, x, zi0)
+    else:
+        y, zf = _doubling_df2t(_like(M, x), _like(k, x), float(bb[0]), x,
+                               zi0)
+    return (y, zf) if return_zf else y
+
+
+def iir_apply(sos, x, initial: float = 0.0, device='cuda'):
+    """The Waveform.sample() filter contract: subtract/restore a DC
+    level."""
+    x = _as_signal(x, device)
+    if initial:
+        return sosfilt(sos, x - initial) + initial
+    return sosfilt(sos, x)
+
+
+def predistort_device(sig, filters=None, ker=None, initial: float = 0.0,
+                      device='cuda'):
+    """Predistortion on the card: cascaded (b, a) filters + FFT kernel
+    (JAX: ``predistort_jax``).
+
+    Mirrors :func:`waveforms_tpu_torch.distortion.predistort` (steady-state
+    ``initial`` handling included) with the doubling scan or the recurrence
+    kernel, and ``torch.fft``, instead of scipy.
+    """
+    sig = _as_signal(sig, device)
+    if filters is not None:
+        from ..distortion import _steady_state_zi, combine_filters
+        b, a = combine_filters(filters)
+        zi = _steady_state_zi(b, a, initial, None, None)
+        sig, _ = lfilter(b, a, sig, zi=zi)
+    if ker is None:
+        return sig
+    from .fft import fft_convolve_centered
+    return fft_convolve_centered(sig, _like(ker, sig))

@@ -29,8 +29,8 @@ from .lowering import (DRAG_SIN_NC, DRAG_SINX_MAXQ, OP_COS, OP_COSH, OP_DRAG,
                        OP_LINEARCHIRP, OP_MOLLIFIER, OP_POLY_GAUSS, OP_SINC,
                        OP_SINH, W_ARGS)
 
-__all__ = ['op_builders', 'dense_walk', 'panel_walk', 'sparse_walk',
-           'stack_eval', 'stack_seq_eval', 'wrap32']
+__all__ = ['op_builders', 'dense_window', 'dense_walk', 'panel_walk',
+           'sparse_walk', 'stack_eval', 'stack_seq_eval', 'wrap32']
 
 _F32 = torch.float32
 # f32 constants, exactly as the JAX kernel spells them (np.float32 values)
@@ -437,27 +437,51 @@ def _store(accs, out, scale):
     return out
 
 
-def dense_walk(d, out, scale=None):
-    """Plain version of the dense kernel: fill ``out`` (C, n_samples), f32,
-    int16 (``scale`` per channel) or, in pair mode, complex64, from
-    DeviceSchedule ``d``.
+def dense_window(d, row0=0, n_out=None) -> int:
+    """The dense kernel's window over schedule ``d``: samples [row0, row0 +
+    n_out), ``n_out`` defaulting to the rest of the schedule -> n_out.
+    ``row0`` is a non-negative multiple of 128 (the kernel places its tiles
+    from it), and the window ends at most at ``n_samples`` rounded up to
+    whole 128-sample rows, as the TPU kernel's ``n_rows * 128``; anything
+    else raises, never clamped."""
+    row0 = int(row0)
+    if row0 < 0 or row0 % 128:
+        raise ValueError(f"row0 {row0} must be a non-negative multiple of "
+                         "128")
+    n_out = d.n_samples - row0 if n_out is None else int(n_out)
+    if n_out < 0 or row0 + n_out > -(-d.n_samples // 128) * 128:
+        raise ValueError(f"window [{row0}, {row0 + n_out}) is outside the "
+                         f"schedule's {d.n_samples} samples (rounded up to "
+                         "whole 128-sample rows)")
+    return n_out
+
+
+def dense_walk(d, out, scale=None, row0=0, n_out=None):
+    """Plain version of the dense kernel: fill ``out`` (C, n_out), f32,
+    int16 (``scale`` per channel) or, in pair mode, complex64, with samples
+    [row0, row0 + n_out) of DeviceSchedule ``d`` (:func:`dense_window`;
+    by default the whole schedule).
 
     Sample i reads bucket ``min(i // bucket_samples, NB - 1)``; slots are
     added in ascending order, so each sample sums its segments in the
     bucket's lo-sorted order, as the kernel does."""
     C, NB, S, T, F = d.shape
-    n = d.n_samples
+    n_out = dense_window(d, row0, n_out)
+    if tuple(out.shape) != (C, n_out):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected "
+                         f"{(C, n_out)}")
+    w0, w1 = int(row0), int(row0) + n_out
     dev = d.seg_lo.device
     accs = _planes(out, d.amp_im is not None)
     cc = torch.arange(C, device=dev).repeat_interleave(NB)
     bb = torch.arange(NB, device=dev).repeat(C)
     if NB > 1:
-        b_lo = bb * d.bucket_samples
-        b_hi = torch.clamp(b_lo + d.bucket_samples, max=n)
-        b_hi = torch.where(bb == NB - 1, n, b_hi)
+        b_lo = torch.clamp(bb * d.bucket_samples, min=w0)
+        b_hi = torch.clamp((bb + 1) * d.bucket_samples, max=w1)
+        b_hi = torch.where(bb == NB - 1, w1, b_hi)
     else:
-        b_lo = torch.zeros_like(bb)
-        b_hi = torch.full_like(bb, n)
+        b_lo = torch.full_like(bb, w0)
+        b_hi = torch.full_like(bb, w1)
     for s in range(S):
         lo = d.seg_lo[:, :, s].reshape(-1).to(torch.int64)
         hi = d.seg_hi[:, :, s].reshape(-1).to(torch.int64)
@@ -469,7 +493,7 @@ def dense_walk(d, out, scale=None):
             continue
         a, e = a[live], e[live]
         _accumulate(d, accs, cc[live], bb[live], torch.full_like(a, s), a, e,
-                    a)
+                    a - w0)
     return _store(accs, out, scale)
 
 

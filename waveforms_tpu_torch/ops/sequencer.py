@@ -36,8 +36,9 @@ table of ``play_packed``, ``PANEL_WORK_SMEM_BUDGET`` on its worklist,
 ``PALLAS_EXT_MAX`` on the merged ext buffer, and the byte half of
 ``LoweredSchedule.pallas_ok``.  The refusal that stays is what the kernels
 can evaluate: a schedule with an opcode outside ``PALLAS_OPS`` raises
-:class:`.lowering.UnsupportedFactor`.  ``parallel/pipeline.run_sequence``
-(the shot pipeline with filters and demodulation) is not ported yet.
+:class:`.lowering.UnsupportedFactor`.  The shot pipeline with filters and
+demodulation over a table is
+:func:`waveforms_tpu_torch.parallel.run_sequence`.
 """
 
 from __future__ import annotations

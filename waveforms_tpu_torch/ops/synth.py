@@ -104,13 +104,17 @@ def validate_out_mode(out_dtype, n_channels, dac_scale, device,
     return dt, dac_scale_tensor(dt, dac_scale, n_channels, device)
 
 
-def default_rows_per_tile(n_samples, bucket_samples=0, n_buckets=1):
+def default_rows_per_tile(n_samples, bucket_samples=0, n_buckets=1,
+                          divides=0):
     """The JAX dense grid's tile height for this schedule (largest power of
-    two <= 256 fitting the bucket and the sample count); used by routing."""
+    two <= 256 that divides the bucket, divides an enclosing chunk of
+    ``divides`` rows (streaming), and fits the sample count); used by
+    routing and by the streaming generator's argument checks."""
     R = TUNED_ROWS_PER_TILE
     while R > 8:
         tile = R * 128
         if ((n_buckets <= 1 or bucket_samples % tile == 0)
+                and (not divides or divides % R == 0)
                 and 2 * n_samples >= tile):
             return R
         R //= 2

@@ -1,1 +1,2 @@
-"""Host utilities of the port (LaTeX formatting for :mod:`..core`)."""
+"""Host utilities of the port (LaTeX formatting for :mod:`..core`, and
+the signal helpers of :mod:`.signal`)."""
