@@ -67,8 +67,11 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    ``lfilter`` of the clustered three-pole filter (the recurrence kernel
    S1) and ``filter_zpk`` of it, a 31-tap Hann ``fft_convolve_centered``
    and ``demodulate`` at the two readout tones, each against scipy on 4
-   seeded rows with its route and device time, then S1 against its plain
-   version on (8, 20,000) rows; ``stream_flagship`` -- ``synthesize_stream``
+   seeded rows with its route and device time, then S1 (a blocked scan)
+   against its plain version over the first chunk and the plain model of
+   its arithmetic beyond, on the main path's rows and on (8, 20,000) rows,
+   and timed alone on the Z-settle pair; ``stream_flagship`` --
+   ``synthesize_stream``
    in chunks of 512 rows (31 K1 windows a pass), f32 equal to one-shot K1
    bit for bit, filtered against the port's whole-row ``sosfilt`` and
    scipy, int16 codes equal to one-shot K1's; ``seq_station_chain`` --
@@ -93,8 +96,9 @@ plain version that waits on the card) is timed unqueued, and the
 bound: the larger of the bytes its call must move (inputs read once,
 the output written once) over the card's HBM rate and the operations that call needs (counted from the
 descriptors, ``OP_COST``) over the FP32 (FP64 for K3/K4) peak; S1's are
-the flagship rows read and written once and its multiply-adds over the FP64
-peak (no PyTorch call computes an IIR recurrence).  The probe
+the flagship rows read and written once and the sequential recurrence's
+multiplies and adds over the FP64 peak (no PyTorch call computes an IIR
+recurrence), its entry also the blocked design's own floor.  The probe
 kernels' entries time one variant each (P2 ``op13_dyn``, P3 ``base``);
 ``library_ms`` is ``torch.mul`` for P4 and null for the rest (no PyTorch
 call computes a table-read-and-fill probe or a descriptor walk).
@@ -191,6 +195,52 @@ def cuda_ms(fn, reps=REPS, warm_s=0.05):
     reads up to 1.5x slow."""
     from waveforms_tpu_torch.probes import cuda_ms as median_ms
     return median_ms(fn, reps, warm_s)
+
+
+def traced_kernels(fn, pattern, reps=10):
+    """The CUDA kernels one call of ``fn`` launches whose names match the
+    regular expression ``pattern``, from torch.profiler's trace of ``reps``
+    calls after an untraced one: {'kernels': {name: [launches a call,
+    device ms a launch]}, 'calls_traced': n, 'reps': reps}, or None where
+    the trace holds no such kernel.  Each call is followed on its stream
+    by a one-element add, the trace's only other kernel, which closes the
+    call's window; a kernel's launches a call are the most common count of
+    it in a window, its time the median of its launches: a trace can lose
+    a single kernel's record (one launch in ten on an H100)."""
+    import collections
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mark = torch.zeros(1, device='cuda')
+
+    def call():
+        fn()
+        mark.add_(1)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    windows, now, us = [], collections.Counter(), collections.defaultdict(list)
+    for ev in sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start):
+        m = re.search(pattern, ev.name)
+        if m is None:
+            windows.append(now)
+            now = collections.Counter()
+            continue
+        now[m.group(0)] += 1
+        us[m.group(0)].append(ev.time_range.elapsed_us())
+    if not us or not windows:
+        return None
+    return {'kernels': {k: [statistics.mode(w[k] for w in windows),
+                            statistics.median(v) / 1e3]
+                        for k, v in us.items()},
+            'calls_traced': len(windows), 'reps': reps}
 
 
 def input_bytes(*objs):
@@ -1999,9 +2049,9 @@ def run_probes(fail, summary):
 # The signal chain's filters (tests/test_station_e2e.py, test_ops_iir_fft.py):
 # the station's Z-settle inverse pair (d = 2 combined: the doubling scan),
 # the clustered three-pole exp-settling filter (d = 3: the recurrence kernel
-# S1 as (b, a), the parallel scan as zpk), and the readout tones FR - READ_LO.
+# S1 as (b, a), the parallel scan as zpk; ops/iir_cases.py's CLUSTERED), and
+# the readout tones FR - READ_LO.
 Z_SETTLE = ([0.02, 0.005], [3e-6, 20e-6])
-CLUSTERED = ([0.02, 0.008, 0.004], [2e-6, 9e-6, 30e-6])
 TONES = [6.87836e9 - 6.99e9, 6.92248e9 - 6.99e9]
 # vs scipy on the host, of each row's peak.  The doubling scan's bound is
 # set by the JAX package's own accuracy there: its doubling lfilter of the
@@ -2016,12 +2066,19 @@ TOL_DIRECT_FORM = 1e-5
 TOL_ZPK = 2e-8
 TOL_FFT = 1e-9
 TOL_DEMOD = 1e-4       # IQ points, of their peak (tests/test_station_e2e.py)
-TOL_S1 = {'butter5': 1e-12, 'near_unit_double_pole': 1e-12,
-          'clustered': 1e-9}  # S1 vs its plain version, of the peak
-# S1 on the main path's rows: the first S1_COLS columns of all 128 rows,
-# against its plain version over them.  The filter is causal and both run
-# the same operations in the same order, so they agree bit for bit.
+# S1 is a blocked scan (csrc/iir_df2t.cu): chunks of kernels.iir_df2t_chunk()
+# samples, the state carried across them in double-double.  Its contract:
+# the first chunk of every row equal to its plain sequential version
+# (reference_iir.df2t) bit for bit; every output and final state equal to
+# the plain model of its arithmetic (reference_iir.df2t_blocked) bit for
+# bit, here over the first S1_COLS columns of the main path's 128 rows (the
+# filter and the carry are causal, so those columns do not depend on the
+# rest); no farther from scipy's lfilter in np.longdouble than TOL_S1_LD
+# times the sequential recurrence, or TOL_S1_FLOOR where that is larger
+# (distances as rows_err); and the direct-form bound against scipy.
 S1_COLS = 20_000
+TOL_S1_LD = 2.0
+TOL_S1_FLOOR = 1e-13
 TOL_STREAM_SOS = 1e-9  # streamed sosfilt vs the whole row's, of the peak
 TOL_STREAM_HOST = 2e-7  # absolute, vs scipy (tests/test_streaming.py)
 
@@ -2041,45 +2098,80 @@ def rows_err(got, want):
 
 def s1_rows(b, a, x):
     """Normalised coefficients of (b, a) and a zero state for S1 over x."""
-    import numpy as np
     import torch
-    b = np.asarray(b, float) / a[0]
-    a = np.asarray(a, float) / a[0]
-    coef = torch.tensor(np.concatenate([b, a]), dtype=x.dtype,
-                        device=x.device)
-    zi = torch.zeros((x.shape[0], len(a) - 1), dtype=x.dtype,
-                     device=x.device)
-    return coef, zi
+
+    from waveforms_tpu_torch.ops import iir_cases
+    coef = iir_cases.coefficients(b, a, x.dtype, x.device)
+    return coef, torch.zeros((x.shape[0], len(coef) // 2 - 1),
+                             dtype=x.dtype, device=x.device)
+
+
+def long_double(coef, rows):
+    """scipy's lfilter of numpy rows in np.longdouble (80-bit on x86) with
+    S1's normalised coefficients ``coef`` (b then a), from a zero state."""
+    import numpy as np
+    import scipy.signal as sps
+    c = coef.double().cpu().numpy().astype(np.longdouble)
+    d = len(c) // 2 - 1
+    return [sps.lfilter(c[:d + 1], c[d + 1:], h.astype(np.longdouble))
+            for h in rows]
+
+
+def s1_contract(y, zf, x, coef, zi, y_plain, zf_plain):
+    """S1's outputs ``y``, ``zf`` over rows ``x`` against its contract's
+    bit-equalities on the card: the first chunk against the plain
+    sequential version's outputs ``y_plain``, ``zf_plain`` over the same
+    rows, and y and zf against the plain model of the blocked arithmetic
+    -> record, with the largest absolute difference from each
+    (``max_abs_err`` from the plain version over every column and the
+    final state)."""
+    import torch
+
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.ops import reference_iir
+    L = kernels.iir_df2t_chunk()
+    m = min(L, x.shape[1])
+    yb, zfb = torch.empty_like(x), torch.empty_like(zi)
+    reference_iir.df2t_blocked(x, coef, zi, yb, zfb, L)
+    rec = {'shape': list(x.shape), 'chunk': L,
+           'first_chunk_equal': bool(torch.equal(y[:, :m],
+                                                 y_plain[:, :m])),
+           'model_equal': bool(torch.equal(y, yb) and torch.equal(zf, zfb)),
+           'max_abs_err': float(max((y - y_plain).abs().max(),
+                                    (zf - zf_plain).abs().max())),
+           'max_abs_err_vs_model': float(max((y - yb).abs().max(),
+                                             (zf - zfb).abs().max()))}
+    rec['ok'] = rec['first_chunk_equal'] and rec['model_equal']
+    return rec
 
 
 def s1_main_check(coef, zi, x, y_main):
-    """S1 against its plain version on the main path's rows: the plain
-    recurrence over the first S1_COLS columns of every row of x, from the
-    state zi, against those columns of the main path's output ``y_main``,
-    and against an S1 launch on the same columns with its final state
-    -> (record, the plain output)."""
+    """S1 on the main path's rows: its plain version (timed) and the plain
+    model of its arithmetic over the first S1_COLS columns of every row of
+    x, held to those columns of the main path's output ``y_main`` and to
+    an S1 launch on them with its final state -> (record, the plain
+    version's and the launch's outputs over those columns)."""
     import torch
 
     from waveforms_tpu_torch import kernels
     xk = x[:, :S1_COLS].contiguous()
+    L = kernels.iir_df2t_chunk()
     yp, zfp = torch.empty_like(xk), torch.empty_like(zi)
-    kernels.iir_df2t.plain(xk, coef, zi, yp, zfp)
+    plain_ms = cuda_ms(lambda: kernels.iir_df2t.plain(xk, coef, zi, yp, zfp),
+                       reps=1)
     yk, zfk = torch.empty_like(xk), torch.empty_like(zi)
     kernels.iir_df2t(xk, coef, zi, yk, zfk)
+    rec = {'launch': s1_contract(yk, zfk, xk, coef, zi, yp, zfp)}
     head = y_main[:, :S1_COLS]
-    rec = {'shape': list(xk.shape),
-           'main_path_equal': bool(torch.equal(head, yp)),
-           'launch_equal': bool(torch.equal(yk, yp)),
-           'zf_equal': bool(torch.equal(zfk, zfp)),
-           'max_abs_err': float(max((head - yp).abs().max(),
-                                    (yk - yp).abs().max(),
-                                    (zfk - zfp).abs().max())),
-           'plain_ms': cuda_ms(lambda: kernels.iir_df2t.plain(
-               xk, coef, zi, torch.empty_like(xk), torch.empty_like(zi)),
-               reps=1)}
-    rec['ok'] = (rec['main_path_equal'] and rec['launch_equal']
-                 and rec['zf_equal'])
-    return rec, yp
+    rec['main_path'] = {'first_chunk_equal': bool(torch.equal(head[:, :L],
+                                                              yp[:, :L])),
+                        'equal_to_launch': bool(torch.equal(head, yk)),
+                        'max_abs_err': float((head - yk).abs().max())}
+    rec['main_path']['ok'] = (rec['main_path']['first_chunk_equal']
+                              and rec['main_path']['equal_to_launch'])
+    rec['plain_ms'] = plain_ms
+    rec['ok'] = rec['launch']['ok'] and rec['main_path']['ok']
+    return rec, yp, yk
 
 
 def signal_flagship(fail, summary):
@@ -2089,10 +2181,12 @@ def signal_flagship(fail, summary):
     then the Z-settle output through a 31-tap Hann FFT convolution and
     demodulated against the two readout tones -> (128, 2).  Each stage is
     a main path with its counts read right after it; each against scipy on
-    4 seeded rows.  S1 against its plain version on the main path's rows
-    (s1_main_check) and on (8, 20,000) random rows; S1's summary entry
-    timed on the flagship's rows, its output held to the plain version's
-    over the first S1_COLS columns."""
+    4 seeded rows, S1's also against the long-double answer.  S1 against
+    its contract on the main path's rows (s1_main_check) and on (8,
+    20,000) random rows; S1's summary entry timed on the flagship's rows,
+    its output held to the main path's over the first S1_COLS columns; S1
+    timed alone on the Z-settle pair, which lfilter sends to the doubling
+    scan, against scipy and the long-double answer."""
     import numpy as np
     import scipy.signal as sps
     import torch
@@ -2103,14 +2197,15 @@ def signal_flagship(fail, summary):
                                                 exp_decay_filter)
     from waveforms_tpu_torch.ops import (demod_matrix, demodulate,
                                          fft_convolve_centered, filter_zpk,
-                                         lfilter, predistort_device)
+                                         iir_cases, lfilter,
+                                         predistort_device)
     from waveforms_tpu_torch.schedules import FS, build_schedule
     from waveforms_tpu_torch.utils.signal import getFTMatrix
 
     b_s, a_s = combine_filters([exp_decay_filter(a, t, FS, inv=True)
                                 for a, t in zip(*Z_SETTLE)])
-    b_c, a_c = exp_decay_filter(*CLUSTERED, FS, output='ba')
-    z_c, p_c, k_c = exp_decay_filter(*CLUSTERED, FS, output='zpk')
+    b_c, a_c = exp_decay_filter(*iir_cases.CLUSTERED, FS, output='ba')
+    z_c, p_c, k_c = exp_decay_filter(*iir_cases.CLUSTERED, FS, output='zpk')
     hann = sps.windows.hann(31)
     hann /= hann.sum()
     chans = build_schedule()
@@ -2150,8 +2245,16 @@ def signal_flagship(fail, summary):
         ok &= stage['ok']
         if name == 'lfilter_clustered':
             coef_c, zi_c = s1_rows(b_c, a_c, x)
-            s1_main, yp_main = s1_main_check(coef_c, zi_c, x, out)
-            rec['s1_main_path_vs_plain'] = s1_main
+            truth = long_double(coef_c, host)
+            stage['vs_long_double'] = rows_err(out[rows].cpu().numpy(),
+                                               truth)
+            stage['scipy_vs_long_double'] = rows_err(
+                [ref(h) for h in host], truth)
+            stage['ok'] &= stage['vs_long_double'] <= max(
+                TOL_S1_LD * stage['scipy_vs_long_double'], TOL_S1_FLOOR)
+            ok &= stage['ok']
+            s1_main, yp_main, yk_main = s1_main_check(coef_c, zi_c, x, out)
+            rec['s1_main_path_contract'] = s1_main
             ok &= s1_main['ok']
         if name == 'lfilter_z_settle':
             settled = out
@@ -2202,60 +2305,111 @@ def signal_flagship(fail, summary):
         'doubling_scan_ms': rec['lfilter_z_settle']['ms']}
     torch.cuda.empty_cache()
 
-    # S1 against its plain version on the card
+    # S1 against its contract on random rows, three filters
     rng = np.random.default_rng(12)
     xs = torch.tensor(rng.standard_normal((8, 20_000)), device='cuda')
-    r = 1 - 1e-8
     s1 = {}
-    for name, (b, a) in {
-            'butter5': sps.butter(5, 0.15),
-            'near_unit_double_pole': ([1.0, 0.0, 0.0], [1.0, -2 * r, r * r]),
-            'clustered': (b_c, a_c)}.items():
+    for name, (b, a) in iir_cases.filters().items():
         coef, zi = s1_rows(b, a, xs)
         y, zf = torch.empty_like(xs), torch.empty_like(zi)
         kernels.iir_df2t(xs, coef, zi, y, zf)
         yp, zfp = torch.empty_like(xs), torch.empty_like(zi)
         kernels.iir_df2t.plain(xs, coef, zi, yp, zfp)
-        err = rel_err_t(y, yp)
-        s1[name] = {'vs_plain': err, 'tol': TOL_S1[name],
-                    'zf_equal': bool(torch.equal(zf, zfp)),
-                    'max_abs_err': float((y - yp).abs().max())}
-        s1[name]['ok'] = bool(err <= TOL_S1[name])
+        s1[name] = s1_contract(y, zf, xs, coef, zi, yp, zfp)
+        truth = long_double(coef, xs.cpu().numpy())
+        s1[name].update(
+            vs_plain=rel_err_t(y, yp),
+            vs_long_double=rows_err(y.cpu().numpy(), truth),
+            plain_vs_long_double=rows_err(yp.cpu().numpy(), truth))
+        s1[name]['ok'] = bool(s1[name]['ok'] and s1[name]['vs_long_double']
+                              <= max(TOL_S1_LD
+                                     * s1[name]['plain_vs_long_double'],
+                                     TOL_S1_FLOOR))
         ok &= s1[name]['ok']
     rec['s1_vs_plain'] = s1
     # S1 on the flagship's rows: the clustered filter, 128 x 2,000,000 f64,
-    # its first S1_COLS columns against the plain version's
+    # its first S1_COLS columns against the main path's (= the model's)
+    L = kernels.iir_df2t_chunk()
     y, zf = torch.empty_like(x), torch.empty_like(zi_c)
     ms = cuda_ms(lambda: kernels.iir_df2t(x, coef_c, zi_c, y, zf), reps=3)
-    timed_err = float((y[:, :S1_COLS] - yp_main).abs().max())
-    rec['s1_flagship'] = {'ms': ms, 'max_abs_err': timed_err,
-                          'equal': bool(torch.equal(y[:, :S1_COLS],
-                                                    yp_main))}
-    ok &= rec['s1_flagship']['equal']
+    rec['s1_flagship'] = {
+        'ms': ms, 'chunk': L,
+        'first_chunk_equal': bool(torch.equal(y[:, :L], yp_main[:, :L])),
+        'model_equal': bool(torch.equal(y[:, :S1_COLS], yk_main)),
+        'max_abs_err': float((y[:, :S1_COLS] - yp_main).abs().max()),
+        'max_abs_err_vs_model': float(
+            (y[:, :S1_COLS] - yk_main).abs().max()),
+        # the CUDA kernels of one call, their launches and device ms
+        'cuda_kernels': traced_kernels(
+            lambda: kernels.iir_df2t(x, coef_c, zi_c, y, zf),
+            r'iir_\w+_kernel')}
+    ok &= (rec['s1_flagship']['first_chunk_equal']
+           and rec['s1_flagship']['model_equal'])
+    # S1 alone on the Z-settle pair (lfilter routes it to the doubling scan)
+    coef_s, zi_s = s1_rows(b_s, a_s, x)
+    zf_s = torch.empty_like(zi_s)
+    ms_s = cuda_ms(lambda: kernels.iir_df2t(x, coef_s, zi_s, y, zf_s),
+                   reps=3)
+    got = y[rows].cpu().numpy()
+    want = [sps.lfilter(b_s, a_s, h) for h in host]
+    truth = long_double(coef_s, host)
+    zs = {'ms': ms_s, 'doubling_ms': rec['lfilter_z_settle']['ms'],
+          'vs_scipy': rows_err(got, want),
+          'vs_long_double': rows_err(got, truth),
+          'scipy_vs_long_double': rows_err(want, truth),
+          'finite': bool(torch.isfinite(y).all())}
+    zs['ok'] = bool(zs['finite'] and zs['vs_scipy'] <= TOL_DIRECT_FORM
+                    and zs['vs_long_double'] <= max(
+                        TOL_S1_LD * zs['scipy_vs_long_double'],
+                        TOL_S1_FLOOR))
+    rec['s1_z_settle'] = zs
+    ok &= zs['ok']
     d = zi_c.shape[1]
+    K = -(-N // L)
+    traced = rec['s1_flagship']['cuda_kernels']
     summary['iir_df2t'].update(
+        # from the plain version df2t over whole rows (the random ones) and
+        # the first S1_COLS columns of the flagship's; from the plain model
+        # of the blocked arithmetic, df2t_blocked, over the same
         max_abs_err=max([v['max_abs_err'] for v in s1.values()]
-                        + [s1_main['max_abs_err'], timed_err]), ms=ms,
-        plain_ms=s1_main['plain_ms'], plain_shape=s1_main['shape'],
-        shape=[C, N, d],
+                        + [s1_main['launch']['max_abs_err'],
+                           rec['s1_flagship']['max_abs_err']]),
+        max_abs_err_vs_model=max(
+            [v['max_abs_err_vs_model'] for v in s1.values()]
+            + [s1_main['launch']['max_abs_err_vs_model'],
+               s1_main['main_path']['max_abs_err'],
+               rec['s1_flagship']['max_abs_err_vs_model']]), ms=ms,
+        plain_ms=s1_main['plain_ms'], plain_shape=s1_main['launch']['shape'],
+        shape=[C, N, d], chunk=L,
+        cuda_launches_a_call=traced and sum(
+            n for n, _ in traced['kernels'].values()),
         dynamic_smem_bytes=kernels.iir_df2t_smem_bytes(x.dtype),
+        # the blocked design's own floor: x read twice (the chunk pass and
+        # the output pass) and y written once; the chunk pass's
+        # double-double step (3 + 51 d FP64 operations, an FMA two) over
+        # every chunk but the last, the output pass's 2 + 4 d
+        design_floor=bound(3 * x.numel() * 8, C * (K - 1) * L * (3 + 51 * d)
+                           + x.numel() * (2 + 4 * d), peak='fp64'),
         **bound(2 * x.numel() * 8 + 2 * zi_c.numel() * 8, x.numel()
                 * (2 + 4 * d), peak='fp64'))
     rec['ok'] = bool(ok)
-    del x, y, xs, yp_main
+    del x, y, xs, yp_main, yk_main
     torch.cuda.empty_cache()
     brief = {k: {kk: vv for kk, vv in v.items()
                  if kk in ('route', 'vs_scipy', 'vs_host', 'ms', 'ok')}
              for k, v in rec.items() if isinstance(v, dict)
              and k not in ('synthesize', 's1_vs_plain', 'predistort_device',
-                           's1_main_path_vs_plain', 's1_flagship')}
+                           's1_main_path_contract', 's1_flagship',
+                           's1_z_settle')}
+    brief['lfilter_clustered']['vs_long_double'] = rec[
+        'lfilter_clustered'].get('vs_long_double')
     log(rec, dict(brief, phase='signal_flagship', ok=rec['ok'],
-                  s1_vs_plain={k: v['vs_plain'] for k, v in s1.items()},
-                  s1_main_path_vs_plain={
-                      k: s1_main[k] for k in ('main_path_equal',
-                                              'launch_equal', 'zf_equal',
-                                              'max_abs_err', 'plain_ms')},
-                  s1_flagship=rec['s1_flagship'],
+                  s1_vs_plain={k: {kk: v[kk] for kk in (
+                      'ok', 'vs_long_double', 'plain_vs_long_double')}
+                      for k, v in s1.items()},
+                  s1_main_path_contract={
+                      'ok': s1_main['ok'], 'plain_ms': s1_main['plain_ms']},
+                  s1_flagship=rec['s1_flagship'], s1_z_settle=zs,
                   predistort_device_ms=rec['predistort_device']['ms']))
     if not ok:
         fail.append('signal_flagship')
@@ -2434,6 +2588,32 @@ def ptxas_resources(entries, name):
             'smem_bytes': max((v[3] for v in mine), default=None)}
 
 
+_S1_ENTRY = re.compile(r'(iir_\w+?_kernel)I([df])Li(\d+)EE')
+
+
+def s1_resources(entries):
+    """{kernel: {dtype: {d: [registers, spill stores, spill loads, static
+    shared bytes]}}} of S1's entry functions among ptxas_entries'."""
+    out = {}
+    for name, v in entries.items():
+        m = _S1_ENTRY.search(name)
+        if m:
+            out.setdefault(m.group(1), {}).setdefault(
+                'f64' if m.group(2) == 'd' else 'f32', {})[int(m.group(3))] = v
+    return out
+
+
+def s1_entry(entries):
+    """S1's registers and static shared memory bytes for the kernels line:
+    the largest over its kernels at the flagship's state, float64 and d =
+    3, each also apart in ``s1_kernels`` (s1_resources)."""
+    s1 = {k: v['f64'][3] for k, v in s1_resources(entries).items()
+          if 3 in v.get('f64', {})}
+    return {'registers': max((v[0] for v in s1.values()), default=None),
+            'smem_bytes': max((v[3] for v in s1.values()), default=None),
+            's1_kernels': s1}
+
+
 def write_record(path):
     """Every record of the run, in full, to the JSON file ``path``."""
     if path:
@@ -2520,6 +2700,7 @@ def main():
                         'library_ms': None,
                         **ptxas_resources(rec['entries'], k.name)}
                for k in kernels.KERNELS}
+    summary['iir_df2t'].update(s1_entry(rec['entries']))
     for phase in (check_small, check_small_hi, check_small_seq,
                   check_small_narrow, check_probes, run_strata, run_sequences,
                   signal_flagship, stream_flagship, seq_station_chain,
@@ -2571,10 +2752,10 @@ def main():
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
         return 1
     keys = ('name', 'route', 'source', 'replaces', 'launches',
-            'probe_launches', 'windowed_launches', 'max_abs_err', 'ms',
-            'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms', 'registers', 'smem_bytes',
-            'dynamic_smem_bytes')
+            'probe_launches', 'windowed_launches', 'cuda_launches_a_call',
+            'max_abs_err', 'max_abs_err_vs_model', 'ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms', 'registers', 'smem_bytes',
+            'dynamic_smem_bytes', 's1_kernels')
     print(smi, flush=True)
     print(json.dumps({'kernels': [
         {k: e[k] for k in keys + ('launch_floor_ms',) if k in e}

@@ -21,9 +21,12 @@ K7 and P1, which walk with K1's tile walker, are held to K1 and to each
 other bit for bit on every live subtile, at subtile heights of 1, 3, 8 and
 32 rows and on a worklist of more items than a grid's y axis holds.  K1's
 windows (row0, n_out) are held to the same columns of its unwindowed
-launch bit for bit.  The IIR recurrence kernel S1 is held to its plain
-version bit for bit in f64 and f32 (neither contracts a multiply-add), and
-an f32 demodulation to itself with TF32 on.
+launch bit for bit.  The IIR recurrence kernel S1, a blocked scan, is held
+bit for bit to the plain model of its arithmetic (``df2t_blocked``) and,
+over each row's first chunk, to its sequential plain version, in f64 and
+f32 (neither contracts a multiply-add), and no farther from a long-double
+answer than the sequential version; an f32 demodulation to itself with
+TF32 on.
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ import torch
 
 import waveforms_tpu_torch as wt
 from waveforms_tpu_torch import kernels, probes
+from waveforms_tpu_torch.ops import iir_cases
 from waveforms_tpu_torch.ops.hi_synth import (HiSchedule, synthesize_hi,
                                               synthesize_hi_panels)
 from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
@@ -999,44 +1003,102 @@ def test_probe_sparse_compact_equals_the_sparse_kernel(card, padded):
     assert (got[plan.n_live:] == 0).all()
 
 
-def _s1_filters():
-    """(b, a) of chip_smoke.py's S1 checks: butter(5, 0.15), the near-unit
-    double pole of tests/test_ops_iir_fft.py, the clustered three-pole
-    exp-settling filter."""
-    from scipy.signal import butter
-    from waveforms_tpu_torch.distortion import exp_decay_filter
-    r = 1 - 1e-8
-    return {'butter5': butter(5, 0.15),
-            'near_unit_double_pole': ([1.0, 0.0, 0.0], [1.0, -2 * r, r * r]),
-            'clustered': exp_decay_filter([0.02, 0.008, 0.004],
-                                          [2e-6, 9e-6, 30e-6], 2e9,
-                                          output='ba')}
+def _s1_check(card, coef, x, zi):
+    """S1 on the card against the contract of its blocked scan: y and zf
+    bit-equal to ``df2t_blocked`` (the kernel's arithmetic, operation for
+    operation); the first chunk bit-equal to the sequential ``df2t``, and
+    all of y and zf where a row is one chunk; beyond one chunk, no
+    farther from scipy's lfilter in np.longdouble than twice df2t's, or
+    1e-13 (1e-6 in f32) where that is larger.  A distance is the largest
+    over the rows of max|(y, zf) - truth| / max|truth| (chip_smoke.py's
+    rows_err), over the rows on which df2t is finite; a kernel output that
+    is not finite on such a row is infinitely far."""
+    from scipy.signal import lfilter
+    from waveforms_tpu_torch.ops import reference_iir
+    L = reference_iir.CHUNK
+    assert kernels.iir_df2t_chunk() == L
+    n = x.shape[1]
+    yc, zfc = torch.empty_like(x, device=card), torch.empty_like(zi,
+                                                                 device=card)
+    before = kernels.iir_df2t.launches
+    kernels.iir_df2t(x.to(card), coef.to(card), zi.to(card), yc, zfc)
+    torch.cuda.synchronize()
+    assert kernels.iir_df2t.launches == before + 1
+    yc, zfc = yc.cpu(), zfc.cpu()
+    yb, zfb = torch.empty_like(x), torch.empty_like(zi)
+    reference_iir.df2t_blocked(x, coef, zi, yb, zfb)
+    # equal where finite, NaN where the model is NaN (an f32 clustered row
+    # of 300 chunks overflows in both)
+    torch.testing.assert_close(yc, yb, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(zfc, zfb, rtol=0, atol=0, equal_nan=True)
+    xs = x[:, :min(n, L)].contiguous()
+    ys, zfs = torch.empty_like(xs), torch.empty_like(zi)
+    reference_iir.df2t(xs, coef, zi, ys, zfs)
+    assert torch.equal(yc[:, :L], ys)
+    if n <= L:
+        assert torch.equal(zfc, zfs)
+        return
+    ys, zfs = torch.empty_like(x), torch.empty_like(zi)
+    reference_iir.df2t(x, coef, zi, ys, zfs)
+    c = coef.double().numpy().astype(np.longdouble)
+    d = zi.shape[1]
+    dist = {'kernel': 0.0, 'sequential': 0.0}
+    for r in range(x.shape[0]):
+        seq = torch.cat([ys[r], zfs[r]]).double().numpy()
+        if not np.isfinite(seq).all():
+            continue
+        yt, zt = lfilter(c[:d + 1], c[d + 1:],
+                         x[r].double().numpy().astype(np.longdouble),
+                         zi=zi[r].double().numpy().astype(np.longdouble))
+        truth = np.concatenate([yt, zt])
+        peak = float(np.abs(truth).max())
+        for key, v in (('kernel', torch.cat([yc[r], zfc[r]])),
+                       ('sequential', torch.cat([ys[r], zfs[r]]))):
+            err = float(np.abs(v.double().numpy() - truth).max()) / peak
+            dist[key] = max(dist[key], err if err == err else np.inf)
+    floor = 1e-13 if x.dtype == torch.float64 else 1e-6
+    assert dist['kernel'] <= max(2 * dist['sequential'], floor), dist
 
 
 @pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
-@pytest.mark.parametrize('name', list(_s1_filters()))
+@pytest.mark.parametrize('name', list(iir_cases.filters()))
 def test_iir_recurrence_kernel_matches_plain(card, name, dtype):
-    """S1 against its plain version on the same rows, y and zf, from a
-    non-zero state: bit for bit (the kernel contracts no multiply-add, the
-    plain version's separate ops round the same way), over rows that are
-    not a whole number of blocks and a length that is not a whole number
-    of tiles."""
-    b, a = (np.asarray(v, float) for v in _s1_filters()[name])
-    b, a = b / a[0], a / a[0]
-    d = len(a) - 1
+    """S1 against the contract of its blocked scan (_s1_check), y and zf,
+    from a non-zero state, over rows that are not a whole number of carry
+    blocks and a length that is not a whole number of chunks or tiles."""
+    d = len(iir_cases.filters()[name][1]) - 1
     rng = np.random.default_rng(8)
     x = torch.tensor(rng.standard_normal((19, 3001)), dtype=dtype)
     zi = torch.tensor(rng.standard_normal((19, d)) * 0.01, dtype=dtype)
-    coef = torch.tensor(np.concatenate([b, a]), dtype=dtype)
-    y, zf = torch.empty_like(x), torch.empty_like(zi)
-    kernels.iir_df2t.plain(x, coef, zi, y, zf)
-    xc, yc, zfc = x.to(card), torch.empty_like(x, device=card), \
-        torch.empty_like(zi, device=card)
-    before = kernels.iir_df2t.launches
-    kernels.iir_df2t(xc, coef.to(card), zi.to(card), yc, zfc)
-    torch.cuda.synchronize()
-    assert kernels.iir_df2t.launches == before + 1
-    assert torch.equal(yc.cpu(), y) and torch.equal(zfc.cpu(), zf)
+    _s1_check(card, iir_cases.coefficients(*iir_cases.filters()[name],
+                                           dtype), x, zi)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('case', ['one_chunk', 'short', 'many_groups',
+                                  'whole_chunks', 'state_16'])
+def test_iir_recurrence_kernel_blocked_cases(card, case, dtype):
+    """S1's blocked scan at its edges: a row of one chunk and one shorter
+    than a tile (bit-equal to df2t throughout); 300 chunks and a part, so
+    that a row spans five thread blocks of the chunk passes and ten groups
+    of the carry, the last short; 65 chunks over 37 rows, two full carry
+    groups in more than one thread block of walkers; a state of 16."""
+    from scipy.signal import butter
+    from waveforms_tpu_torch.ops import reference_iir
+    L = reference_iir.CHUNK
+    rows, n, (b, a) = {
+        'one_chunk': (5, L, iir_cases.filters()['clustered']),
+        'short': (3, 7, iir_cases.filters()['butter5']),
+        'many_groups': (3, 300 * L + 17, iir_cases.filters()['clustered']),
+        'whole_chunks': (37, 65 * L,
+                         iir_cases.filters()['near_unit_double_pole']),
+        'state_16': (4, 2 * L + 100, butter(16, 0.3)),
+    }[case]
+    d = len(a) - 1
+    rng = np.random.default_rng(81)
+    x = torch.tensor(rng.standard_normal((rows, n)), dtype=dtype)
+    zi = torch.tensor(rng.standard_normal((rows, d)) * 0.01, dtype=dtype)
+    _s1_check(card, iir_cases.coefficients(b, a, dtype), x, zi)
 
 
 def test_iir_recurrence_kernel_refusals(card):

@@ -15,9 +15,7 @@ or a scratch copy of this one with another layout.  Its ``synth_dense.cu``
 and ``synth_dense_hi.cu`` are built into one library under ``build/`` and
 launched through this checkout's ``kernels.launch_dense`` and
 ``launch_dense_hi`` at the largest tile its own wrapper passed (its
-``DENSE_TILE``), so their C interfaces must be this checkout's -- or, for
-K1, the interface from before its window (row0, n_out), which the run
-launches with the whole schedule's window, the only one it has.
+``DENSE_TILE``), so their C interfaces must be this checkout's.
 
 Every cell runs on both builds with the same descriptors and outputs:
 chip_smoke.py's small dense checks (f32 and int16, pair mode, the exotic
@@ -96,41 +94,14 @@ def build_other(tree, srcs, fns, stem):
         [ln.strip() for ln in '\n'.join(lines).splitlines()])
 
 
-class Unwindowed:
-    """A build of ``synth_dense.cu`` from before K1 took a window: its
-    ``wf_synth_dense`` lacks (row0, n_out).  Calls in this checkout's
-    interface drop them, and must ask for the whole schedule."""
-
-    def __init__(self, lib):
-        import ctypes
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.wf_synth_dense.argtypes = ([P] * 14 + [I] * 5 + [L, L, I]
-                                       + [P, I, P, P])
-        self.lib = lib
-        self.wf_synth_dense_hi = lib.wf_synth_dense_hi
-
-    def wf_synth_dense(self, *args):
-        *head, n, bucket, row0, n_out, tile, out, kind, scale, st = args
-        if row0 != 0 or n_out != n:
-            raise ValueError("a build without K1's window writes whole "
-                             "schedules only")
-        return self.lib.wf_synth_dense(*head, n, bucket, tile, out, kind,
-                                       scale, st)
-
-
 def other_library(tree):
     """K1's and K3's sources of checkout ``tree`` built into one library
-    and loaded with this checkout's argument types (K1's from before its
-    window wrapped in :class:`Unwindowed`) -> (library, its largest tile,
-    ptxas entries of its kernels)."""
+    and loaded with this checkout's argument types -> (library, its largest
+    tile, ptxas entries of its kernels)."""
     lib, entries = build_other(tree, ('synth_dense.cu', 'synth_dense_hi.cu'),
                                ('wf_synth_dense', 'wf_synth_dense_hi'),
                                'libwfdense_other')
     src = Path(tree) / 'waveforms_tpu_torch'
-    params = re.search(r'\bint wf_synth_dense\(([^)]*)\)',
-                       (src / 'csrc' / 'synth_dense.cu').read_text())
-    if not re.search(r'\brow0\b', params.group(1)):
-        lib = Unwindowed(lib)
     m = re.search(r'^DENSE_TILE = (\d+)', (
         src / 'kernels' / '__init__.py').read_text(), re.M)
     return lib, int(m.group(1)), entries

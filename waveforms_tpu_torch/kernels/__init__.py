@@ -17,8 +17,9 @@ One wrapper per kernel: :data:`synth_dense` (K1, the dense grid),
 worklist walk), :data:`synth_stack` (K5, pulse instances), its sequenced
 twin :data:`synth_stack_seq` (K6, one launch for a shot vector over stacked
 tables), the double tier's :data:`synth_dense_hi` (K3) and
-:data:`synth_panel_hi` (K4), the signal chain's sequential IIR recurrence
-:data:`iir_df2t` (S1, a port kernel with no Pallas counterpart), and the
+:data:`synth_panel_hi` (K4), the signal chain's IIR recurrence
+:data:`iir_df2t` (S1, a port kernel with no Pallas counterpart, a blocked
+scan of five kernels a call), and the
 measurement probes of ``csrc/probes.cu`` (:data:`probe_health`,
 :data:`probe_grid`, :data:`probe_walker`, :data:`probe_sparse_compact`;
 run by :mod:`..probes`).  A wrapper given tensors on the CPU runs the
@@ -54,6 +55,7 @@ __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
            'probe_health', 'probe_grid', 'probe_walker',
            'probe_sparse_compact', 'iir_df2t', 'iir_df2t_smem_bytes',
+           'iir_df2t_chunk',
            'launch_dense',
            'launch_dense_hi', 'launch_sparse', 'launch_probe_sparse_compact',
            'launch_stack',
@@ -175,9 +177,13 @@ def load_library():
         lib.wf_probe_walker.argtypes = [I, P, P, P, I, I, I, P, P]
         lib.wf_probe_sparse_compact.argtypes = ([P] * 12 + [I] * 5 + [L, L]
                                                 + [P] * 5 + [I, I, P, P])
-        lib.wf_iir_df2t.argtypes = [P] * 5 + [I, L, I, I, P]
+        lib.wf_iir_df2t.argtypes = [P] * 8 + [I, L, I, I, P]
         lib.wf_iir_df2t_smem_bytes.argtypes = [I]
         lib.wf_iir_df2t_smem_bytes.restype = I
+        lib.wf_iir_df2t_chunk.argtypes = []
+        lib.wf_iir_df2t_chunk.restype = I
+        lib.wf_iir_df2t_work_doubles.argtypes = [I, L, I]
+        lib.wf_iir_df2t_work_doubles.restype = L
         for fn in (lib.wf_synth_dense, lib.wf_synth_panel,
                    lib.wf_synth_sparse, lib.wf_synth_stack,
                    lib.wf_synth_stack_seq, lib.wf_synth_dense_hi,
@@ -603,7 +609,11 @@ _IIR_DTYPES = {torch.float64: 0, torch.float32: 1}
 
 def _launch_iir_df2t(x, coef, zi, y, zf):
     """Launch S1 on CUDA tensors: rows x (R, n) -> y, state zi (R, d) ->
-    zf, coefficients ``coef`` = b then a, d + 1 each."""
+    zf, coefficients ``coef`` = b then a, d + 1 each.  One call runs the
+    blocked scan's kernels (five; one where a row is one chunk) on scratch
+    allocated here: the chunks' end states (R, K, d, 2) float64, start
+    states (R, K, d), K = max(1, ceil(n / chunk)), and the carry's matrices
+    and group states (float64, as many as the build asks)."""
     if x.dim() != 2 or y.shape != x.shape:
         raise ValueError("x and y are (rows, n) tensors of one shape")
     d = zi.shape[-1] if zi.dim() == 2 else -1
@@ -620,18 +630,31 @@ def _launch_iir_df2t(x, coef, zi, y, zf):
     _check_cuda({'x': x, 'coef': coef, 'zi': zi, 'y': y, 'zf': zf},
                 y.device)
     lib = load_library()
+    rows, n = x.shape
+    K = max(1, -(-n // lib.wf_iir_df2t_chunk()))
+    ends = torch.empty((rows, K, d, 2), dtype=torch.float64, device=y.device)
+    starts = torch.empty((rows, K, d), dtype=x.dtype, device=y.device)
+    work = torch.empty(lib.wf_iir_df2t_work_doubles(rows, n, d),
+                       dtype=torch.float64, device=y.device)
     with torch.cuda.device(y.device):
         code = lib.wf_iir_df2t(x.data_ptr(), coef.data_ptr(), zi.data_ptr(),
-                               y.data_ptr(), zf.data_ptr(), x.shape[0],
-                               x.shape[1], d, _IIR_DTYPES[x.dtype],
-                               _stream(y))
+                               y.data_ptr(), zf.data_ptr(), ends.data_ptr(),
+                               starts.data_ptr(), work.data_ptr(), rows, n, d,
+                               _IIR_DTYPES[x.dtype], _stream(y))
     _raise_on(code, 'iir_df2t')
 
 
 def iir_df2t_smem_bytes(dtype) -> int:
-    """The dynamic shared memory S1 takes per thread block for a signal of
-    ``dtype`` (torch.float64 or torch.float32), from this build."""
+    """The dynamic shared memory S1's staged kernels (the chunk pass and the
+    output pass) take per thread block for a signal of ``dtype``
+    (torch.float64 or torch.float32), from this build."""
     return load_library().wf_iir_df2t_smem_bytes(_IIR_DTYPES[dtype])
+
+
+def iir_df2t_chunk() -> int:
+    """The samples a chunk of S1's blocked scan, from this build
+    (``reference_iir.CHUNK`` mirrors it)."""
+    return load_library().wf_iir_df2t_chunk()
 
 
 #: K1:``synth_dense(dev, out, scale, row0=0, n_out=None)`` fills out (C,
@@ -710,9 +733,10 @@ probe_sparse_compact = _Kernel(
     out_at=-1)
 
 #: S1: ``iir_df2t(x, coef, zi, y, zf)``: direct form II transposed over the
-#: rows of x (R, n) into y, state zi (R, d) -> zf; a port kernel with no
-#: Pallas counterpart (it replaces the lax.scan of the JAX package's
-#: ``_sequential_filter``)
+#: rows of x (R, n) into y, state zi (R, d) -> zf, as a blocked scan over
+#: chunks; a port kernel with no Pallas counterpart (it replaces the
+#: lax.scan of the JAX package's ``_sequential_filter``).  ``launches``
+#: counts calls, each five CUDA kernels (one where a row is one chunk)
 iir_df2t = _Kernel(
     'iir_df2t', 'waveforms_tpu_torch/csrc/iir_df2t.cu',
     'waveforms_tpu/ops/iir.py:171', reference_iir.df2t,

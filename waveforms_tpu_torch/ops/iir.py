@@ -13,8 +13,10 @@ state, and level ``j`` of the scan adds ``M^(2^j)`` times the state
 (clustered near-unit poles, a defective biquad), the JAX module runs the
 direct form as a ``lax.scan``; PyTorch has no scan, so the port runs the
 hand-written recurrence kernel S1 (``csrc/iir_df2t.cu``, through
-``kernels.iir_df2t``; its plain version ``ops/reference_iir.py`` for CPU
-tensors).  The routing is the JAX module's host numpy, copied unchanged
+``kernels.iir_df2t``: on the card a blocked parallel-in-time scan with a
+double-double carry, equal to the sequential recurrence over each row's
+first chunk and closer to the exact answer beyond; its sequential plain
+version ``ops/reference_iir.py`` for CPU tensors).  The routing is the JAX module's host numpy, copied unchanged
 (:func:`_doubling_unstable` and the defective-section test), so every
 filter takes the route it takes in JAX.
 
@@ -197,9 +199,10 @@ def filter_zpk(z, p, k, x, device='cuda') -> torch.Tensor:
 
 def _sequential_filter(bb: np.ndarray, aa: np.ndarray, x: torch.Tensor,
                        zi0: torch.Tensor):
-    """Direct form II transposed, exact scipy semantics including zi/zf,
-    O(n) sequential depth: the recurrence kernel S1 over the rows of ``x``
-    (JAX: a ``lax.scan``).  The correctness fallback where the doubling
+    """Direct form II transposed, exact scipy semantics including zi/zf:
+    the recurrence kernel S1 over the rows of ``x`` (JAX: a ``lax.scan``;
+    on the card a blocked scan, on CPU tensors the sequential plain
+    version).  The correctness fallback where the doubling
     scan is numerically unstable: (b, a) coefficient semantics can only be
     reproduced by direct-form arithmetic (see :func:`filter_zpk`)."""
     from .. import kernels
