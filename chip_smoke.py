@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py [--record PATH]
 
-Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
+Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and its
+C++ host layer from ``waveforms_tpu_torch/native`` (the lowering walker and
+the host engine, with g++; a failed build ends the run) and runs:
 
-1. the card's name and power limit (nvidia-smi) and the toolchain; then,
-   before every other phase, the health probe P4
+1. the card's name and power limit (nvidia-smi), the toolchain and the host
+   CPU; then, before every other phase, the health probe P4
    (``waveforms_tpu_torch.probes.health_probe``: ``2 * x`` on the card),
    whose failure ends the run;
 2. small schedules (a few channels, a few us): every kernel -- dense (K1),
@@ -37,7 +39,15 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    ladder120 with ``precision='double'`` (``auto``: K4, K3, K3), and
    flagship and dense with ``out_dtype=torch.bfloat16`` (K2, K1), each
    equal to its f32 cell's output rounded once;
-4. for each stratum: kernel against plain version over the whole output,
+4. for each stratum: the host lowering by the walker (its seconds and its
+   channels lowered and declined; the run fails if it lowered no channel
+   of the flagship or ladder120) and, for each of flagship, mid, dense and
+   ladder120, once on the Python path (its seconds, and the descriptors
+   against the walker's: structure equal, q32 within one step, args within
+   one f32 ulp plus one phase step 2*pi/2^32, ext within rtol 1e-10), with
+   the seconds of the ``build_stack_plan`` call that the router makes on
+   ladder120; kernel against plain
+   version over the whole output,
    the oracle on 3 channels at full length, and the kernel's and the plain
    version's times (CUDA events, warm-up, median of 11; of 3 for the
    double tier's plain versions) beside a plain ``fill_`` of the same
@@ -45,7 +55,16 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    ladder120 also K1 (``engine='cuda-dense'``, the route the port took
    before the stack route) on the same schedule, and on the dense stratum
    K1 in pair mode;
-5. the sequence tables: at small size (tests/test_torch_sequencer.py's and
+5. the host engines at full size, each a main path: ``engine_native``
+   (``synthesize(flagship, engine='native')`` on the card's host, its wall
+   and engine seconds, against the oracle on four seeded channels within
+   TOL_NATIVE and against K2's f32 plane within TOL_ORACLE) and
+   ``engine_torch`` (``engine='torch'`` on the flagship and the dense
+   stratum: wall time, device time of the evaluation, the CUDA launches of
+   one call in torch.profiler's trace, peak memory; against the oracle on
+   four seeded channels and K4 / K3 within TOL_ORACLE_HI; then ``sample()``
+   with an SOS filter on one channel against scipy within TOL_SOS);
+6. the sequence tables: at small size (tests/test_torch_sequencer.py's and
    test_torch_stack_seq.py's tables) every ``Sequencer`` method and
    ``StackSequencer.play_packed`` on the card against the same call on the
    CPU and the oracle, f32 and int16, with indices past both ends; then
@@ -60,7 +79,7 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    schedules of 30 cosPulses, 1000 shots -> K6), each kernel against its
    plain version, the oracle on a few channels of a few shots, and the
    kernel's, the plain version's and the fill's times;
-6. the signal chain at full width (the flagship, 128 x 2,000,000, and the
+7. the signal chain at full width (the flagship, 128 x 2,000,000, and the
    seq_station table), each stage a main path with its counts read right
    after it: ``signal_flagship`` -- the flagship's f32 plane (K2) in f64
    through ``lfilter`` of the station's Z-settle pair (the doubling scan),
@@ -77,7 +96,7 @@ Builds the port's CUDA kernels from ``waveforms_tpu_torch/csrc`` and runs:
    scipy, int16 codes equal to one-shot K1's; ``seq_station_chain`` --
    ``run_sequence`` of 1000 shots with the Z-settle pair and two tones,
    8 shots against ``Sequencer.play`` + scipy ``lfilter`` + ``getFTMatrix``;
-7. the measurement probes (``waveforms_tpu_torch.probes``): at small size
+8. the measurement probes (``waveforms_tpu_torch.probes``): at small size
    (K = 64) P4, every P2 variant and every P3 body against its plain
    version on the card, bit for bit, and P1's compact worklist kernel on 8
    flagship channels over 32.768 us, padded and not, within TOL_PLAIN;
@@ -131,12 +150,18 @@ TOL_CODES = 1         # int16 codes
 TOL_PLAIN_HI = 1e-12  # double-tier kernel vs plain version, f64
 TOL_ORACLE_HI = 1e-9  # double tier vs the float64 oracle
 TOL_SPLIT = 1e-14     # hi + lo vs the f64 output (the split loses 2^-48)
+TOL_NATIVE = 2e-7     # engine='native' vs the oracle: its descriptors' f32
+                      # arguments set it (the JAX suite's tests/test_native.py)
+TOL_SOS = (1e-9, 1e-12)  # sample() with SOS filters vs scipy: rtol, atol
+                         # (the JAX suite's tests/test_jax_eval.py)
 REPS = 11
 REPS_PLAIN_HI = 3     # the double tier's plain versions take seconds
 RECORDS = []
 MAIN_COUNTS = []      # (path, launch counts) of every main path, read right
                       # after it
 MAIN_WINDOWED = []    # (path, K1's launches with row0 != 0) of the same
+BUILDS = {}           # key -> the future of a schedule built in a worker
+LADDER_SEEDS = (5, 6, 7, 8)   # stackseq_ladder's four ladder120 schedules
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, at its full
 # 700 W): HBM3 bytes/s, and FP32 / FP64 operations/s outside the tensor
@@ -149,6 +174,31 @@ PEAK_OPS = {'fp32': 67e12, 'fp64': 34e12}
 # at 4.  An estimate: the bound it gives is a floor, not a prediction.
 OP_COST = {0: 3, 1: 13, 2: 33, 3: 38, 4: 19, 5: 13, 6: 67, 7: 23, 8: 23,
            9: 19, 10: 19, 11: 63, 12: 33, 13: 50, 14: 3, 15: 130, 16: 140}
+
+
+def start_builds():
+    """Build the ladder120 schedules in worker processes while the first
+    phases run -> the pool, which ``main`` shuts down.  The builder is the
+    waveform algebra in Python, ~5 s a schedule on the card's host, and the
+    main paths need five: the ladder120 stratum's and stackseq_ladder's
+    four.  The workers are spawned, import no CUDA and only build."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from functools import partial
+
+    from waveforms_tpu_torch.schedules import STRATA, build_ladder_schedule
+    jobs = {'ladder120': STRATA['ladder120'][0]}
+    jobs.update({('ladder', s): partial(build_ladder_schedule, 120, seed=s)
+                 for s in LADDER_SEEDS})
+    pool = ProcessPoolExecutor(max_workers=len(jobs),
+                               mp_context=multiprocessing.get_context('spawn'))
+    BUILDS.update({key: pool.submit(job) for key, job in jobs.items()})
+    return pool
+
+
+def schedule(key):
+    """A schedule that :func:`start_builds` builds, waited for."""
+    return BUILDS[key].result()
 
 
 def log(record, brief=None):
@@ -180,6 +230,56 @@ def rel_err_t(a, b):
     b = b.to(dt)
     peak = b.abs().amax(dim=-1).clamp_min(1e-30)
     return float(((a - b).abs().amax(dim=-1) / peak).max())
+
+
+# The walker's descriptors against the Python path's, on one schedule: the
+# structure arrays and amplitudes equal; each int32 phase word (q32) within
+# one step; each f32 argument within one f32 ulp of its value plus one
+# fixed-point phase step 2*pi/2^32 rad, the float64 phase reductions of the
+# two paths running in another order -- where a phase lies at a rounding
+# tie of its int32 turns they split it on the two sides, q32 one step apart
+# and its f32 residual one step the other way; ext within rtol 1e-10 (the
+# JAX suite's bound, tests/test_native.py).
+DESCRIPTOR_STRUCTURE = ('seg_lo', 'seg_hi', 'nterm', 'amp', 'nfac', 'op',
+                        'power', 'shift_hi', 'clip_min', 'clip_max')
+PHASE_STEP = 2 * 3.141592653589793 / 2**32
+TOL_EXT = 1e-10
+
+
+def descriptor_agreement(walker, python):
+    """How the walker's LoweredSchedule ``walker`` agrees with the Python
+    path's ``python`` (see DESCRIPTOR_STRUCTURE): a record with ``ok``."""
+    import numpy as np
+    rec = {'shape_equal': walker.shape == python.shape,
+           'structure_equal': all(
+               np.array_equal(getattr(walker, n), getattr(python, n))
+               for n in DESCRIPTOR_STRUCTURE)}
+    if not rec['shape_equal']:
+        return dict(rec, ok=False)
+    dq = np.abs(walker.q32.astype(np.int64) - python.q32.astype(np.int64))
+    rec['q32_differing'] = int((dq > 0).sum())
+    rec['q32_max_steps'] = int(dq.max()) if dq.size else 0
+    a = walker.args.astype(np.float64)
+    b = python.args.astype(np.float64)
+    d = np.abs(a - b)
+    ulp = np.spacing(np.maximum(np.abs(walker.args),
+                                np.abs(python.args))).astype(np.float64)
+    rec['args_max_abs'] = float(d.max()) if d.size else 0.0
+    beyond = d > ulp
+    rec['args_beyond_ulp'] = int(beyond.sum())
+    rec['args_beyond_ulp_max_abs'] = float(d[beyond].max()) \
+        if beyond.any() else 0.0
+    rec['args_ok'] = bool((d <= ulp + PHASE_STEP).all())
+    we, pe = walker.ext, python.ext
+    rec['ext_equal_size'] = we.size == pe.size
+    rec['ext_max_rel'] = float((np.abs(we - pe) / np.maximum(
+        np.abs(pe), 1e-300)).max()) if we.size and we.size == pe.size \
+        else 0.0
+    rec['ok'] = bool(rec['structure_equal'] and rec['q32_max_steps'] <= 1
+                     and rec['args_ok'] and rec['ext_equal_size']
+                     and (we.size == 0 or np.allclose(
+                         we, pe, rtol=TOL_EXT, atol=1e-18)))
+    return rec
 
 
 def code_err(a, b):
@@ -907,15 +1007,18 @@ def run_strata(fail, summary):
     import torch
 
     import waveforms_tpu_torch as wt
-    from waveforms_tpu_torch import kernels
+    import waveforms_tpu_torch.engine as engine_mod
+    from waveforms_tpu_torch import kernels, native
     from waveforms_tpu_torch.engine import _FORCE, _quantize_host, \
         classify_route
     from waveforms_tpu_torch.ops.lowering import lower_schedule
-    from waveforms_tpu_torch.ops.stack_synth import build_stack_tables
+    from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
+                                                     build_stack_tables)
     from waveforms_tpu_torch.ops.synth import DeviceSchedule
     from waveforms_tpu_torch.schedules import FS, STRATA
 
-    chans = {name: STRATA[name][0]() for name in STRATA}
+    chans = {name: (schedule(name) if name in BUILDS else STRATA[name][0]())
+             for name in STRATA}
     dtypes = {'float32': torch.float32, 'int16': torch.int16,
               'bfloat16': torch.bfloat16, 'float64': None}
 
@@ -971,17 +1074,47 @@ def run_strata(fail, summary):
         dtype = dtypes[dname]
         stop = STRATA[stratum][1]
         # the host layers of the same path, timed one by one; each stratum
-        # is lowered once and reused across its output types
+        # is lowered once (by the walker, the Python path for the channels
+        # it declines) and reused across its output types
         rec_host = {}
+        lower_rec = {}
         if (stratum, part) not in lowered:
+            native.reset_lower_counts()
             t0 = time.perf_counter()
             low = lower_schedule(chans[stratum], 0.0, stop, FS, part=part)
-            lowered[stratum, part] = (low, time.perf_counter() - t0)
+            lower_s = time.perf_counter() - t0
+            lower_rec['lower_channels'] = native.lower_counts()
+            if part == 'real':
+                lower_rec.update(python_lowering(chans[stratum], stop, low))
+                if not lower_rec['walker_vs_python']['ok']:
+                    fail.append(f"walker vs Python path on {stratum}")
+                if (stratum in ('flagship', 'ladder120')
+                        and lower_rec['lower_channels']['walker'] == 0):
+                    fail.append(f"the walker lowered no channel of "
+                                f"{stratum}")
+            lowered[stratum, part] = (low, lower_s)
         low, rec_host['lower'] = lowered[stratum, part]
+        if 'lower_python' in lower_rec:
+            rec_host['lower_python'] = lower_rec.pop('lower_python')
+        # the route, with the seconds of the stack plan it builds (the
+        # router's own call, timed in place)
+        plan_s = []
+
+        def timed_stack_plan(low_):
+            t = time.perf_counter()
+            made = build_stack_plan(low_)
+            plan_s.append(time.perf_counter() - t)
+            return made
         t1 = time.perf_counter()
-        kind, plan = classify_route(low, force=_FORCE.get(engine),
-                                    out_dtype=dtype)
+        engine_mod.build_stack_plan = timed_stack_plan
+        try:
+            kind, plan = classify_route(low, force=_FORCE.get(engine),
+                                        out_dtype=dtype)
+        finally:
+            engine_mod.build_stack_plan = build_stack_plan
         rec_host['route_and_plan'] = time.perf_counter() - t1
+        if plan_s:
+            rec_host['build_stack_plan'] = sum(plan_s)
         t2 = time.perf_counter()
         if kind == 'stack':
             kern = kernels.synth_stack
@@ -1004,7 +1137,7 @@ def run_strata(fail, summary):
                'part': part, 'engine': engine, 'dtype': dname,
                'shape': list(low.shape), 'samples': [C, n], 'route': kind,
                'route_ok': kind == expect, 'out_dtype': str(out.dtype)[6:],
-               'launches': counts[cell], 'host_s': rec_host,
+               'launches': counts[cell], 'host_s': rec_host, **lower_rec,
                'finite': bool(torch.isfinite(
                    torch.view_as_real(out) if out.is_complex()
                    else out.float()).all())}
@@ -1105,14 +1238,40 @@ def run_strata(fail, summary):
         torch.cuda.empty_cache()
 
 
+def python_lowering(chans, stop, low):
+    """The Python lowering path on the same channels (the walker switched
+    off), timed once, and its descriptors against the walker's ``low``."""
+    import waveforms_tpu_torch.ops.lowering as lowering
+    from waveforms_tpu_torch.schedules import FS
+    orig = lowering._lower_schedule_native
+    lowering._lower_schedule_native = lambda *a, **k: None
+    try:
+        t0 = time.perf_counter()
+        low_py = lowering.lower_schedule(chans, 0.0, stop, FS)
+        seconds = time.perf_counter() - t0
+    finally:
+        lowering._lower_schedule_native = orig
+    return {'lower_python': seconds,
+            'walker_vs_python': descriptor_agreement(low, low_py)}
+
+
 def brief_stratum(rec):
     """The printed line of a stratum record: its checks and times."""
     keys = ('cell', 'route', 'ok', 'vs_plain', 'vs_plain_codes',
             'equals_f32_rounded', 'vs_plain_ulps', 'vs_oracle',
             'vs_oracle_codes', 'kernel_ms', 'plain_ms', 'fill_ms',
-            'path_ms', 'store_share', 'dense_kernel_ms')
+            'path_ms', 'store_share', 'dense_kernel_ms', 'lower_channels')
     out = {'phase': 'stratum'}
     out.update({k: rec[k] for k in keys if k in rec})
+    host = rec.get('host_s', {})
+    out.update({f'{k}_s': host[k] for k in ('lower', 'lower_python',
+                                             'build_stack_plan')
+                if k in host and 'lower_channels' in rec})
+    if 'walker_vs_python' in rec:
+        agree = rec['walker_vs_python']
+        out['walker_vs_python'] = {k: agree[k] for k in (
+            'ok', 'q32_differing', 'args_max_abs', 'args_beyond_ulp_max_abs',
+            'ext_max_rel')}
     if 'pair' in rec:
         out['pair'] = {k: rec['pair'][k] for k in
                        ('ok', 'vs_plain', 'vs_oracle', 'kernel_ms')}
@@ -1189,6 +1348,196 @@ def hi_stratum(cell, out, chans, wall, counts):
                      and rec['vs_oracle'] <= TOL_ORACLE_HI)
     log(rec, brief_stratum(rec))
     return rec
+
+
+def host_cpu():
+    """The host CPU, for the host seconds: its model name, or its vendor,
+    family and model numbers where the kernel names it 'unknown'."""
+    info = {}
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                key, _, value = line.partition(':')
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    if info.get('model name', 'unknown') != 'unknown':
+        return info['model name']
+    ident = [f"{k} {info[k]}" for k in ('vendor_id', 'cpu family', 'model')
+             if info.get(k)]
+    return ', '.join(ident) or os.uname().machine
+
+
+def cuda_activity(fn):
+    """The CUDA kernels and memory copies of one call of ``fn`` in
+    torch.profiler's trace (after an untraced call), and their summed
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in evs if e.name.startswith(('Memcpy', 'Memset'))]
+    return {'kernels': len(evs) - len(copies), 'copies': len(copies),
+            'device_ms': sum(e.time_range.elapsed_us() for e in evs) / 1e3}
+
+
+def engine_native(fail):
+    """``synthesize(flagship, engine='native')``: the C++ host engine on the
+    card's host at full size (a main path, counts read after it), timed on
+    the host clock; against the oracle on four seeded channels and against
+    K2's f32 plane of the same schedule."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels, native
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.schedules import FS, STRATA
+
+    build, stop = STRATA['flagship']
+    chans = build()
+    kernels.reset_launch_counts()
+    native.reset_lower_counts()
+    t0 = time.perf_counter()
+    out = wt.synthesize(chans, 0.0, stop, FS, engine='native')
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    MAIN_COUNTS.append(('engine_native', counts))
+    rec = {'phase': 'engine_native', 'stratum': 'flagship',
+           'samples': list(out.shape), 'dtype': str(out.dtype),
+           'wall_s': wall, 'lower_channels': native.lower_counts(),
+           'cuda_launches': sum(counts.values()), 'host_cpu': host_cpu(),
+           'cpus': os.cpu_count()}
+    low = lower_schedule(chans, 0.0, stop, FS)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.synthesize_native(low)
+        times.append(time.perf_counter() - t0)
+    rec['engine_s'] = statistics.median(times)
+    rec['host_gsps'] = out.size / rec['engine_s'] / 1e9
+    picks = seeded_rows(len(chans), 4, 11)
+    ora = wt.synthesize([chans[c] for c in picks], 0.0, stop, FS,
+                        engine='numpy')
+    rec['oracle_channels'] = picks
+    rec['vs_oracle'] = rel_err(out[picks], ora)
+    k2 = wt.synthesize(chans, 0.0, stop, FS, device='cuda')
+    rec['vs_k2'] = rel_err_t(k2, torch.from_numpy(out).to('cuda'))
+    del k2
+    torch.cuda.empty_cache()
+    rec['ok'] = bool(out.dtype == 'float64' and out.shape == (128, 2000000)
+                     and np.isfinite(out).all()
+                     and rec['lower_channels']['walker'] == len(chans)
+                     and rec['vs_oracle'] <= TOL_NATIVE
+                     and rec['vs_k2'] <= TOL_ORACLE)
+    log(rec)
+    if not rec['ok']:
+        fail.append('engine_native')
+
+
+def engine_torch(fail):
+    """``synthesize(..., engine='torch', device='cuda')``, the trace
+    evaluator, on the flagship and the dense stratum at full size (each a
+    main path, counts read after it): host wall time, device time of the
+    evaluation over the uploaded grid, CUDA launches of one call in
+    torch.profiler's trace, peak memory; against the oracle on four seeded
+    channels and against the double tier's kernel (K4, K3) on the whole
+    plane.  Then ``sample()`` with an SOS filter on one flagship channel
+    against scipy."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.ops.torch_eval import evaluate
+    from waveforms_tpu_torch.schedules import FS, STRATA
+
+    ok = True
+    for stratum in ('flagship', 'dense'):
+        build, stop = STRATA[stratum]
+        chans = build()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = wt.synthesize(chans, 0.0, stop, FS, engine='torch',
+                            device='cuda')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        MAIN_COUNTS.append((f'engine_torch_{stratum}', counts))
+        C, n = out.shape
+        rec = {'phase': 'engine_torch', 'stratum': stratum,
+               'samples': [C, n], 'dtype': str(out.dtype)[6:],
+               'wall_s': wall,
+               'peak_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
+               'out_gb': out.numel() * out.element_size() / 1e9,
+               'finite': bool(torch.isfinite(out).all())}
+        grid = torch.from_numpy(np.arange(0.0, stop, 1 / FS)).to('cuda')
+        rec['device_ms'] = cuda_ms(
+            lambda: torch.stack([evaluate(ch, grid) for ch in chans]),
+            reps=5)
+        rec['gsps'] = C * n / rec['device_ms'] / 1e6
+        rec['trace'] = cuda_activity(lambda: wt.synthesize(
+            chans, 0.0, stop, FS, engine='torch', device='cuda'))
+        del grid
+        picks = seeded_rows(C, 4, 13)
+        ora = wt.synthesize([chans[c] for c in picks], 0.0, stop, FS,
+                            engine='numpy')
+        rec['oracle_channels'] = picks
+        rec['vs_oracle'] = rel_err(out[picks].cpu().numpy(), ora)
+        kernels.reset_launch_counts()
+        hi = wt.synthesize(chans, 0.0, stop, FS, precision='double',
+                           device='cuda')
+        rec['hi_kernel'] = [k for k, v in kernels.launch_counts().items()
+                            if v]
+        rec['vs_hi'] = rel_err_t(out, hi)
+        del out, hi
+        torch.cuda.empty_cache()
+        rec['ok'] = bool(rec['finite'] and rec['dtype'] == 'float64'
+                         and [C, n] == [128, 2000000]
+                         and rec['vs_oracle'] <= TOL_ORACLE_HI
+                         and rec['vs_hi'] <= TOL_ORACLE_HI)
+        ok = ok and rec['ok']
+        log(rec)
+
+    build, stop = STRATA['flagship']
+    wav = build()[0]
+    sos = sps.tf2sos(*sps.butter(3, 0.02))
+    wav.start, wav.stop, wav.sample_rate = 0.0, stop, FS
+    wav.filters = (sos, 0.0)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = wt.sample(wav, engine='torch', device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    MAIN_COUNTS.append(('engine_torch_sample', counts))
+    got = got.cpu().numpy()
+    want = wav.sample()
+    rtol, atol = TOL_SOS
+    rec = {'phase': 'engine_torch_sample', 'stratum': 'flagship',
+           'channel': 0, 'sos': 'butter(3, 0.02)', 'wall_s': wall,
+           'launches': {k: v for k, v in counts.items() if v},
+           'vs_scipy': float(np.abs(got - want).max()
+                             / np.abs(want).max()),
+           'within_rtol_atol': bool(np.all(
+               np.abs(got - want) <= atol + rtol * np.abs(want)))}
+    rec['ok'] = bool(got.dtype == np.float64 and got.shape == want.shape
+                     and rec['within_rtol_atol'])
+    log(rec)
+    if not (ok and rec['ok']):
+        fail.append('engine_torch')
 
 
 def dense_pair(fail):
@@ -1558,8 +1907,7 @@ def run_sequences(fail, summary):
     from waveforms_tpu_torch.ops.lowering import lower_schedule
     from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
                                                      build_stack_tables)
-    from waveforms_tpu_torch.schedules import (FS, build_ladder_schedule,
-                                               build_schedule,
+    from waveforms_tpu_torch.schedules import (FS, build_schedule,
                                                station_channels)
 
     def finish(rec, tol_ok):
@@ -1730,10 +2078,12 @@ def run_sequences(fail, summary):
     # ---- stackseq_ladder: 4 ladder120 schedules, 16 shots on K6
     host = {}
     t0 = time.perf_counter()
-    chans = [build_ladder_schedule(120, seed=s) for s in range(5, 9)]
+    chans = [schedule(('ladder', s)) for s in LADDER_SEEDS]
+    host['build_4_wait'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     lows = [lower_schedule(c, 0.0, 524.288e-6, FS, bucket_samples=None)
             for c in chans]
-    host['build_and_lower_4'] = time.perf_counter() - t0
+    host['lower_4'] = time.perf_counter() - t0
     t0 = time.perf_counter()
     plans = [build_stack_plan(low) for low in lows]
     host['stack_plans'] = time.perf_counter() - t0
@@ -2682,6 +3032,31 @@ def main():
     # held to no spill
     fail += [f"{k} spills {v[1]} bytes" for k, v in walkers.items() if v[1]]
 
+    # the C++ host layer (the lowering walker and the host engine), built
+    # with g++ at first use: every main path below lowers through the walker
+    from waveforms_tpu_torch import native
+    t0 = time.perf_counter()
+    built = native.available() and native.lower_available()
+    native_rec = {'phase': 'native_build', 'ok': built,
+                  'seconds': time.perf_counter() - t0,
+                  'host_cpu': host_cpu(), 'cpus': os.cpu_count()}
+    try:
+        native_rec['cxx'] = subprocess.run(
+            [native.CXX, '--version'], capture_output=True, text=True,
+            timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError) as exc:
+        native_rec['cxx'] = f"unavailable: {exc}"
+    if built:
+        native_rec['libraries'] = {
+            k: p.name for k, p in native.library_paths().items()}
+    else:
+        native_rec['error'] = (native.build_error() or '')[-4000:]
+    log(native_rec)
+    if not built:
+        print(json.dumps({'ok': False, 'failures': ['native build']}),
+              flush=True)
+        return 1
+
     # P4, the health probe, before every other phase (as the TPU capture
     # script's main): a card that cannot double (8, 128) floats ends the run
     try:
@@ -2701,24 +3076,29 @@ def main():
                         **ptxas_resources(rec['entries'], k.name)}
                for k in kernels.KERNELS}
     summary['iir_df2t'].update(s1_entry(rec['entries']))
-    for phase in (check_small, check_small_hi, check_small_seq,
-                  check_small_narrow, check_probes, run_strata, run_sequences,
-                  signal_flagship, stream_flagship, seq_station_chain,
-                  run_probes):
-        t0 = time.perf_counter()
-        try:
-            if phase in (run_strata, run_sequences, signal_flagship,
-                         stream_flagship, seq_station_chain, run_probes):
-                phase(fail, summary)
-            else:
-                phase(fail)
-        except Exception as exc:     # a phase that raises fails the run
-            import traceback
-            log({'phase': phase.__name__, 'ok': False,
-                 'error': traceback.format_exc()[-4000:]})
-            fail.append(f"{phase.__name__}: {exc!r}")
-        log({'phase': f'{phase.__name__}_done',
-             'seconds': time.perf_counter() - t0})
+    pool = start_builds()
+    try:
+        for phase in (check_small, check_small_hi, check_small_seq,
+                      check_small_narrow, check_probes, run_strata,
+                      engine_native, engine_torch, run_sequences,
+                      signal_flagship, stream_flagship, seq_station_chain,
+                      run_probes):
+            t0 = time.perf_counter()
+            try:
+                if phase in (run_strata, run_sequences, signal_flagship,
+                             stream_flagship, seq_station_chain, run_probes):
+                    phase(fail, summary)
+                else:
+                    phase(fail)
+            except Exception as exc:     # a phase that raises fails the run
+                import traceback
+                log({'phase': phase.__name__, 'ok': False,
+                     'error': traceback.format_exc()[-4000:]})
+                fail.append(f"{phase.__name__}: {exc!r}")
+            log({'phase': f'{phase.__name__}_done',
+                 'seconds': time.perf_counter() - t0})
+    finally:
+        pool.shutdown(cancel_futures=True)
 
     # the queued timings: every time above is device time only if the host
     # queued each run before the card's sleep ended (late runs were redone)

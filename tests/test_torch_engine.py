@@ -27,7 +27,8 @@ from waveforms_tpu_torch import kernels, schedules
 from waveforms_tpu_torch.convert import lowered_from_jax, waveform_from_jax
 from waveforms_tpu_torch.engine import classify_route
 from waveforms_tpu_torch.ops.lowering import lower_schedule as lower_t
-from test_torch_lowering import jax_python_lowering, opcode_cases  # noqa: F401
+from test_torch_lowering import (jax_python_lowering,  # noqa: F401
+                                 opcode_cases, torch_python_lowering)
 from test_torch_panel import sparse_pulses
 from test_torch_synth import RTOL, TOL_JAX, oracle, rel
 
@@ -126,7 +127,11 @@ def test_int16_multi_bucket_routes_dense():
 def test_import_loads_no_jax():
     code = ("import sys; import waveforms_tpu_torch, "
             "waveforms_tpu_torch.engine, waveforms_tpu_torch.kernels, "
-            "waveforms_tpu_torch.convert, waveforms_tpu_torch.schedules; "
+            "waveforms_tpu_torch.convert, waveforms_tpu_torch.schedules, "
+            "waveforms_tpu_torch.native, waveforms_tpu_torch.ops.torch_eval, "
+            "waveforms_tpu_torch.ops.torch_basis, waveforms_tpu_torch.dsl, "
+            "waveforms_tpu_torch.__main__, waveforms_tpu_torch.version, "
+            "waveforms_tpu_torch.utils.freeze; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'waveforms_tpu.')) "
             "or m == 'waveforms_tpu']; print(bad); assert not bad, bad")
@@ -154,6 +159,7 @@ def test_cuda_without_gpu_raises(monkeypatch):
     ({'out_dtype': np.int32}, 'int16 only'),
     ({'engine': 'pallas'}, 'unknown engine'),
     ({'precision': 'double', 'out_dtype': torch.bfloat16}, 'contradicts'),
+    ({'precision': 'double', 'out_dtype': np.float32}, 'contradicts'),
     ({'part': 'complex', 'out_dtype': np.float16}, 'requires f32'),
 ])
 def test_unported_modes_raise(kwargs, match):
@@ -281,10 +287,11 @@ def test_route_parity_with_jax(case):
     assert (plan is None) == (kind_t == 'dense')
 
 
-def test_ladder_schedule_is_the_capture_ladder(jax_python_lowering):
+def test_ladder_schedule_is_the_capture_ladder(jax_python_lowering,
+                                               torch_python_lowering):
     """schedules.build_ladder_schedule builds tools/tpu_capture.py's
-    ladder: the same lowering as the JAX-built one (on its Python path, as
-    the port lowers)."""
+    ladder: the same lowering as the JAX-built one (both on their Python
+    paths)."""
     from test_torch_lowering import assert_lowered_equal
     low_j = lower_j(_ladder_j(30, 2), 0.0, 524.288e-6, 2e9)
     low_t = lower_t(schedules.build_ladder_schedule(30, n_channels=2), 0.0,

@@ -28,7 +28,7 @@ from waveforms_tpu_torch.convert import lowered_from_jax
 from waveforms_tpu_torch.ops.hi_synth import (HI_OPS, HiSchedule,
                                               synthesize_hi)
 from test_torch_lowering import (assert_lowered_equal,  # noqa: F401
-                                 jax_python_lowering)
+                                 jax_python_lowering, torch_python_lowering)
 from test_torch_synth import oracle, rel
 
 FS = 2e9
@@ -194,7 +194,8 @@ def test_long_phase_accumulation(which):
 
 @pytest.mark.parametrize('case', ['gaussian_cos', 'keep_f64_carrier',
                                   'multitone_drag', 'bucketed'])
-def test_keep_f64_lowering_matches_jax(case, jax_python_lowering):
+def test_keep_f64_lowering_matches_jax(case, jax_python_lowering,
+                                      torch_python_lowering):
     """The port's keep_f64 lowering is array-equal to the JAX package's,
     the residual planes args_lo and amp_lo included."""
     if case == 'keep_f64_carrier':
@@ -218,7 +219,8 @@ def test_keep_f64_lowering_matches_jax(case, jax_python_lowering):
                                       getattr(low_j, name), err_msg=name)
 
 
-def test_lowered_from_jax_gives_the_ports_own_output(jax_python_lowering):
+def test_lowered_from_jax_gives_the_ports_own_output(
+        jax_python_lowering, torch_python_lowering):
     """convert.lowered_from_jax carries a JAX keep_f64 lowering over whole:
     the plain version's output from it is bit-equal to the output from the
     port's own lowering of the same waveforms."""

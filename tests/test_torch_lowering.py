@@ -6,8 +6,10 @@ package, lower to descriptor arrays that are equal element for element;
 so do waveforms carried across by the wire format, and the live-subtile
 and panel plans built from them.
 
-The JAX side lowers on its Python path (its native walker is switched off
-for the comparison), which is the path the port always takes.
+Both sides lower on their Python paths here (each package's native walker
+is switched off for the comparison, by the fixtures ``jax_python_lowering``
+and ``torch_python_lowering``); ``tests/test_torch_native.py`` holds the
+port's walker against the JAX package's walker and against the Python path.
 """
 
 import dataclasses
@@ -96,8 +98,14 @@ def bench_cases(w):
 
 @pytest.fixture
 def jax_python_lowering(monkeypatch):
-    """Lower on the JAX package's Python path, as the port does."""
+    """Lower on the JAX package's Python path."""
     monkeypatch.setattr(lj, '_lower_schedule_native', lambda *a, **k: None)
+
+
+@pytest.fixture
+def torch_python_lowering(monkeypatch):
+    """Lower on the port's Python path, the twin of jax_python_lowering."""
+    monkeypatch.setattr(lt, '_lower_schedule_native', lambda *a, **k: None)
 
 
 def assert_lowered_equal(a, b):
@@ -110,7 +118,8 @@ def assert_lowered_equal(a, b):
 
 
 @pytest.mark.parametrize('case', list(opcode_cases(wj)))
-def test_lowering_matches_jax(case, jax_python_lowering):
+def test_lowering_matches_jax(case, jax_python_lowering,
+                              torch_python_lowering):
     cj, start, stop, fs, bs = opcode_cases(wj)[case]
     ct = opcode_cases(wt)[case][0]
     low_j = lj.lower_schedule(cj, start, stop, fs, bucket_samples=bs)
@@ -121,7 +130,8 @@ def test_lowering_matches_jax(case, jax_python_lowering):
 
 
 @pytest.mark.parametrize('stratum', ['flagship', 'mid', 'dense'])
-def test_bench_schedules_lower_equal(stratum, jax_python_lowering):
+def test_bench_schedules_lower_equal(stratum, jax_python_lowering,
+                                     torch_python_lowering):
     cj, start, stop = bench_cases(wj)[stratum]
     ct = bench_cases(wt)[stratum][0]
     low_j = lj.lower_schedule(cj, start, stop, bench.FS)
@@ -131,7 +141,8 @@ def test_bench_schedules_lower_equal(stratum, jax_python_lowering):
 
 @pytest.mark.parametrize('case', ['basic_shapes', 'drag_mixing',
                                   'multitone_drag', 'multi_bucket'])
-def test_wire_format_carries_waveforms(case, jax_python_lowering):
+def test_wire_format_carries_waveforms(case, jax_python_lowering,
+                                       torch_python_lowering):
     """A JAX waveform carried across by tolist/fromlist lowers to the same
     descriptors as the original."""
     cj, start, stop, fs, bs = opcode_cases(wj)[case]
@@ -164,7 +175,8 @@ PANEL_FIELDS = ('start', 'work_t', 'work_o', 'work_s0', 'work_s1')
 
 @pytest.mark.parametrize('case', ['flagship', 'mid', 'multi_bucket',
                                   'chirps'])
-def test_plans_match_jax(case, jax_python_lowering):
+def test_plans_match_jax(case, jax_python_lowering,
+                         torch_python_lowering):
     if case in ('flagship', 'mid'):
         cj, start, stop = bench_cases(wj)[case]
         ct = bench_cases(wt)[case][0]

@@ -5,7 +5,9 @@ The same lazy symbolic waveform IR and host lowering as ``waveforms_tpu``
 CUDA kernels over the flat descriptor tensors: a dense grid kernel, a
 panel kernel and a worklist kernel that walk only the live subtiles of
 pulse-sparse schedules, a stack kernel over pulse instances, and the double
-tier's float64 dense and panel kernels (``precision='double'``).  The
+tier's float64 dense and panel kernels (``precision='double'``); the C++
+host engine (:mod:`.native`, whose walker also lowers the IR) and the trace
+evaluator (:mod:`.ops.torch_eval`) beside them.  The
 signal chain -- IIR pre-compensation, FFT deconvolution, readout
 demodulation, streaming synthesis and the shot pipeline -- runs on the card
 too (:mod:`.ops`, :mod:`.parallel`), with a recurrence kernel where the
@@ -18,7 +20,8 @@ This package imports ``torch`` and numpy, never ``jax``.
 
 from numpy import e, pi
 
-from .core import Waveform, WaveVStack, const, one, zero
+from .core import Waveform, WaveVStack, const, one, play, zero
+from .dsl import wave_eval
 from .engine import classify_route, sample, synthesize
 from .ir.registry import registerBaseFunc, registerDerivative
 from .models import (D, chirp, cos, cosh, coshPulse, cosPulse, cut, drag,
@@ -30,6 +33,7 @@ from .ops.hi_synth import (HI_OPS, HiSchedule, classify_hi_route,
                            synthesize_hi, synthesize_hi_panels,
                            synthesize_hi_routed)
 from .ops.lowering import UnsupportedFactor
+from .version import __version__
 
 __all__ = [
     'D', 'HI_OPS', 'HiSchedule', 'UnsupportedFactor', 'Waveform',
@@ -37,9 +41,9 @@ __all__ = [
     'cos', 'cosh', 'coshPulse', 'cosPulse', 'cut',
     'drag', 'drag_sin', 'drag_sinx', 'e', 'exp', 'function', 'gaussian',
     'general_cosine', 'hanning', 'interp', 'mixing', 'mollifier', 'one', 'pi',
-    'poly', 'registerBaseFunc', 'registerDerivative', 'sample',
+    'play', 'poly', 'registerBaseFunc', 'registerDerivative', 'sample',
     'samplingPoints',
     'sign', 'sin', 'sinc', 'sinh', 'slepian', 'square', 'step', 'synthesize',
     'synthesize_hi', 'synthesize_hi_panels', 'synthesize_hi_routed', 't',
-    'zero',
+    'wave_eval', 'zero', '__version__',
 ]

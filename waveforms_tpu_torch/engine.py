@@ -10,15 +10,24 @@ Engines:
 * ``'cuda-dense'`` / ``'cuda-panel'`` / ``'cuda-sparse'`` / ``'cuda-stack'``
   -- force one kernel, as the JAX package's ``'pallas-dense'`` /
   ``'pallas-panel'`` / ``'pallas-sparse'`` / ``'pallas-stack'`` do.
+* ``'native'`` -- the C++ host float64 engine (:mod:`.native`, the JAX
+  package's ``'native'``): lowers once and runs the descriptor program on
+  the CPU cores; returns an ndarray.
+* ``'torch'`` -- the trace evaluator (:mod:`.ops.torch_eval`, the JAX
+  package's ``'xla'``): the IR in plain torch float64 (complex128 where it
+  is complex) on ``device``; returns a tensor there.
 * ``'numpy'`` -- the host float64 oracle (``Waveform.__call__``), kept for
   tests.
+
+The JAX package's ``'auto'`` falls back to ``'xla'`` and ``'native'`` off
+the TPU; the port's ``'auto'`` is the kernel route.
 
 ``precision='double'`` runs the double tier (:mod:`.ops.hi_synth`, the
 float64 kernels K3 and K4): ``'auto'`` and ``'cuda'`` run
 ``synthesize_hi_routed``, which routes as the JAX one does
 (``classify_hi_route``), ``'cuda-dense'`` forces the dense kernel, and the
 other forced engines refuse it, as the JAX package's forced pallas engines
-do.
+do; ``'native'``, ``'torch'`` and ``'numpy'`` compute in float64 already.
 
 ``out_dtype`` takes f32, int16 DAC codes, and the narrowed float stores
 bf16 and f16 (the f32 sum rounded once at the store), on every route where
@@ -28,8 +37,8 @@ elsewhere as in JAX.
 
 :func:`sample` is the engine-selected analog of ``Waveform.sample()``: it
 synthesizes one waveform and applies the SOS filters attached to it, on
-the card (:func:`.ops.iir.iir_apply`) for the kernel engines and with scipy
-on the host for ``'numpy'``.
+the card (:func:`.ops.iir.iir_apply`) for the kernel engines and
+``'torch'``, and with scipy on the host for ``'numpy'`` and ``'native'``.
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ from .ops.synth import (DeviceSchedule, default_rows_per_tile,
 __all__ = ['synthesize', 'sample', 'classify_route', 'ENGINES']
 
 ENGINES = ('auto', 'cuda', 'cuda-dense', 'cuda-panel', 'cuda-sparse',
-           'cuda-stack', 'numpy')
+           'cuda-stack', 'native', 'torch', 'numpy')
 _FORCE = {'cuda-dense': 'dense', 'cuda-panel': 'panel',
           'cuda-sparse': 'sparse', 'cuda-stack': 'stack'}
 
@@ -149,10 +158,20 @@ def _quantize_host(out, out_dtype, dac_scale):
     ``engine._quantize_host``: int16 codes by scale -> round-half-even ->
     clip; f16 the float64 result rounded once (numpy ``astype``); bf16 as
     ``ml_dtypes``' ``astype`` rounds it (through f32), returned as a CPU
-    ``torch.bfloat16`` tensor since numpy has no bf16 type."""
+    ``torch.bfloat16`` tensor since numpy has no bf16 type.  A tensor (the
+    ``'torch'`` engine's) is quantized on its device the same way, f16 and
+    bf16 by ``Tensor.to``."""
     dt = normalize_out_dtype(out_dtype)
     if dt == torch.float32:
         return out
+    if isinstance(out, torch.Tensor):
+        if dt != torch.int16:
+            return out.to(dt)
+        sc = torch.as_tensor(np.asarray(dac_scale, np.float64),
+                             device=out.device)
+        scaled = out * (sc.reshape(-1, 1) if sc.ndim else sc)
+        return torch.clamp(torch.round(scaled), -32768.0,
+                           32767.0).to(torch.int16)
     if dt == torch.float16:
         return np.asarray(out).astype(np.float16)
     if dt == torch.bfloat16:
@@ -175,6 +194,28 @@ def _synthesize_numpy(channels, start, stop, sample_rate, part):
         return np.stack([v.astype(complex) for v in vals])
     return np.stack([np.real(v) if part == 'real' else np.imag(v)
                      for v in vals])
+
+
+def _synthesize_torch(channels, start, stop, sample_rate, part, dt,
+                      dac_scale, device):
+    """The trace engine: each channel evaluated over the float64 grid on
+    ``device`` (JAX: engine ``'xla'``)."""
+    from .core import WaveVStack
+    from .ops.torch_eval import evaluate
+    device = resolve_device(device)
+    # the grid as the oracle and JAX make it: numpy's arange, uploaded
+    t = torch.from_numpy(np.arange(start, stop, 1 / sample_rate)).to(device)
+    vals = [evaluate(ch.simplify() if part != 'real'
+                     and isinstance(ch, WaveVStack) else ch, t)
+            for ch in channels]
+    if part == 'real':
+        vals = [v.real for v in vals]
+    elif part == 'imag':
+        vals = [v.imag if v.is_complex() else torch.zeros_like(v)
+                for v in vals]
+    else:
+        vals = [v.to(torch.complex128) for v in vals]
+    return _quantize_host(torch.stack(vals), dt, dac_scale)
 
 
 def _synthesize_double(channels, start, stop, sample_rate, engine,
@@ -220,7 +261,14 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
     engines raises ``UnsupportedFactor``).  ``engine='numpy'`` returns the
     float64 oracle as an ndarray (quantized the same way for int16,
     narrowed by ``astype`` for f16; bf16 as a CPU ``torch.bfloat16``
-    tensor, numpy having no such type).
+    tensor, numpy having no such type).  ``engine='native'`` returns the
+    C++ host engine's float64 result as an ndarray (complex128 for
+    ``part='complex'``), quantized as ``'numpy'``'s; ``engine='torch'``
+    returns the trace evaluator's float64 (complex128) tensor on
+    ``device``, quantized there.  An explicit f32 ``out_dtype`` is the
+    default on every engine, as JAX maps it to None: these three keep
+    float64.  Any ``out_dtype`` with ``precision='double'`` raises, as in
+    JAX.
     ``device='cuda'`` without a GPU raises; nothing falls back to the CPU.
     """
     if engine not in ENGINES:
@@ -231,13 +279,13 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
         raise ValueError(f"unknown precision {precision!r}")
     dt = normalize_out_dtype(out_dtype)
     if precision == 'double':
-        if out_dtype is not None and dt != torch.float32:
+        if out_dtype is not None:
             raise ValueError("out_dtype narrowing contradicts "
                              "precision='double'")
         if engine in ('cuda-panel', 'cuda-sparse', 'cuda-stack'):
             raise ValueError(
                 f"precision='double' is unsupported on engine {engine!r}")
-        if engine != 'numpy':
+        if engine not in ('numpy', 'native', 'torch'):
             return _synthesize_double(channels, start, stop, sample_rate,
                                       engine, bucket_samples, part, device)
     if part == 'complex' and dt != torch.float32:
@@ -245,6 +293,16 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
     if engine == 'numpy':
         out = _synthesize_numpy(channels, start, stop, sample_rate, part)
         return _quantize_host(out, dt, dac_scale)
+    if engine == 'native':
+        from . import native
+        # part='complex' lowers once with both amplitude planes and runs
+        # one pair-mode pass
+        low = lower_schedule(channels, start, stop, sample_rate, part=part,
+                             bucket_samples=bucket_samples)
+        return _quantize_host(native.synthesize_native(low), dt, dac_scale)
+    if engine == 'torch':
+        return _synthesize_torch(channels, start, stop, sample_rate, part,
+                                 dt, dac_scale, device)
     device = resolve_device(device)
     low = lower_schedule(channels, start, stop, sample_rate, part=part,
                          bucket_samples=bucket_samples)
@@ -269,9 +327,10 @@ def sample(wav, sample_rate=None, engine: str = 'auto', device='cuda'):
 
     SOS filters attached to the waveform (``wav.filters = (sos,
     initial)``) apply on ``device`` in the synthesized signal's dtype for
-    the kernel engines (:func:`.ops.iir.iir_apply`: the doubling scan, or
-    the recurrence kernel where that is unstable) and with scipy on the
-    host for ``engine='numpy'``, which returns an ndarray.
+    the kernel engines and ``'torch'`` (:func:`.ops.iir.iir_apply`: the
+    doubling scan, or the recurrence kernel where that is unstable) and
+    with scipy on the host for ``engine='numpy'`` and ``'native'``, which
+    return an ndarray.
     """
     if sample_rate is None:
         sample_rate = wav.sample_rate
@@ -289,7 +348,10 @@ def sample(wav, sample_rate=None, engine: str = 'auto', device='cuda'):
             return _sosfilt(sos, sig - initial) + initial
         return _sosfilt(sos, sig)
     from .ops.iir import iir_apply
-    # the kernel engines give f32: the coefficients are rounded to it, as
-    # JAX casts them to the signal's dtype (routing reads the rounded ones)
-    return iir_apply(np.asarray(sos, dtype=float).astype(np.float32), sig,
-                     initial)
+    # the coefficients are rounded to the signal's dtype (f32 from the
+    # kernel engines, f64 from 'torch'), as JAX casts them (routing reads
+    # the rounded ones)
+    sos = np.asarray(sos, dtype=float)
+    if sig.dtype == torch.float32:
+        sos = sos.astype(np.float32)
+    return iir_apply(sos, sig, initial, device=sig.device)

@@ -4,7 +4,8 @@ Submodules are imported where they are used; the double tier's entry
 points (:mod:`.hi_synth`), the sequence tables (:mod:`.sequencer`,
 :mod:`.stack_seq`) and the signal chain -- IIR filtering (:mod:`.iir`),
 FFT pipelines (:mod:`.fft`), readout demodulation (:mod:`.demod`) and
-streaming synthesis (:mod:`.streaming`) -- are exported here.
+streaming synthesis (:mod:`.streaming`) -- and the trace evaluator
+(:mod:`.torch_eval`) are exported here.
 """
 
 from .demod import demod_matrix, demodulate
@@ -17,6 +18,7 @@ from .iir import filter_zpk, iir_apply, lfilter, predistort_device, sosfilt
 from .sequencer import Sequencer
 from .stack_seq import StackSequencer
 from .streaming import synthesize_stream
+from .torch_eval import compile_waveform, evaluate, sample_waveform
 
 __all__ = ['HI_OPS', 'HiSchedule', 'classify_hi_route', 'synthesize_hi',
            'synthesize_hi_panels', 'synthesize_hi_routed', 'Sequencer',
@@ -24,4 +26,5 @@ __all__ = ['HI_OPS', 'HiSchedule', 'classify_hi_route', 'synthesize_hi',
            'iir_apply', 'predistort_device', 'fft_convolve_centered',
            'reflection_device', 'correct_reflection_device',
            'extract_kernel_device', 'demod_matrix', 'demodulate',
-           'synthesize_stream']
+           'synthesize_stream', 'compile_waveform', 'evaluate',
+           'sample_waveform']

@@ -1113,10 +1113,10 @@ def lower_schedule(channels, start: float, stop: float, sample_rate: float,
             return max(n, 1), 1
         return bucket_samples, max(-(-n // bucket_samples), 1)
 
-    # fast path: the native (C++) walker lowers channels directly to flat
-    # arrays (Python per-channel fallback for exotic bases feeds the same
-    # vectorized assembly); the all-Python path remains for hosts without
-    # a toolchain
+    # the native (C++) walker lowers channels directly to flat arrays
+    # (channels with bases it declines lower on the Python path into the
+    # same vectorized assembly); it builds at first use and raises if it
+    # cannot
     ext = _ExtBuf()
     cache: dict = {}
     # the native walker emits real f32 amplitudes; part='complex' (fused
@@ -1310,14 +1310,9 @@ def _lower_schedule_native(channels, grid, start, dt, part, ext, cache):
 
     Channels outside the walker's basis set lower on the Python path and
     convert to the same flat form, so the vectorized assembly always runs.
-    Returns None only when the extension itself is unavailable.
+    Raises RuntimeError when the walker does not build.
     """
-    try:
-        from ..native import lower_available, lower_channel_flat
-    except ImportError:
-        return None
-    if not lower_available():
-        return None
+    from ..native import lower_channel_flat
     want_imag = 1 if part == 'imag' else 0
     # share the dedup table with the Python emission path (_ExtBuf.seen)
     # so blocks entered by either path collapse to one copy

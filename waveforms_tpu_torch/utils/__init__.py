@@ -1,2 +1,8 @@
-"""Host utilities of the port (LaTeX formatting for :mod:`..core`, and
-the signal helpers of :mod:`.signal`)."""
+"""Host utilities of the port: :func:`freeze`, the signal helpers of
+:mod:`.signal` (:func:`getFTMatrix`, :func:`shift`) and the LaTeX
+formatting of :mod:`..core`."""
+
+from .freeze import freeze
+from .signal import getFTMatrix, shift
+
+__all__ = ['freeze', 'getFTMatrix', 'shift']
