@@ -96,7 +96,33 @@ the host engine, with g++; a failed build ends the run) and runs:
    scipy, int16 codes equal to one-shot K1's; ``seq_station_chain`` --
    ``run_sequence`` of 1000 shots with the Z-settle pair and two tones,
    8 shots against ``Sequencer.play`` + scipy ``lfilter`` + ``getFTMatrix``;
-8. the measurement probes (``waveforms_tpu_torch.probes``): at small size
+8. the mesh (``run_mesh``): a (4, 2) ('channel', 'time') mesh of
+   distinct cards where the host has two or more, else of ``cuda:0``
+   eight times (``distinct_devices`` in every record).  First
+   ``mesh_small``: on a (2, 2) mesh, four channels of 16,384 samples in
+   four buckets (bucket0 = 2 on the second time shard) and in one, the
+   sharded dense, panel and worklist paths in f32, int16, bf16 and pair
+   mode and the stacked-table path against the same mesh of the CPU (the
+   plain versions) and bit for bit against the kernel on the whole
+   schedule, ``play_packed_sharded``, and K1 with bucket0 and K6 with
+   chunk0 against their plain versions on the card and the CPU.  Then the
+   cells at full width, each a main path with its launch counts, wall
+   time, the shards' summed kernel time (CUDA events, the launches alone)
+   beside the unsharded kernel's: ``mesh_flagship`` f32 and int16,
+   ``mesh_mid`` (``synthesize_on_mesh`` -> K2 x 8), ``mesh_dense`` (K1 x
+   8, 4 windowed), ``mesh_dense_bucketed`` (62 buckets, bucket0 31),
+   ``mesh_sparse`` (K7 x 8) and ``mesh_complex`` (K2 pair mode, combined
+   and as two planes), each bit-equal to the single-device call;
+   ``mesh_ladder120`` (K6 x 8, K5 never) within TOL_PLAIN of K5 and of
+   K6's plain version, TOL_ORACLE of the oracle on 3 channels;
+   ``mesh_play_packed`` (stackseq_ladder's table, 16 shots) bit-equal to
+   ``play_packed``; ``mesh_step`` (``make_step`` on the flagship with the
+   Z-settle pair, the doubling scan, and the clustered filter, S1 x 8,
+   each with the two tones) against scipy on 4 seeded rows and the IQ
+   against scipy and ``getFTMatrix``; ``mesh_fft`` (``fft_convolve_
+   sharded`` of 4 flagship rows over the 2 time shards, a centered 31-tap
+   Hann kernel) against numpy's circular convolution in f64;
+9. the measurement probes (``waveforms_tpu_torch.probes``): at small size
    (K = 64) P4, every P2 variant and every P3 body against its plain
    version on the card, bit for bit, and P1's compact worklist kernel on 8
    flagship channels over 32.768 us, padded and not, within TOL_PLAIN;
@@ -1019,6 +1045,7 @@ def run_strata(fail, summary):
 
     chans = {name: (schedule(name) if name in BUILDS else STRATA[name][0]())
              for name in STRATA}
+    STASH['chans'] = chans                 # the mesh phase runs them too
     dtypes = {'float32': torch.float32, 'int16': torch.int16,
               'bfloat16': torch.bfloat16, 'float64': None}
 
@@ -2138,6 +2165,7 @@ def run_sequences(fail, summary):
                                        'library_ms')})
         finish(rec, ok_errs(rec) and rec.get('vs_k5', 0.0) <= TOL_PLAIN)
         del out
+    STASH['stackseq_ladder'] = (seq, order)    # the mesh phase plays it too
     del seq, t
 
     # ---- stackseq_rb: 16 randomized-benchmarking-like tables, 1000 shots
@@ -2903,6 +2931,447 @@ def seq_station_chain(fail, summary):
         fail.append('seq_station_chain')
 
 
+# The mesh phase: a (4, 2) ('channel', 'time') mesh, on distinct cards when
+# the host has two or more and on cuda:0 eight times otherwise.
+MESH = (4, 2)
+STASH = {}            # inputs an earlier phase made that the mesh reuses
+
+
+def mesh_devices(n):
+    """``n`` mesh slots over the visible cards, round robin -> (devices,
+    whether they are distinct cards)."""
+    import torch
+    k = torch.cuda.device_count()
+    return [f'cuda:{i % k}' for i in range(n)], k >= 2
+
+
+def bits_equal(a, b):
+    """Whether two outputs are equal bit for bit (NaN-free outputs)."""
+    import torch
+    return bool(a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a, b))
+
+
+def mesh_small(fail):
+    """The mesh at small size, before any timing: a (2, 2) mesh of cards
+    against the same mesh of the CPU (the plain versions) on four channels
+    of 16,384 samples in four buckets of 4,096 (the dense and worklist
+    kernels hold two buckets a time shard, bucket0 = 2 on the second) and
+    on one bucket (the panel kernel's narrowed stores): each sharded route
+    in f32, int16, bf16 and pair mode, within TOL_PLAIN (int16 within
+    TOL_CODES) of the CPU mesh and bit-equal to the same kernel on the
+    whole schedule on the card; bf16 equal to the f32 plane rounded once;
+    the stacked-table route (K6) and play_packed_sharded; and K1 with
+    bucket0 and K6 with chunk0 launched directly against their plain
+    versions."""
+    import numpy as np
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.ops import sparse_synth as sp
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.stack_seq import (StackSequencer,
+                                                   synthesize_stack_sharded)
+    from waveforms_tpu_torch.ops.synth import (DeviceSchedule,
+                                               synthesize_device)
+    from waveforms_tpu_torch.parallel.mesh import (channel_mesh,
+                                                   shard_schedule,
+                                                   synthesize_sharded)
+    from waveforms_tpu_torch.schedules import FS
+
+    devices, _ = mesh_devices(4)
+    card, cpu = channel_mesh(2, 2, devices), channel_mesh(2, 2, ['cpu'] * 4)
+    rng = np.random.default_rng(5)
+    stacks = [wt.WaveVStack([(0.3 * wt.cosPulse(40e-9) >> o)
+                             for o in rng.uniform(0, 8e-6, 80)])
+              for _ in range(4)]
+    lows = {(b, part): lower_schedule(
+        stacks if part == 'real' else [(0.4 + 0.6j) * w for w in stacks],
+        0.0, 8.192e-6, FS, part=part, bucket_samples=b)
+        for b in (4096, None) for part in ('real', 'complex')}
+    whole = {
+        'dense': lambda low, **kw: synthesize_device(
+            DeviceSchedule(low, 'cuda'), **kw),
+        'panel': lambda low, **kw: sp.synthesize_panels(
+            DeviceSchedule(low, 'cuda'), low, Rs=8, **kw),
+        'sparse': lambda low, **kw: sp.synthesize_sparse(
+            DeviceSchedule(low, 'cuda'), low, Rs=8, **kw)}
+    sharded = {
+        'dense': lambda low, mesh, **kw: synthesize_sharded(
+            low, mesh, rows_per_tile=8, **kw),
+        'panel': lambda low, mesh, **kw: sp.synthesize_panels_sharded(
+            low, mesh, Rs=8, **kw),
+        'sparse': lambda low, mesh, **kw: sp.synthesize_sparse_sharded(
+            low, mesh, Rs=8, **kw)}
+    rec = {'phase': 'mesh_small', 'devices': devices}
+    ok = True
+    for route in ('dense', 'panel', 'sparse'):
+        for mode in ('float32', 'int16', 'bfloat16', 'pair'):
+            # the panel kernel narrows one bucket's stores only
+            b = None if route == 'panel' and mode in ('int16',
+                                                      'bfloat16') else 4096
+            low = lows[b, 'complex' if mode == 'pair' else 'real']
+            kw = {} if mode in ('float32', 'pair') else {
+                'out_dtype': getattr(torch, mode), 'dac_scale': 20000.0}
+            got = sharded[route](low, card, **kw).gather()
+            plain = sharded[route](low, cpu, **kw).gather()
+            one = whole[route](low, **kw)
+            check = {'buckets': low.shape[1],
+                     'vs_whole_bits': bits_equal(got, one)}
+            if mode == 'int16':
+                check['vs_plain'] = code_err(got.cpu().numpy(),
+                                             plain.numpy())
+                check['ok'] = check['vs_plain'] <= TOL_CODES
+            elif mode == 'bfloat16':
+                f32 = sharded[route](low, card).gather()
+                check['vs_f32_rounded'] = bits_equal(got,
+                                                     f32.to(torch.bfloat16))
+                check['vs_plain'] = rel_err(f32.cpu().numpy(),
+                                            sharded[route](low, cpu)
+                                            .gather().numpy())
+                check['ok'] = (check['vs_f32_rounded']
+                               and check['vs_plain'] <= TOL_PLAIN)
+            else:
+                check['vs_plain'] = rel_err(got.cpu().numpy(),
+                                            plain.numpy())
+                check['ok'] = check['vs_plain'] <= TOL_PLAIN
+            check['ok'] = bool(check['ok'] and check['vs_whole_bits'])
+            rec[f'{route}_{mode}'] = check
+            ok &= check['ok']
+    # K1 over each time shard's slice of the bucket axis, launched directly
+    low = lows[4096, 'real']
+    grid, _ = shard_schedule(low, card, nb_pad=low.shape[1])
+    cgrid, _ = shard_schedule(low, cpu, nb_pad=low.shape[1])
+    nbl = low.shape[1] // 2
+    errs = []
+    for j in range(2):
+        a, n = j * nbl * low.bucket_samples, nbl * low.bucket_samples
+        got = kernels.synth_dense(grid[0][j], torch.empty(
+            2, n, device=grid[0][j].device), None, a, n, j * nbl)
+        plain = kernels.synth_dense.plain(cgrid[0][j], torch.empty(2, n),
+                                          None, a, n, j * nbl)
+        errs.append(rel_err(got.cpu().numpy(), plain.numpy()))
+        # the plain version on the card too
+        on_card = kernels.synth_dense.plain(
+            grid[0][j], torch.empty_like(got), None, a, n, j * nbl)
+        errs.append(rel_err_t(got, on_card))
+    rec['k1_bucket0'] = {'bucket0': [0, nbl], 'vs_plain': max(errs),
+                         'ok': max(errs) <= TOL_PLAIN}
+    ok &= rec['k1_bucket0']['ok']
+    # K6: the stacked-table route on the mesh, play_packed_sharded, and a
+    # window of chunks launched directly
+    rng = np.random.default_rng(33)
+    chans = [wt.WaveVStack([(0.5 * wt.cosPulse(50e-9) >> o)
+                            for o in rng.uniform(0, 60e-6, 50)])
+             for _ in range(4)]
+    for mode in ('float32', 'int16'):
+        kw = {} if mode == 'float32' else {'out_dtype': torch.int16,
+                                           'dac_scale': 20000.0}
+        got = synthesize_stack_sharded(chans, 0.0, 65.536e-6, FS, card,
+                                       **kw).gather()
+        plain = synthesize_stack_sharded(chans, 0.0, 65.536e-6, FS, cpu,
+                                         **kw).gather()
+        err = (code_err(got.cpu().numpy(), plain.numpy()) if kw
+               else rel_err(got.cpu().numpy(), plain.numpy()))
+        rec[f'stack_{mode}'] = {'vs_plain': err, 'ok': err <= (
+            TOL_CODES if kw else TOL_PLAIN)}
+        ok &= rec[f'stack_{mode}']['ok']
+    lows_s = [lower_schedule(chans[i:i + 2], 0.0, 65.536e-6, FS,
+                             bucket_samples=None) for i in (0, 2)]
+    seq = StackSequencer(lows_s, device='cuda')
+    ks = [1, 0, 7, -2, 1]
+    packed = seq.play_packed_sharded(ks, card).gather()
+    plain_seq = StackSequencer(lows_s, device='cpu')
+    t, n = seq.tables, seq.n_samples
+    ks_dev = torch.tensor(ks, dtype=torch.int32, device='cuda')
+    win = kernels.synth_stack_seq(t, ks_dev, torch.empty(
+        (5, 2, n - 8192), device='cuda'), None, 1, t.n_chunks - 1)
+    win_plain = kernels.synth_stack_seq.plain(
+        plain_seq.tables, ks_dev.cpu(), torch.empty((5, 2, n - 8192)), None,
+        1, t.n_chunks - 1)
+    rec['play_packed_sharded'] = {
+        'vs_play_packed_bits': bits_equal(packed, seq.play_packed(ks)),
+        'vs_plain': rel_err(packed.cpu().numpy().reshape(-1, n),
+                            plain_seq.play_packed(ks).numpy()
+                            .reshape(-1, n))}
+    rec['play_packed_sharded']['ok'] = bool(
+        rec['play_packed_sharded']['vs_play_packed_bits']
+        and rec['play_packed_sharded']['vs_plain'] <= TOL_PLAIN)
+    win_card = kernels.synth_stack_seq.plain(
+        t, ks_dev, torch.empty_like(win), None, 1, t.n_chunks - 1)
+    rec['k6_chunk0'] = {'chunk0': 1, 'vs_plain': max(rel_err(
+        win.cpu().numpy().reshape(-1, n - 8192), w.cpu().numpy().reshape(
+            -1, n - 8192)) for w in (win_plain, win_card))}
+    rec['k6_chunk0']['ok'] = rec['k6_chunk0']['vs_plain'] <= TOL_PLAIN
+    ok &= rec['play_packed_sharded']['ok'] and rec['k6_chunk0']['ok']
+    rec['ok'] = bool(ok)
+    checks = {k: v for k, v in rec.items() if isinstance(v, dict)}
+    log(rec, {'phase': 'mesh_small', 'checks': len(checks), 'ok': rec['ok'],
+              'worst_vs_plain': max(v['vs_plain'] for v in checks.values()
+                                    if isinstance(v['vs_plain'], float)),
+              'failed': [k for k, v in checks.items() if not v['ok']]})
+    if not rec['ok']:
+        fail.append('mesh_small')
+
+
+def mesh_cell(label, call, fail, must, absent=(), windowed=None):
+    """One mesh main path through ``call`` -> (its result, its record with
+    the route's launches and wall time); ``windowed`` is K1's count of
+    launches with row0 != 0 that the path must make."""
+    from waveforms_tpu_torch import kernels
+    out, wall, cnt = main_path(label, call, fail, must, absent)
+    rec = {'phase': label, 'launches': cnt, 'wall_s': wall}
+    if windowed is not None:
+        rec['windowed_launches'] = kernels.synth_dense.windowed_launches
+        if rec['windowed_launches'] != windowed:
+            fail.append(f"{label}: {rec['windowed_launches']} windowed K1 "
+                        f"launches, expected {windowed}")
+    return out, rec
+
+
+def mesh_times(rec, run, whole):
+    """The shards' summed kernel time (``run``, a ShardRun, relaunched) and
+    the same kernel's on the whole schedule (``whole``), CUDA events."""
+    rec['kernel_ms'] = cuda_ms(run.run)
+    rec['unsharded_ms'] = cuda_ms(whole)
+    rec['per_shard_extra_ms'] = ((rec['kernel_ms'] - rec['unsharded_ms'])
+                                 / (len(run.calls) - 1))
+
+
+def run_mesh(fail):
+    """The mesh phase at full width (128 channels, 2 GS/s): mesh_small
+    first, then each cell a main path on a (4, 2) mesh with its counts read
+    right after it, its result against the single-device one, and the
+    shards' summed kernel time beside the unsharded kernel's."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.distortion import exp_decay_filter
+    from waveforms_tpu_torch.ops import fft_convolve_sharded, iir_cases
+    from waveforms_tpu_torch.ops import sparse_synth as sp
+    from waveforms_tpu_torch.ops import stack_seq
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.stack_synth import (build_stack_plan,
+                                                     build_stack_tables)
+    from waveforms_tpu_torch.distortion import combine_filters
+    from waveforms_tpu_torch.ops.synth import (DeviceSchedule,
+                                               dac_scale_tensor,
+                                               synthesize_device)
+    from waveforms_tpu_torch.parallel import (channel_mesh, make_step,
+                                              synthesize_on_mesh)
+    from waveforms_tpu_torch.parallel.mesh import (dense_shards,
+                                                   synthesize_sharded)
+    from waveforms_tpu_torch.schedules import FS, STRATA
+    from waveforms_tpu_torch.utils.signal import getFTMatrix
+
+    mesh_small(fail)
+    devices, distinct = mesh_devices(MESH[0] * MESH[1])
+    mesh = channel_mesh(*MESH, devices=devices)
+    chans = STASH.get('chans') or {n: STRATA[n][0]() for n in STRATA}
+    base = {'mesh': list(MESH), 'devices': devices,
+            'distinct_devices': distinct}
+
+    def finish(rec, ok):
+        rec.update(base, ok=bool(ok))
+        log(rec, {k: v for k, v in rec.items() if k != 'devices'})
+        if not rec['ok']:
+            fail.append(rec['phase'])
+        torch.cuda.empty_cache()
+
+    def scale_of(dt, C):
+        return dac_scale_tensor(dt, 32767.0, C, 'cuda')
+
+    # ---- K2 on the flagship (f32, int16) and mid; K1 on dense
+    for label, stratum, dt, kernel in (
+            ('mesh_flagship', 'flagship', torch.float32, 'synth_panel'),
+            ('mesh_flagship', 'flagship', torch.int16, 'synth_panel'),
+            ('mesh_mid', 'mid', torch.float32, 'synth_panel'),
+            ('mesh_dense', 'dense', torch.float32, 'synth_dense')):
+        stop = STRATA[stratum][1]
+        out, rec = mesh_cell(label, lambda: synthesize_on_mesh(
+            chans[stratum], 0.0, stop, FS, mesh, out_dtype=dt), fail,
+            {kernel: 8}, windowed=4 if kernel == 'synth_dense' else None)
+        got = out.gather()
+        del out
+        low = lower_schedule(chans[stratum], 0.0, stop, FS)
+        dev = DeviceSchedule(low, 'cuda')
+        one = wt.synthesize(chans[stratum], 0.0, stop, FS, out_dtype=dt,
+                            device='cuda')
+        rec.update(dtype=str(dt)[6:], route=kernel,
+                   vs_single_device_bits=bits_equal(got, one))
+        del got
+        scale = scale_of(dt, low.shape[0])
+        if kernel == 'synth_panel':
+            run = sp.panel_shards(low, mesh, out_dtype=dt)
+            work = sp.PanelWork.upload(sp.build_panel_plan(low), 'cuda')
+            mesh_times(rec, run, lambda: kernels.synth_panel(
+                dev, work, one, scale))
+        else:
+            run = dense_shards(low, mesh, out_dtype=dt)
+            mesh_times(rec, run, lambda: kernels.synth_dense(dev, one,
+                                                             scale))
+        del run, one
+        finish(rec, rec['vs_single_device_bits'])
+
+    # ---- K1 on a bucketed dense schedule: bucket0 = 31 on time shard 1
+    low = lower_schedule(chans['dense'], 0.0, 1e-3, FS, bucket_samples=32768)
+    out, rec = mesh_cell('mesh_dense_bucketed',
+                         lambda: synthesize_sharded(low, mesh), fail,
+                         {'synth_dense': 8}, windowed=4)
+    dev = DeviceSchedule(low, 'cuda')
+    one = synthesize_device(dev)
+    rec.update(buckets=low.shape[1], bucket0=[0, -(-low.shape[1] // 2)],
+               route='synth_dense',
+               vs_single_device_bits=bits_equal(out.gather(), one))
+    del out
+    mesh_times(rec, dense_shards(low, mesh),
+               lambda: kernels.synth_dense(dev, one, None))
+    del one, dev
+    finish(rec, rec['vs_single_device_bits'])
+
+    # ---- K7 on the flagship
+    low = lower_schedule(chans['flagship'], 0.0, 1e-3, FS)
+    out, rec = mesh_cell('mesh_sparse', lambda: sp.synthesize_sparse_sharded(
+        low, mesh), fail, {'synth_sparse': 8})
+    dev = DeviceSchedule(low, 'cuda')
+    one = sp.synthesize_sparse(dev, low)
+    rec.update(route='synth_sparse',
+               vs_single_device_bits=bits_equal(out.gather(), one))
+    del out
+    work = sp.SparseWork.upload(sp.build_sparse_plan(low), 'cuda')
+
+    def sparse_whole():
+        one.zero_()
+        kernels.synth_sparse(dev, work, one, None)
+    mesh_times(rec, sp.sparse_shards(low, mesh), sparse_whole)
+    del one, dev, work
+    finish(rec, rec['vs_single_device_bits'])
+
+    # ---- K2 in pair mode on the flagship, combined and as two planes
+    out, rec = mesh_cell('mesh_complex', lambda: synthesize_on_mesh(
+        chans['flagship'], 0.0, 1e-3, FS, mesh, part='complex'), fail,
+        {'synth_panel': 8})
+    got = out.gather()
+    del out
+    low = lower_schedule(chans['flagship'], 0.0, 1e-3, FS, part='complex')
+    dev = DeviceSchedule(low, 'cuda')
+    one = sp.synthesize_panels(dev, low)
+    re, im = sp.synthesize_panels_sharded(low, mesh, combine_pair=False)
+    rec.update(route='synth_panel', dtype='complex64',
+               vs_single_device_bits=bits_equal(got, one),
+               planes_bits=bits_equal(re.gather(), one.real.contiguous())
+               and bits_equal(im.gather(), one.imag.contiguous()))
+    del got, re, im
+    work = sp.PanelWork.upload(sp.build_panel_plan(low), 'cuda')
+    mesh_times(rec, sp.panel_shards(low, mesh),
+               lambda: kernels.synth_panel(dev, work, one, None))
+    del one, dev, work
+    finish(rec, rec['vs_single_device_bits'] and rec['planes_bits'])
+
+    # ---- K6 on ladder120 (the stack route on the mesh; K5 never)
+    stop = STRATA['ladder120'][1]
+    lad = chans['ladder120']
+    out, rec = mesh_cell('mesh_ladder120', lambda: synthesize_on_mesh(
+        lad, 0.0, stop, FS, mesh), fail, {'synth_stack_seq': 8},
+        absent=('synth_stack',))
+    got = out.gather()
+    del out
+    one = wt.synthesize(lad, 0.0, stop, FS, device='cuda')      # K5
+    run = stack_seq.stack_shards(lad, 0.0, stop, FS, mesh)
+    # K6's plain version on each channel shard's whole table, on the card
+    ks0 = torch.zeros(1, dtype=torch.int32, device='cuda')
+    plain = torch.cat([kernels.synth_stack_seq.plain(
+        s.tables, ks0, torch.empty((1, s.n_channels, s.n_samples),
+                                   device='cuda'))[0] for s in run.seqs])
+    picks = [0, 61, 127]
+    want = wt.synthesize([lad[c] for c in picks], 0.0, stop, FS,
+                         engine='numpy')
+    rec.update(route='synth_stack_seq', vs_k5=rel_err_t(got, one),
+               vs_plain=rel_err_t(got, plain),
+               vs_oracle=rel_err(got[picks].cpu().numpy(), want))
+    del plain
+    low = lower_schedule(lad, 0.0, stop, FS, bucket_samples=None)
+    t5 = build_stack_tables(build_stack_plan(low), low, 'cuda')
+    mesh_times(rec, run, lambda: kernels.synth_stack(t5, one, None))
+    rec['unsharded_kernel'] = 'synth_stack'
+    del got, one, t5, run
+    finish(rec, rec['vs_k5'] <= TOL_PLAIN and rec['vs_plain'] <= TOL_PLAIN
+           and rec['vs_oracle'] <= TOL_ORACLE)
+
+    # ---- stackseq_ladder's table through play_packed_sharded, 16 shots
+    seq, order = STASH['stackseq_ladder']
+    out, rec = mesh_cell('mesh_play_packed',
+                         lambda: seq.play_packed_sharded(order, mesh), fail,
+                         {'synth_stack_seq': 8}, absent=('synth_stack',))
+    one = seq.play_packed(order)
+    rec.update(route='synth_stack_seq', shots=len(order),
+               vs_play_packed_bits=bits_equal(out.gather(), one))
+    del out
+    ks_dev = torch.as_tensor(order, dtype=torch.int32, device='cuda')
+    mesh_times(rec, seq.packed_shards(order, mesh),
+               lambda: kernels.synth_stack_seq(seq.tables, ks_dev, one,
+                                               None))
+    del one
+    finish(rec, rec['vs_play_packed_bits'])
+    STASH.pop('stackseq_ladder')
+
+    # ---- the production step on the flagship: K1 on the mesh, a filter
+    # with its state carried across the time shards, the two tones
+    low = lower_schedule(chans['flagship'], 0.0, 1e-3, FS)
+    N = low.n_samples
+    rows = seeded_rows(low.shape[0], 4, 9)
+    raw = synthesize_device(DeviceSchedule(low, 'cuda'))
+    host = raw[rows].double().cpu().numpy()
+    del raw
+    ft = getFTMatrix(TONES, N, sampleRate=FS)
+    for name, ba, route, tol in (
+            ('z_settle', [exp_decay_filter(a, t, FS, inv=True)
+                          for a, t in zip(*Z_SETTLE)], 'doubling',
+             TOL_DOUBLING),
+            ('clustered', [exp_decay_filter(*iir_cases.CLUSTERED, FS,
+                                            output='ba')], 'S1',
+             TOL_DIRECT_FORM)):
+        step = make_step(low, mesh, ba_filters=ba, demod_freqs=TONES)
+        (sig, iq), rec = mesh_cell(
+            'mesh_step', step, fail,
+            {'synth_dense': 8, **({'iir_df2t': 8} if route == 'S1' else {})},
+            absent=() if route == 'S1' else ('iir_df2t',), windowed=4)
+        got = sig.gather()[rows].cpu().numpy()
+        del sig
+        b, a = combine_filters(ba)
+        want = [sps.lfilter(b, a, h) for h in host]
+        ref_iq = np.stack(want) @ ft
+        rec.update(filter=name, route=route, rows=rows,
+                   vs_scipy=rows_err(got, want), tol=tol,
+                   iq_shape=list(iq.shape),
+                   iq_vs_host=float(np.abs(iq[rows].cpu().numpy() - ref_iq)
+                                    .max() / np.abs(ref_iq).max()),
+                   iq_tol=TOL_DEMOD,
+                   step_ms=cuda_ms(step, reps=3))
+        del iq
+        finish(rec, rec['vs_scipy'] <= tol and rec['iq_vs_host'] <= TOL_DEMOD
+               and rec['iq_shape'] == [low.shape[0], len(TONES)])
+
+    # ---- the distributed FFT: 4 flagship rows over the 2 time shards
+    x = torch.from_numpy(np.stack(host)).cuda()
+    hann = sps.windows.hann(31)
+    hann /= hann.sum()
+    out, rec = mesh_cell('mesh_fft', lambda: fft_convolve_sharded(
+        x, hann, mesh, centered=True), fail, {})
+    rolled = np.roll(np.concatenate([hann, np.zeros(N - 31)]), -15)
+    want = np.real(np.fft.ifft(np.fft.fft(np.stack(host))
+                               * np.fft.fft(rolled)))
+    rec.update(rows=rows, P=MESH[1], N=N,
+               vs_numpy=rows_err(out.gather().cpu().numpy(), want),
+               tol=TOL_FFT, ms=cuda_ms(lambda: fft_convolve_sharded(
+                   x, hann, mesh, centered=True), reps=3))
+    finish(rec, rec['vs_numpy'] <= TOL_FFT)
+
+
 def ptxas_entries(lines):
     """{entry function (mangled): [registers, spill store bytes, spill
     load bytes, shared memory bytes]} from nvcc's ``-Xptxas -v`` lines, in
@@ -3082,7 +3551,7 @@ def main():
                       check_small_narrow, check_probes, run_strata,
                       engine_native, engine_torch, run_sequences,
                       signal_flagship, stream_flagship, seq_station_chain,
-                      run_probes):
+                      run_mesh, run_probes):
             t0 = time.perf_counter()
             try:
                 if phase in (run_strata, run_sequences, signal_flagship,

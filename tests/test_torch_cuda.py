@@ -21,7 +21,13 @@ K7 and P1, which walk with K1's tile walker, are held to K1 and to each
 other bit for bit on every live subtile, at subtile heights of 1, 3, 8 and
 32 rows and on a worklist of more items than a grid's y axis holds.  K1's
 windows (row0, n_out) are held to the same columns of its unwindowed
-launch bit for bit.  The IIR recurrence kernel S1, a blocked scan, is held
+launch bit for bit.  K1 over a time shard's slice of the bucket axis
+(``bucket0``) and K6 over a window of chunks are held to the same columns
+of their whole launches bit for bit and to their plain versions, K1 at
+``bucket0 = 0`` and K6 over a whole table to a parent build's outputs bit
+for bit (where one is unpacked under build/parent), and each sharded route
+on a (2, 2) mesh of one card to its kernel on the whole schedule.  The IIR
+recurrence kernel S1, a blocked scan, is held
 bit for bit to the plain model of its arithmetic (``df2t_blocked``) and,
 over each row's first chunk, to its sequential plain version, in f64 and
 f32 (neither contracts a multiply-add), and no farther from a long-double
@@ -1185,3 +1191,199 @@ def test_demodulate_ignores_the_callers_tf32(card):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     assert torch.equal(on, off)
+
+
+def _bucketed_lowering(part='real'):
+    """Four channels of 40 ns cosPulses over 32,768 samples in buckets of
+    4,096 samples: eight buckets, each with segments."""
+    rng = np.random.default_rng(5)
+    chans = [wt.WaveVStack([(0.3 * wt.cosPulse(40e-9) >> o)
+                            for o in rng.uniform(0, 16e-6, 80)])
+             for _ in range(4)]
+    if part == 'complex':
+        chans = [(0.4 + 0.6j) * w for w in chans]
+    return lower_schedule(chans, 0, 16.384e-6, 2e9, part=part,
+                          bucket_samples=4096)
+
+
+@pytest.mark.parametrize('mode', ['f32', 'int16', 'pair'])
+def test_dense_bucket0_matches_plain(card, mode):
+    """K1 over a time shard's slice of the bucket axis (buckets [b0, b0 +
+    nbl), ``bucket0 = b0``, window from b0's first sample) equals the same
+    columns of the whole schedule's launch bit for bit, and its plain
+    version ``dense_walk(..., bucket0=b0)`` within TOL (int16 within a
+    code); the slice's first and last local buckets take the samples
+    outside it, as the kernel's clamp gives them."""
+    from waveforms_tpu_torch.parallel.mesh import channel_mesh, shard_schedule
+    low = _bucketed_lowering('complex' if mode == 'pair' else 'real')
+    C, NB = low.shape[:2]
+    bs, n = low.bucket_samples, low.n_samples
+    dtype = {'int16': torch.int16, 'pair': torch.complex64}.get(
+        mode, torch.float32)
+    scale = torch.full((C,), 1000.0) if mode == 'int16' else None
+    sc = None if scale is None else scale.to(card)
+    whole = kernels.synth_dense(DeviceSchedule(low, card),
+                                torch.empty(C, n, dtype=dtype, device=card),
+                                sc)
+    for nt in (2, 4):
+        grid, _ = shard_schedule(low, channel_mesh(1, nt, [card] * nt),
+                                 nb_pad=NB)
+        cpu, _ = shard_schedule(low, channel_mesh(1, nt, ['cpu'] * nt),
+                                nb_pad=NB)
+        nbl = NB // nt
+        for j in range(nt):
+            a = j * nbl * bs
+            # the shard's own window, and one that runs one bucket past it
+            for b in (a + nbl * bs, min(n, a + (nbl + 1) * bs)):
+                got = kernels.synth_dense(
+                    grid[0][j], torch.empty(C, b - a, dtype=dtype,
+                                            device=card), sc, a, b - a,
+                    j * nbl)
+                plain = kernels.synth_dense.plain(
+                    cpu[0][j], torch.empty(C, b - a, dtype=dtype), scale, a,
+                    b - a, j * nbl)
+                if b == a + nbl * bs:
+                    assert torch.equal(got, whole[:, a:b])
+                if mode == 'int16':
+                    assert (got.cpu().int() - plain.int()).abs().max() <= 1
+                elif mode == 'pair':
+                    assert rel(got.cpu().real, plain.real) <= TOL
+                    assert rel(got.cpu().imag, plain.imag) <= TOL
+                else:
+                    assert rel(got.cpu(), plain) <= TOL
+    with pytest.raises(ValueError, match='bucket0'):
+        kernels.synth_dense(DeviceSchedule(low, card),
+                            torch.empty(C, n, dtype=dtype, device=card), sc,
+                            0, n, -1)
+
+
+def test_stack_seq_window_matches_whole_and_plain(card):
+    """K6 over windows of chunks [chunk0, chunk0 + n) of a two-schedule
+    table equals the same columns of its whole-table launch bit for bit, in
+    f32 and int16, and its plain version's window within TOL: windows at 0,
+    inside, ragged at the end, and one chunk."""
+    from waveforms_tpu_torch.ops import StackSequencer
+    rng = np.random.default_rng(31)
+    lows = [lower_schedule([wt.WaveVStack([
+        (float(a) * wt.cosPulse(50e-9) >> o)
+        for a, o in zip(rng.uniform(0.2, 1.0, 60),
+                        rng.uniform(0, 98e-6, 60))]) for _ in range(3)],
+        0.0, 99.9e-6, 2e9, bucket_samples=None) for _ in range(2)]
+    seq = StackSequencer(lows, device=card)
+    plain_seq = StackSequencer(lows, device='cpu')
+    t, n = seq.tables, lows[0].n_samples
+    assert t.n_chunks >= 12 and n % 8192
+    ks = torch.tensor([1, 0, 7, -2], dtype=torch.int32, device=card)
+    span = 64 * 128
+    for dtype, scale in ((torch.float32, None),
+                         (torch.int16, torch.full((3,), 3000.0))):
+        sc = None if scale is None else scale.to(card)
+        whole = kernels.synth_stack_seq(
+            t, ks, torch.empty((4, 3, n), dtype=dtype, device=card), sc)
+        for chunk0, count in ((0, 4), (4, 4), (8, t.n_chunks - 8), (5, 1)):
+            a = chunk0 * span
+            b = min(n, (chunk0 + count) * span)
+            got = kernels.synth_stack_seq(
+                t, ks, torch.empty((4, 3, b - a), dtype=dtype, device=card),
+                sc, chunk0, count)
+            assert torch.equal(got, whole[..., a:b])
+            plain = kernels.synth_stack_seq.plain(
+                plain_seq.tables, ks.cpu(),
+                torch.empty((4, 3, b - a), dtype=dtype), scale, chunk0, count)
+            if dtype == torch.int16:
+                assert (got.cpu().int() - plain.int()).abs().max() <= 1
+            else:
+                assert rel(got.cpu().reshape(-1, b - a),
+                           plain.reshape(-1, b - a)) <= TOL
+    with pytest.raises(ValueError, match='outside'):
+        kernels.synth_stack_seq(t, ks, torch.empty((4, 3, 1), device=card),
+                                None, t.n_chunks - 1, 2)
+
+
+def test_offset_zero_matches_the_parent_build(card):
+    """K1 at ``bucket0 = 0`` and K6 over a whole table give the outputs of
+    the parent build bit for bit (its sources unpacked under build/parent,
+    ``git archive <parent> waveforms_tpu_torch | tar -x -C build/parent``,
+    and built through tools/ab_dense.py's and tools/ab_stack.py's
+    ``other_library``): K1 on every case of this file in f32 and int16, K6
+    on a two-schedule table in f32 and int16."""
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    tree = repo / 'build' / 'parent'
+    if not (tree / 'waveforms_tpu_torch' / 'csrc').is_dir():
+        pytest.skip("no parent tree under build/parent to compare with")
+    sys.path.insert(0, str(repo / 'tools'))
+    import ab_dense
+    import ab_stack
+    from waveforms_tpu_torch.ops import StackSequencer
+    dense_lib, largest, _ = ab_dense.other_library(tree)
+    stack_lib, _ = ab_stack.other_library(tree)
+    for case in _cases():
+        low = _lowered(case)
+        C, n = low.shape[0], low.n_samples
+        dev = DeviceSchedule(low, card)
+        for dtype in (torch.float32, torch.int16):
+            sc = (torch.full((C,), 1000.0, device=card)
+                  if dtype == torch.int16 else None)
+            mine = kernels.synth_dense(
+                dev, torch.empty(C, n, dtype=dtype, device=card), sc)
+            theirs = torch.empty(C, n, dtype=dtype, device=card)
+            kernels.launch_dense(dev, theirs, sc, lib=dense_lib,
+                                 largest=largest)
+            assert torch.equal(mine, theirs), (case, dtype)
+    rng = np.random.default_rng(32)
+    lows = [lower_schedule([wt.WaveVStack([
+        (0.5 * wt.cosPulse(50e-9) >> o) for o in rng.uniform(0, 30e-6, 40)])
+        for _ in range(2)], 0.0, 32.768e-6, 2e9, bucket_samples=None)
+        for _ in range(2)]
+    seq = StackSequencer(lows, device=card)
+    ks = torch.tensor([1, 0, 5, -1], dtype=torch.int32, device=card)
+    for dtype, sc in ((torch.float32, None),
+                      (torch.int16, torch.full((2,), 3000.0, device=card))):
+        mine = seq.play_packed(ks, out_dtype=dtype, dac_scale=3000.0)
+        theirs = torch.empty_like(mine)
+        kernels.launch_stack_seq(seq.tables, ks, theirs, sc, lib=stack_lib)
+        assert torch.equal(mine, theirs), dtype
+
+
+def test_sharded_routes_on_one_card(card):
+    """One sharded call per route on a (2, 2) mesh of one card, each block
+    on the card: the dense (K1, windowed, bucketed), panel (K2) and
+    worklist (K7) paths bit-equal to the same kernel on the whole
+    schedule, the stacked-table path (K6) within TOL of K5 on the whole
+    schedule, and each kernel launched once a shard."""
+    from waveforms_tpu_torch.ops.sparse_synth import (
+        synthesize_panels_sharded, synthesize_sparse_sharded)
+    from waveforms_tpu_torch.ops.stack_seq import synthesize_stack_sharded
+    from waveforms_tpu_torch.parallel.mesh import (channel_mesh,
+                                                   synthesize_sharded)
+    mesh = channel_mesh(2, 2, devices=[card] * 4)
+    low = _bucketed_lowering()
+    dev = DeviceSchedule(low, card)
+
+    def counted(name, fn):
+        kernel = getattr(kernels, name)
+        n = kernel.launches
+        plane = fn()
+        assert kernel.launches == n + 4, name
+        assert all(b.device.type == 'cuda' for row in plane.blocks
+                   for b in row)
+        return plane.gather()
+
+    got = counted('synth_dense', lambda: synthesize_sharded(low, mesh))
+    assert torch.equal(got, synthesize_device(dev))
+    got = counted('synth_panel',
+                  lambda: synthesize_panels_sharded(low, mesh, Rs=8))
+    assert torch.equal(got, synthesize_panels(dev, low, Rs=8))
+    got = counted('synth_sparse',
+                  lambda: synthesize_sparse_sharded(low, mesh, Rs=8))
+    assert torch.equal(got, synthesize_sparse(dev, low, Rs=8))
+    rng = np.random.default_rng(33)
+    chans = [wt.WaveVStack([(0.5 * wt.cosPulse(50e-9) >> o)
+                            for o in rng.uniform(0, 60e-6, 50)])
+             for _ in range(4)]
+    got = counted('synth_stack_seq', lambda: synthesize_stack_sharded(
+        chans, 0.0, 65.536e-6, 2e9, mesh))
+    whole = lower_schedule(chans, 0.0, 65.536e-6, 2e9, bucket_samples=None)
+    assert rel(got.cpu(), synthesize_stack(whole, device=card).cpu()) <= TOL

@@ -112,7 +112,7 @@ def side(lib):
         if kind == 'k5':
             kernels.launch_stack(t, out, scale, lib)
         else:
-            kernels.launch_stack_seq(t, ks, out, scale, lib)
+            kernels.launch_stack_seq(t, ks, out, scale, lib=lib)
     return launch
 
 

@@ -24,6 +24,13 @@
 // constant 0 (WIN = false): carrying the offset at run time there cost the
 // dense occupancy-1 cell 2.3% on the H100, with bit-identical output.
 //
+// A time shard of a mesh (parallel/mesh.py) holds only its own slice of
+// the bucket axis, buckets [bucket0, bucket0 + NB): its tiles read local
+// bucket clamp(global bucket - bucket0, 0, NB - 1), as the TPU tile reads
+// its local bucket by program id and its time from row0.  bucket0 rides
+// with the window (WIN = true); a launch at row0 = 0 and bucket0 = 0 has
+// neither.
+//
 // Layout: one thread block of DENSE_THREADS per (tile, channel), a tile
 // being up to DENSE_SUBS passes of N * DENSE_THREADS samples (N samples per
 // thread).  Tiles never straddle a bucket: the wrapper picks a tile that
@@ -87,8 +94,9 @@ static_assert(DENSE_THREADS % 32 == 0, "whole warps");
 
 template <bool PAIR, int N, bool WIN>
 __global__ void __launch_bounds__(DENSE_THREADS)
-synth_dense_kernel(Desc d, long long row0_arg, long long n_out, int tile,
-                   int sub, void* out, int out_kind, const float* scale) {
+synth_dense_kernel(Desc d, long long row0_arg, long long bucket0,
+                   long long n_out, int tile, int sub, void* out, int out_kind,
+                   const float* scale) {
   const long long row0 = WIN ? row0_arg : 0;
   constexpr int SUB = N * DENSE_THREADS;  // samples per pass
   __shared__ float sx[SUB + SUB / 32];
@@ -97,8 +105,12 @@ synth_dense_kernel(Desc d, long long row0_arg, long long n_out, int tile,
   const int c = blockIdx.y;
   const long long base = (long long)blockIdx.x * tile;  // in the window
   const long long gbase = row0 + base;                   // in the schedule
-  const int b = d.NB > 1
-      ? (int)min(gbase / d.bucket_samples, (long long)(d.NB - 1)) : 0;
+  int b = 0;
+  if (d.NB > 1) {        // one bucket: no 64-bit division in the prologue
+    long long gb = gbase / d.bucket_samples;  // the global bucket
+    if (WIN) gb = max(gb - bucket0, 0LL);      // the shard's local one
+    b = (int)min(gb, (long long)(d.NB - 1));
+  }
   const long long row = ((long long)c * d.NB + b) * d.S;
   // every pass's slots at once, one warp per pass
   const int n_sub = tile / sub, n_warps = (blockDim.x + 31) >> 5;
@@ -138,14 +150,15 @@ synth_dense_kernel(Desc d, long long row0_arg, long long n_out, int tile,
   }
 }
 
-// Launch K1 with N samples per thread over the window [row0, row0 + n_out):
-// `tile` (a power of two of at least 128 that divides bucket_samples and
-// row0) bounded by N's tile, and halved while the grid is too small to fill
-// the card, down to two warps' samples.
+// Launch K1 with N samples per thread over the window [row0, row0 + n_out)
+// of a schedule whose bucket axis starts at bucket0: `tile` (a power of two
+// of at least 128 that divides bucket_samples and row0) bounded by N's
+// tile, and halved while the grid is too small to fill the card, down to
+// two warps' samples.
 template <int N>
-static int launch_dense(const Desc& d, long long row0, long long n_out,
-                        int tile, void* out, int out_kind, const float* scale,
-                        cudaStream_t st) {
+static int launch_dense(const Desc& d, long long row0, long long bucket0,
+                        long long n_out, int tile, void* out, int out_kind,
+                        const float* scale, cudaStream_t st) {
   tile = min(tile, N * DENSE_THREADS * DENSE_SUBS);
   while (tile > 64 * N && (n_out + tile - 1) / tile * d.C < MIN_DENSE_BLOCKS)
     tile /= 2;
@@ -153,18 +166,19 @@ static int launch_dense(const Desc& d, long long row0, long long n_out,
   const long long n_tiles = (n_out + tile - 1) / tile;
   if (n_tiles > 0 && d.C > 0) {
     dim3 grid((unsigned)n_tiles, (unsigned)d.C);
-    if (out_kind == OUT_C64 && row0)
+    const bool win = row0 || bucket0;
+    if (out_kind == OUT_C64 && win)
       synth_dense_kernel<true, N, true><<<grid, sub / N, 0, st>>>(
-          d, row0, n_out, tile, sub, out, out_kind, scale);
+          d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
     else if (out_kind == OUT_C64)
       synth_dense_kernel<true, N, false><<<grid, sub / N, 0, st>>>(
-          d, row0, n_out, tile, sub, out, out_kind, scale);
-    else if (row0)
+          d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
+    else if (win)
       synth_dense_kernel<false, N, true><<<grid, sub / N, 0, st>>>(
-          d, row0, n_out, tile, sub, out, out_kind, scale);
+          d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
     else
       synth_dense_kernel<false, N, false><<<grid, sub / N, 0, st>>>(
-          d, row0, n_out, tile, sub, out, out_kind, scale);
+          d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -178,7 +192,39 @@ extern "C" {
 // Samples [row0, row0 + n_out) go to a (C, n_out) output; row0 is a
 // multiple of `tile`, and the window ends at most at n_samples rounded up
 // to whole 128-sample rows.  `tile`, a power of two of at least 128 that
-// divides bucket_samples, bounds the kernel's own DENSE_TILE.
+// divides bucket_samples, bounds the kernel's own DENSE_TILE.  The NB
+// buckets of the descriptors are the schedule's buckets [bucket0, bucket0 +
+// NB) (a time shard's slice; 0 for a whole schedule).
+int wf_synth_dense_shard(const int* seg_lo, const int* seg_hi,
+                         const int* seg_hmax, const int* nterm,
+                         const int* nfac, const float* amp, const int* op,
+                         const int* power, const int* shift_hi,
+                         const int* q32, const float* args, const float* ext,
+                         const float* clip, const float* amp_im, int C,
+                         int NB, int S, int T, int F, long long n_samples,
+                         long long bucket_samples, long long row0,
+                         long long n_out, long long bucket0, int tile,
+                         void* out, int out_kind, const float* scale,
+                         void* stream) {
+  wfsynth::Desc d{seg_lo, seg_hi, seg_hmax, nterm, nfac, amp, op, power,
+                  shift_hi, q32, args, ext, clip, amp_im, C, NB, S, T, F,
+                  n_samples, bucket_samples};
+  if (tile < 128 || (tile & (tile - 1)) || row0 < 0 || row0 % tile ||
+      n_out < 0 || row0 + n_out > (n_samples + 127) / 128 * 128 ||
+      bucket0 < 0)
+    return (int)cudaErrorInvalidValue;
+  tile = min(tile, wfsynth::DENSE_TILE);
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((n_out + tile - 1) / tile * C < wfsynth::MIN_DENSE_BLOCKS)
+    return wfsynth::launch_dense<wfsynth::DENSE_N_SMALL>(
+        d, row0, bucket0, n_out, tile, out, out_kind, scale, st);
+  return wfsynth::launch_dense<wfsynth::DENSE_N>(
+      d, row0, bucket0, n_out, tile, out, out_kind, scale, st);
+}
+
+// The same over a whole bucket axis (bucket0 = 0): the C interface that
+// builds of this kernel have had since the window, kept so that an A/B
+// against an earlier build (tools/ab_dense.py) calls both alike.
 int wf_synth_dense(const int* seg_lo, const int* seg_hi, const int* seg_hmax,
                    const int* nterm, const int* nfac, const float* amp,
                    const int* op, const int* power, const int* shift_hi,
@@ -188,19 +234,10 @@ int wf_synth_dense(const int* seg_lo, const int* seg_hi, const int* seg_hmax,
                    long long bucket_samples, long long row0,
                    long long n_out, int tile, void* out, int out_kind,
                    const float* scale, void* stream) {
-  wfsynth::Desc d{seg_lo, seg_hi, seg_hmax, nterm, nfac, amp, op, power,
-                  shift_hi, q32, args, ext, clip, amp_im, C, NB, S, T, F,
-                  n_samples, bucket_samples};
-  if (tile < 128 || (tile & (tile - 1)) || row0 < 0 || row0 % tile ||
-      n_out < 0 || row0 + n_out > (n_samples + 127) / 128 * 128)
-    return (int)cudaErrorInvalidValue;
-  tile = min(tile, wfsynth::DENSE_TILE);
-  cudaStream_t st = (cudaStream_t)stream;
-  if ((n_out + tile - 1) / tile * C < wfsynth::MIN_DENSE_BLOCKS)
-    return wfsynth::launch_dense<wfsynth::DENSE_N_SMALL>(
-        d, row0, n_out, tile, out, out_kind, scale, st);
-  return wfsynth::launch_dense<wfsynth::DENSE_N>(d, row0, n_out, tile, out,
-                                                 out_kind, scale, st);
+  return wf_synth_dense_shard(seg_lo, seg_hi, seg_hmax, nterm, nfac, amp, op,
+                              power, shift_hi, q32, args, ext, clip, amp_im,
+                              C, NB, S, T, F, n_samples, bucket_samples, row0,
+                              n_out, 0, tile, out, out_kind, scale, stream);
 }
 
 const char* wf_error_string(int code) {

@@ -60,12 +60,35 @@ from .ops.synth import (DeviceSchedule, default_rows_per_tile,
                         normalize_out_dtype, resolve_device,
                         synthesize_device)
 
-__all__ = ['synthesize', 'sample', 'classify_route', 'ENGINES']
+__all__ = ['synthesize', 'sample', 'classify_route', 'padded_occupancy',
+           'stack_wins', 'ENGINES']
 
 ENGINES = ('auto', 'cuda', 'cuda-dense', 'cuda-panel', 'cuda-sparse',
            'cuda-stack', 'native', 'torch', 'numpy')
 _FORCE = {'cuda-dense': 'dense', 'cuda-panel': 'panel',
           'cuda-sparse': 'sparse', 'cuda-stack': 'stack'}
+
+
+def padded_occupancy(low, sparse_plan) -> tuple[float, bool]:
+    """The router's occupancy of a lowering -> ``(occ, small)``: the live
+    subtile fraction of ``sparse_plan`` against the PADDED tile count of
+    the JAX dense grid, as the JAX router computes it, and whether the
+    schedule is at most two of those tiles (``small``: too short for the
+    stack kernel to amortize anything)."""
+    NB = low.shape[1]
+    R = default_rows_per_tile(low.n_samples, low.bucket_samples, NB)
+    n_rows = -(-low.n_samples // 128)
+    padded_rows = -(-n_rows // R) * R
+    occ = sparse_plan.occupied_fraction * n_rows / padded_rows
+    return occ, padded_rows <= 2 * R
+
+
+def stack_wins(plan) -> bool:
+    """Whether a StackPlan takes the stack route on its merits: at least
+    STACK_MIN_NARROW narrow instances and an advantage of at least
+    DEFAULT_ADVANTAGE."""
+    return (plan is not None and plan.n_narrow >= STACK_MIN_NARROW
+            and plan.advantage >= DEFAULT_ADVANTAGE)
 
 
 def classify_route(low, force=None, out_dtype=None):
@@ -108,10 +131,6 @@ def classify_route(low, force=None, out_dtype=None):
             memo.append(build_stack_plan(low))
         return memo[0]
 
-    def stack_wins(p):
-        return (p is not None and p.n_narrow >= STACK_MIN_NARROW
-                and p.advantage >= DEFAULT_ADVANTAGE)
-
     sparse_plan = None
     if force in ('sparse', 'panel') or (force is None and low.pallas_ok):
         try:
@@ -120,14 +139,7 @@ def classify_route(low, force=None, out_dtype=None):
             if force in ('sparse', 'panel'):
                 raise
     if sparse_plan is not None:
-        # occupancy against the PADDED tile count of the JAX dense grid, as
-        # the JAX router computes it
-        NB = low.shape[1]
-        R = default_rows_per_tile(low.n_samples, low.bucket_samples, NB)
-        n_rows = -(-low.n_samples // 128)
-        padded_rows = -(-n_rows // R) * R
-        occ = sparse_plan.occupied_fraction * n_rows / padded_rows
-        small = padded_rows <= 2 * R
+        occ, small = padded_occupancy(low, sparse_plan)
         if (force is None and not small and occ >= STACK_OCC_FLOOR
                 and stack_wins(stack_plan())):
             return 'stack', stack_plan()

@@ -157,6 +157,9 @@ def load_library():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.wf_synth_dense.argtypes = ([P] * 14 + [I] * 5 + [L, L, L, L, I]
                                        + [P, I, P, P])
+        lib.wf_synth_dense_shard.argtypes = ([P] * 14 + [I] * 5
+                                             + [L, L, L, L, L, I]
+                                             + [P, I, P, P])
         lib.wf_synth_panel.argtypes = ([P] * 13 + [I] * 5 + [L, L]
                                        + [P] * 5 + [I, I, I, L]
                                        + [P, I, P, P])
@@ -167,6 +170,9 @@ def load_library():
                                        + [P, I, P, P])
         lib.wf_synth_stack_seq.argtypes = ([P] * 13 + [I] * 5 + [L, I]
                                            + [P, I, P, P])
+        lib.wf_synth_stack_seq_window.argtypes = ([P] * 13 + [I] * 5
+                                                  + [L, I, I, L, I]
+                                                  + [P, I, P, P])
         lib.wf_synth_dense_hi.argtypes = ([P] * 13 + [I] * 5 + [L, L, I]
                                           + [P, P, I, P])
         lib.wf_synth_panel_hi.argtypes = ([P] * 12 + [I] * 5 + [L, L]
@@ -184,9 +190,11 @@ def load_library():
         lib.wf_iir_df2t_chunk.restype = I
         lib.wf_iir_df2t_work_doubles.argtypes = [I, L, I]
         lib.wf_iir_df2t_work_doubles.restype = L
-        for fn in (lib.wf_synth_dense, lib.wf_synth_panel,
+        for fn in (lib.wf_synth_dense, lib.wf_synth_dense_shard,
+                   lib.wf_synth_panel,
                    lib.wf_synth_sparse, lib.wf_synth_stack,
-                   lib.wf_synth_stack_seq, lib.wf_synth_dense_hi,
+                   lib.wf_synth_stack_seq, lib.wf_synth_stack_seq_window,
+                   lib.wf_synth_dense_hi,
                    lib.wf_synth_panel_hi, lib.wf_probe_health,
                    lib.wf_probe_grid, lib.wf_probe_walker,
                    lib.wf_probe_sparse_compact, lib.wf_iir_df2t):
@@ -294,8 +302,8 @@ class _DenseKernel(_Kernel):
         super().__init__(*args, **kw)
         self.windowed_launches = 0
 
-    def __call__(self, dev, out, scale=None, row0=0, n_out=None):
-        result = super().__call__(dev, out, scale, row0, n_out)
+    def __call__(self, dev, out, scale=None, row0=0, n_out=None, bucket0=0):
+        result = super().__call__(dev, out, scale, row0, n_out, bucket0)
         if out.device.type == 'cuda' and row0:
             self.windowed_launches += 1
         return result
@@ -321,24 +329,30 @@ def _stream(out):
     return torch.cuda.current_stream(out.device).cuda_stream
 
 
-def launch_dense(d, out, scale=None, row0=0, n_out=None, lib=None,
-                 largest=DENSE_TILE):
+def launch_dense(d, out, scale=None, row0=0, n_out=None, bucket0=0,
+                 lib=None, largest=DENSE_TILE):
     """Launch K1 on CUDA tensors, uncounted (:data:`synth_dense` counts),
     over the window [row0, row0 + n_out) of the schedule
     (:func:`..ops.reference.dense_window`: ``row0`` a multiple of 128,
     ``n_out`` by default the rest of the schedule; a bad window raises).
+    ``bucket0`` is the schedule's bucket that the descriptors' bucket 0
+    holds (a time shard's slice of the bucket axis, ``parallel.mesh``).
     ``lib`` (default: this build) may be another build of
     ``csrc/synth_dense.cu`` with the same C interface, given the largest
-    tile its own wrapper passed: an A/B of two builds."""
+    tile its own wrapper passed: an A/B of two builds (at ``bucket0`` 0
+    through ``wf_synth_dense``, the interface such builds share)."""
     C, NB, S, T, F = d.shape
     n_out = reference.dense_window(d, row0, n_out)
+    bucket0 = reference.dense_bucket0(bucket0)
     kind, desc = _checked(d, True, out, scale, (C, n_out))
     lib = lib or load_library()
-    with torch.cuda.device(out.device):
-        code = lib.wf_synth_dense(
-            *desc, C, NB, S, T, F, d.n_samples, d.bucket_samples, int(row0),
-            n_out, dense_tile(d, largest, int(row0)), out.data_ptr(), kind,
+    head = (*desc, C, NB, S, T, F, d.n_samples, d.bucket_samples, int(row0),
+            n_out)
+    tail = (dense_tile(d, largest, int(row0)), out.data_ptr(), kind,
             _ptr(scale), _stream(out))
+    with torch.cuda.device(out.device):
+        code = (lib.wf_synth_dense_shard(*head, bucket0, *tail) if bucket0
+                else lib.wf_synth_dense(*head, *tail))
     _raise_on(code, 'synth_dense')
 
 
@@ -418,24 +432,32 @@ def launch_stack(t, out, scale=None, lib=None):
     _raise_on(code, 'synth_stack')
 
 
-def launch_stack_seq(t, ks, out, scale=None, lib=None):
+def launch_stack_seq(t, ks, out, scale=None, chunk0=0, n_chunks=None,
+                     lib=None):
     """Launch K6 on CUDA tensors, uncounted (:data:`synth_stack_seq`
-    counts); ``lib`` as :func:`launch_stack`'s, for another build of
-    ``csrc/synth_stack_seq.cu``."""
+    counts), over chunks [chunk0, chunk0 + n_chunks) of every channel
+    (:func:`..ops.reference.stack_window`; by default the whole table).
+    ``lib`` as :func:`launch_stack`'s, for another build of
+    ``csrc/synth_stack_seq.cu`` (whole tables through ``wf_synth_stack_seq``,
+    the interface such builds share)."""
     K = t.chunk_start.shape[0]
     if tuple(t.chunk_start.shape) != (K, t.n_channels * t.n_chunks + 1):
         raise ValueError("chunk_start must be (K, C * n_chunks + 1)")
     if ks.dim() != 1 or ks.dtype != torch.int32:
         raise ValueError("ks must be a 1-D int32 tensor")
     n_shots = ks.shape[0]
+    chunk0, n_win, n_local = reference.stack_window(t, chunk0, n_chunks)
     kind, tables = _stack_checked(t, out, scale,
-                                  (n_shots, t.n_channels, t.n_samples), ks=ks)
+                                  (n_shots, t.n_channels, n_local), ks=ks)
     lib = lib or load_library()
+    head = (*(v.data_ptr() for v in tables.values()), ks.data_ptr(), t.NT,
+            t.TF, K, t.n_channels, t.n_chunks, t.n_samples)
+    tail = (n_shots, out.data_ptr(), kind, _ptr(scale), _stream(out))
     with torch.cuda.device(out.device):
-        code = lib.wf_synth_stack_seq(
-            *(v.data_ptr() for v in tables.values()), ks.data_ptr(), t.NT,
-            t.TF, K, t.n_channels, t.n_chunks, t.n_samples, n_shots,
-            out.data_ptr(), kind, _ptr(scale), _stream(out))
+        code = (lib.wf_synth_stack_seq(*head, *tail)
+                if n_local == t.n_samples else
+                lib.wf_synth_stack_seq_window(*head, chunk0, n_win, n_local,
+                                              *tail))
     _raise_on(code, 'synth_stack_seq')
 
 
@@ -657,8 +679,9 @@ def iir_df2t_chunk() -> int:
     return load_library().wf_iir_df2t_chunk()
 
 
-#: K1:``synth_dense(dev, out, scale, row0=0, n_out=None)`` fills out (C,
-#: n_out) with samples [row0, row0 + n_out) (default: all n_samples)
+#: K1:``synth_dense(dev, out, scale, row0=0, n_out=None, bucket0=0)`` fills
+#: out (C, n_out) with samples [row0, row0 + n_out) (default: all
+#: n_samples) of a schedule whose bucket axis starts at bucket ``bucket0``
 synth_dense = _DenseKernel(
     'synth_dense', 'waveforms_tpu_torch/csrc/synth_dense.cu',
     'waveforms_tpu/ops/pallas_synth.py:583', reference.dense_walk,
@@ -684,12 +707,14 @@ synth_stack = _Kernel(
     'waveforms_tpu/ops/stack_synth.py:1145', reference.stack_eval,
     launch_stack)
 
-#: K6: ``synth_stack_seq(tables, ks, out, scale)`` fills out (n_shots, C,
-#: n_samples) from stacked StackTables, shot s from schedule clamp(ks[s])
+#: K6: ``synth_stack_seq(tables, ks, out, scale, chunk0=0, n_chunks=None)``
+#: fills out (n_shots, C, n_local) from stacked StackTables, shot s from
+#: schedule clamp(ks[s]), with chunks [chunk0, chunk0 + n_chunks) of each
+#: channel (default: all, n_local = n_samples)
 synth_stack_seq = _Kernel(
     'synth_stack_seq', 'waveforms_tpu_torch/csrc/synth_stack_seq.cu',
     'waveforms_tpu/ops/stack_seq.py:488', reference.stack_seq_eval,
-    launch_stack_seq)
+    launch_stack_seq, out_at=2)
 
 #: K3: ``synth_dense_hi(hidev, out, lo)`` fills out (C, n_samples), f64
 #: (``lo`` None) or the f32 hi plane with ``lo`` the lo plane

@@ -30,7 +30,8 @@ from .lowering import (DRAG_SIN_NC, DRAG_SINX_MAXQ, OP_COS, OP_COSH, OP_DRAG,
                        OP_SINH, W_ARGS)
 
 __all__ = ['op_builders', 'dense_window', 'dense_walk', 'panel_walk',
-           'sparse_walk', 'stack_eval', 'stack_seq_eval', 'wrap32']
+           'sparse_walk', 'stack_eval', 'stack_seq_eval', 'wrap32',
+           'dense_bucket0', 'stack_window']
 
 _F32 = torch.float32
 # f32 constants, exactly as the JAX kernel spells them (np.float32 values)
@@ -50,6 +51,10 @@ _ERF = [float(np.float32(v)) for v in
 
 # elements evaluated per gather step: bounds the temporaries of a walk
 CHUNK = 1 << 22
+
+# rows of 128 samples in a chunk of the stack tables (== .stack_synth
+# .CHUNK_ROWS and csrc/synth_stack_common.cuh's CHUNK_ROWS)
+STACK_CHUNK_ROWS = 64
 
 # PyTorch's CPU transcendentals can return values ~1e-4 off, over one or
 # more worker threads' shares of the elements, the first time they run in a
@@ -456,17 +461,29 @@ def dense_window(d, row0=0, n_out=None) -> int:
     return n_out
 
 
-def dense_walk(d, out, scale=None, row0=0, n_out=None):
+def dense_bucket0(bucket0=0) -> int:
+    """The schedule bucket that bucket 0 of a schedule's descriptors holds: 0
+    for a whole schedule, a time shard's first bucket for its slice of the
+    bucket axis (``parallel.mesh.shard_schedule``).  A non-negative int;
+    anything else raises."""
+    if int(bucket0) != bucket0 or bucket0 < 0:
+        raise ValueError(f"bucket0 {bucket0} must be a non-negative integer")
+    return int(bucket0)
+
+
+def dense_walk(d, out, scale=None, row0=0, n_out=None, bucket0=0):
     """Plain version of the dense kernel: fill ``out`` (C, n_out), f32,
     int16 (``scale`` per channel) or, in pair mode, complex64, with samples
     [row0, row0 + n_out) of DeviceSchedule ``d`` (:func:`dense_window`;
-    by default the whole schedule).
+    by default the whole schedule), whose descriptors hold the schedule's
+    buckets [bucket0, bucket0 + NB).
 
-    Sample i reads bucket ``min(i // bucket_samples, NB - 1)``; slots are
-    added in ascending order, so each sample sums its segments in the
-    bucket's lo-sorted order, as the kernel does."""
+    Sample i reads local bucket ``clamp(i // bucket_samples - bucket0, 0,
+    NB - 1)``; slots are added in ascending order, so each sample sums its
+    segments in the bucket's lo-sorted order, as the kernel does."""
     C, NB, S, T, F = d.shape
     n_out = dense_window(d, row0, n_out)
+    bucket0 = dense_bucket0(bucket0)
     if tuple(out.shape) != (C, n_out):
         raise ValueError(f"out has shape {tuple(out.shape)}, expected "
                          f"{(C, n_out)}")
@@ -476,8 +493,12 @@ def dense_walk(d, out, scale=None, row0=0, n_out=None):
     cc = torch.arange(C, device=dev).repeat_interleave(NB)
     bb = torch.arange(NB, device=dev).repeat(C)
     if NB > 1:
-        b_lo = torch.clamp(bb * d.bucket_samples, min=w0)
-        b_hi = torch.clamp((bb + 1) * d.bucket_samples, max=w1)
+        # the first and last local buckets take the samples outside the
+        # slice, as the kernel's clamp gives them
+        gb = bb + bucket0
+        b_lo = torch.where(bb == 0, w0,
+                           torch.clamp(gb * d.bucket_samples, min=w0))
+        b_hi = torch.clamp((gb + 1) * d.bucket_samples, max=w1)
         b_hi = torch.where(bb == NB - 1, w1, b_hi)
     else:
         b_lo = torch.full_like(bb, w0)
@@ -594,11 +615,12 @@ def _instance_values(t, m, idx):
     return seg
 
 
-def _add_blocks(t, flat, n, j0, j1):
+def _add_blocks(t, flat, n, j0, j1, w0=0):
     """Add blocks [j0, j1) of the instance tables ``t`` into ``flat``, the
-    flat view of a (C, n) f32 plane: block j adds instance ``blk_inst[j]``'s
-    value, masked to its [lo, hi), over the 128 samples of row
-    ``blk_row[j]`` of its channel, in table order."""
+    flat view of a (C, n) f32 plane whose column i holds sample w0 + i:
+    block j adds instance ``blk_inst[j]``'s value, masked to its [lo, hi),
+    over the 128 samples of row ``blk_row[j]`` of its channel, in table
+    order."""
     for e0 in range(j0 * 128, j1 * 128, CHUNK):
         el = torch.arange(e0, min(e0 + CHUNK, j1 * 128), device=flat.device)
         j = el // 128
@@ -609,7 +631,7 @@ def _add_blocks(t, flat, n, j0, j1):
         if not bool(keep.any()):
             continue
         vals = _instance_values(t, m[keep], idx[keep])
-        flat.index_add_(0, inst[keep, 0] * n + idx[keep], vals)
+        flat.index_add_(0, inst[keep, 0] * n + idx[keep] - w0, vals)
 
 
 def stack_eval(t, out, scale=None):
@@ -624,22 +646,50 @@ def stack_eval(t, out, scale=None):
     return _store(accs, out, scale)
 
 
-def stack_seq_eval(t, ks, out, scale=None):
+def stack_window(t, chunk0=0, n_chunks=None):
+    """The sequence kernel's window over tables ``t``: chunks [chunk0,
+    chunk0 + n_chunks) of every channel (``n_chunks`` defaulting to the
+    rest) -> (chunk0, n_chunks, n_local), n_local the window's samples
+    (it ends at the table's last sample).  A window outside the table's
+    chunks raises, never clamped."""
+    chunk0 = int(chunk0)
+    n_chunks = t.n_chunks - chunk0 if n_chunks is None else int(n_chunks)
+    if chunk0 < 0 or n_chunks < 0 or chunk0 + n_chunks > t.n_chunks:
+        raise ValueError(f"chunks [{chunk0}, {chunk0 + n_chunks}) are "
+                         f"outside the table's {t.n_chunks}")
+    span = STACK_CHUNK_ROWS * 128
+    return (chunk0, n_chunks,
+            min(t.n_samples, (chunk0 + n_chunks) * span) - chunk0 * span)
+
+
+def stack_seq_eval(t, ks, out, scale=None, chunk0=0, n_chunks=None):
     """Plain version of the stacked-table sequence kernel: fill ``out``
-    (n_shots, C, n_samples), f32 or int16 (``scale`` per channel), with
+    (n_shots, C, n_local), f32 or int16 (``scale`` per channel), with
     shot s holding :func:`stack_eval` of schedule ``clamp(ks[s], 0, K-1)``
     of the stacked tables ``t`` (:class:`..ops.stack_synth.StackTables`
     whose (K, C * n_chunks + 1) ``chunk_start`` row k bounds schedule k's
-    blocks).  Each schedule
-    that the shots play is evaluated once, quantized, and gathered into
-    its shots."""
+    blocks), over the window :func:`stack_window` (by default the whole
+    table): its samples, evaluated at their place in the schedule, go to
+    columns from 0.  Each schedule that the shots play is evaluated once,
+    quantized, and gathered into its shots."""
     K = t.chunk_start.shape[0]
-    C, n = out.shape[1:]
+    chunk0, n_win, n = stack_window(t, chunk0, n_chunks)
+    C = t.n_channels
+    if tuple(out.shape[1:]) != (C, n):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected "
+                         f"(n_shots, {C}, {n})")
     ks = ks.to(device=out.device, dtype=torch.int64).clamp(0, K - 1)
     pal = torch.zeros((K, C, n), dtype=_F32, device=out.device)
     for k in torch.unique(ks).tolist():
-        _add_blocks(t, pal[k].view(-1), n, int(t.chunk_start[k, 0]),
-                    int(t.chunk_start[k, -1]))
+        if n == t.n_samples:               # the whole table at once
+            _add_blocks(t, pal[k].view(-1), n, int(t.chunk_start[k, 0]),
+                        int(t.chunk_start[k, -1]))
+            continue
+        cs = t.chunk_start[k].tolist()
+        for c in range(C):                 # the window of each channel
+            g = c * t.n_chunks + chunk0
+            _add_blocks(t, pal[k].view(-1), n, cs[g], cs[g + n_win],
+                        chunk0 * STACK_CHUNK_ROWS * 128)
     codes = _stored([pal], out.dtype,
                     None if scale is None else scale.reshape(1, -1, 1))
     return torch.index_select(codes, 0, ks, out=out)

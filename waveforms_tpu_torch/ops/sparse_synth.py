@@ -12,6 +12,12 @@ kernel (``csrc/synth_sparse.cu``, plain version
 :func:`.reference.sparse_walk`): one thread block per live subtile over a
 zeroed output.  Both take pair-mode schedules (complex64 output).
 
+:func:`synthesize_panels_sharded` and :func:`synthesize_sparse_sharded`
+run the same kernels over a ('channel', 'time') mesh
+(:mod:`..parallel.mesh`), one launch per shard, each over its own channel
+block's descriptors and its own slice of the worklist
+(:func:`shard_panel_work`, :func:`shard_sparse_work`).
+
 The TPU kernel kept its worklist in scalar memory under a budget; a GPU
 worklist lives in global memory, so that budget is gone.  The rule that
 narrowed stores (int16, bf16, f16) need one bucket stays: with several
@@ -21,6 +27,7 @@ buckets the kernel accumulates straddling subtiles in the output itself.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -30,7 +37,9 @@ from .synth import DeviceSchedule, normalize_out_dtype, validate_out_mode
 
 __all__ = ['SparsePlan', 'SparseWork', 'build_sparse_plan', 'PanelPlan',
            'PanelWork', 'build_panel_plan', 'panels_eligible',
-           'synthesize_panels', 'synthesize_sparse',
+           'synthesize_panels', 'synthesize_sparse', 'shard_sparse_work',
+           'shard_panel_work', 'synthesize_panels_sharded',
+           'synthesize_sparse_sharded',
            'PANEL_OCCUPANCY_THRESHOLD', 'SPARSE_OCCUPANCY_THRESHOLD']
 
 DEFAULT_SUBTILE_ROWS = 32
@@ -395,3 +404,250 @@ def synthesize_sparse(dev: DeviceSchedule,
     out = torch.zeros((C, plan.window_samples), dtype=dt, device=dev.device)
     return kernels.synth_sparse(dev, SparseWork.upload(plan, dev.device),
                                 out, scale)
+
+
+def shard_sparse_work(plan: SparsePlan, nc: int, nt: int, cs: int,
+                      tps: int, nb_local: int = 1):
+    """Partition a global worklist by (channel shard, time shard).
+
+    Returns the (nc, nt, K) local worklist arrays ``(work_c, work_b,
+    work_t, work_o, work_s0, work_s1)`` -- channel and bucket localized,
+    ``work_t`` the ABSOLUTE subtile (it sets the samples' time), ``work_o``
+    the shard's output subtile, padding entries aimed at the scratch
+    subtile ``tps`` -- plus the per-shard live counts and K, the padded
+    length (the JAX package's, array for array)."""
+    live = slice(0, plan.n_live)
+    wc = plan.work_c[live].astype(np.int64)
+    wb = plan.work_b[live].astype(np.int64)
+    wt = plan.work_t[live].astype(np.int64)
+    ws0 = plan.work_s0[live]
+    ws1 = plan.work_s1[live]
+    ci = wc // cs
+    ti = wt // tps
+    counts = np.zeros((nc, nt), np.int64)
+    np.add.at(counts, (ci, ti), 1)
+    K = next_pow2(int(counts.max()))
+    lwc = np.zeros((nc, nt, K), np.int32)
+    lwb = np.zeros((nc, nt, K), np.int32)
+    lwt = np.zeros((nc, nt, K), np.int32)
+    lwo = np.full((nc, nt, K), tps, np.int32)
+    lws0 = np.zeros((nc, nt, K), np.int32)
+    lws1 = np.zeros((nc, nt, K), np.int32)
+    # stable-sort by shard, rank within the shard by position, one
+    # fancy-indexed write per field
+    shard = ci * nt + ti
+    order = np.argsort(shard, kind='stable')
+    offs = np.zeros(nc * nt + 1, np.int64)
+    np.add.at(offs, shard + 1, 1)
+    offs = np.cumsum(offs)
+    a, b = ci[order], ti[order]
+    p = np.arange(len(order), dtype=np.int64) - offs[shard[order]]
+    lwc[a, b, p] = (wc[order] % cs).astype(np.int32)
+    lwb[a, b, p] = (wb[order] % nb_local).astype(np.int32)   # local bucket
+    lwt[a, b, p] = wt[order].astype(np.int32)                # absolute
+    lwo[a, b, p] = (wt[order] - b * tps).astype(np.int32)    # local output
+    lws0[a, b, p] = ws0[order].astype(np.int32)
+    lws1[a, b, p] = ws1[order].astype(np.int32)
+    return (lwc, lwb, lwt, lwo, lws0, lws1), counts, K
+
+
+def shard_panel_work(plan: SparsePlan, nc: int, nt: int, cs: int,
+                     tps: int, nb_local: int, Rs: int,
+                     panel_rows: int = PANEL_ROWS):
+    """Partition a global worklist into per-shard panel segmentations:
+    per (channel shard, time shard), the shard's live subtiles grouped by
+    (local channel, panel, local bucket) as :func:`build_panel_plan`
+    groups them.  Returns ``(starts, wt, wo, ws0, ws1), counts, K, P, NP``
+    (the JAX package's, array for array)."""
+    (lwc, lwb, lwt, lwo, lws0, lws1), counts, K = shard_sparse_work(
+        plan, nc, nt, cs, tps, nb_local)
+    n_rows_loc = tps * Rs
+    P = max(Rs, min(panel_rows, n_rows_loc))
+    P = (P // Rs) * Rs
+    NP = -(-n_rows_loc // P)
+    P = max(Rs, -(-(-(-n_rows_loc // NP)) // Rs) * Rs)
+    n_slots = cs * NP * nb_local
+    starts = np.zeros((nc, nt, n_slots + 1), np.int64)
+    for a in range(nc):
+        for b in range(nt):
+            n = int(counts[a, b])
+            if not n:
+                continue
+            slot = ((lwc[a, b, :n].astype(np.int64) * NP
+                     + (lwo[a, b, :n].astype(np.int64) * Rs) // P)
+                    * nb_local + lwb[a, b, :n])
+            order = np.argsort(slot, kind='stable')
+            for col in (lwt, lwo, lws0, lws1, lwc, lwb):
+                col[a, b, :n] = col[a, b, :n][order]
+            np.add.at(starts[a, b], slot[order] + 1, 1)
+            starts[a, b] = np.cumsum(starts[a, b])
+    return ((starts.astype(np.int32), lwt, lwo, lws0, lws1), counts, K, P,
+            NP)
+
+
+def _run_sharded_common(low: LoweredSchedule, mesh, Rs, plan, out_dtype,
+                        dac_scale, make_worklist, make_launch):
+    """The shared scaffolding of the two sharded kernels -> the
+    :class:`..parallel.mesh.ShardRun` of their launches, not yet run.
+
+    Mesh and bucket layout, the shards' descriptors, the stale-plan check,
+    the output mode and each shard's output block live here once; the two
+    entry points differ in their worklist function ``make_worklist(plan,
+    nc, nt, cs, tps, nb_local) -> (work arrays, counts, static)`` (which
+    may raise UnsupportedFactor before anything launches) and
+    ``make_launch(i, j, dev, work, counts, static, out, scale) -> launch``.
+    A shard's block is its channel block by its slice of ``tps`` subtiles,
+    cut at the schedule's end."""
+    from ..parallel.mesh import ShardRun, _shard_scales, shard_schedule, \
+        time_windows
+    C, NB, S, T, F = low.shape
+    dt, _ = validate_out_mode(out_dtype, C, dac_scale, 'cpu',
+                              pair=low.amp_im is not None)
+    nc, nt = mesh.devices.shape
+    c_pad = -(-C // nc) * nc
+    cs = c_pad // nc
+    tile = Rs * 128
+    if NB > 1:
+        # whole buckets per time shard (the dense mesh layout): subtiles
+        # map to shards by work_t // tps, tps = nb_local * subtiles a bucket
+        if low.bucket_samples % tile:
+            raise UnsupportedFactor(
+                f"bucket_samples {low.bucket_samples} must be a multiple "
+                f"of the sparse subtile ({tile})")
+        nb_pad = -(-NB // nt) * nt
+        nb_local = nb_pad // nt
+        tps = nb_local * (low.bucket_samples // tile)
+        grid, _ = shard_schedule(low, mesh, nb_pad=nb_pad)
+    else:
+        n_tiles = -(-(-(-low.n_samples // 128)) // Rs)
+        tps = -(-n_tiles // nt)                # subtiles per time shard
+        nb_local = 1
+        grid, _ = shard_schedule(low, mesh)
+    if plan is None:
+        plan = build_sparse_plan(low, Rs=Rs)
+    elif plan.Rs != Rs:
+        raise ValueError(f"prebuilt plan has Rs={plan.Rs}, expected {Rs}")
+    else:
+        # a plan from another lowering synthesizes wrong samples
+        _validate_sparse_plan(plan, SimpleNamespace(
+            shape=low.shape, n_samples=low.n_samples,
+            bucket_samples=low.bucket_samples))
+    work, counts, static = make_worklist(plan, nc, nt, cs, tps, nb_local)
+    scales = _shard_scales(dt, dac_scale, C, c_pad, mesh)
+    run = ShardRun(mesh.devices.shape, C, cs, dt)
+    for i in range(nc):
+        for j, (a, b) in enumerate(time_windows(low.n_samples, tps * tile,
+                                                nt)):
+            dev = grid[i][j]
+            out = torch.empty((cs, b - a), dtype=dt, device=dev.device)
+            scale = None if scales is None else scales[i][j]
+            run.add(i, j, out, None if b == a else make_launch(
+                i, j, dev, work, counts, static, out, scale))
+    return run
+
+
+def _put(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
+def panel_shards(low: LoweredSchedule, mesh, Rs=DEFAULT_SUBTILE_ROWS,
+                 plan: SparsePlan | None = None, out_dtype=None,
+                 dac_scale=32767.0):
+    """The launches of :func:`synthesize_panels_sharded`, not yet run."""
+    from .. import kernels
+
+    def make_worklist(plan, nc, nt, cs, tps, nb_local):
+        work, counts, K, P, NP = shard_panel_work(plan, nc, nt, cs, tps,
+                                                  nb_local, Rs)
+        if nb_local > 1 and normalize_out_dtype(out_dtype) != torch.float32:
+            raise UnsupportedFactor(
+                "narrowed multi-bucket stores are outside the panel "
+                "kernel's budgets -- use synthesize_sparse_sharded")
+        return work, counts, dict(P=P, NP=NP)
+
+    def make_launch(i, j, dev, work, counts, st, out, scale):
+        start, wt, wo, ws0, ws1 = (a[i, j] for a in work)
+        pw = PanelWork(Rs=Rs, P=st['P'], n_panels=st['NP'],
+                       n_live=int(counts[i, j]),
+                       start=_put(start, dev.device),
+                       work_t=_put(wt, dev.device),
+                       work_o=_put(wo, dev.device),
+                       work_s0=_put(ws0, dev.device),
+                       work_s1=_put(ws1, dev.device))
+        return lambda: kernels.synth_panel(dev, pw, out, scale)
+
+    return _run_sharded_common(low, mesh, Rs, plan, out_dtype, dac_scale,
+                               make_worklist, make_launch)
+
+
+def sparse_shards(low: LoweredSchedule, mesh, Rs=DEFAULT_SUBTILE_ROWS,
+                  plan: SparsePlan | None = None, out_dtype=None,
+                  dac_scale=32767.0):
+    """The launches of :func:`synthesize_sparse_sharded`, not yet run: each
+    zeroes its block, then launches K7 on it."""
+    from .. import kernels
+
+    def make_worklist(plan, nc, nt, cs, tps, nb_local):
+        work, counts, K = shard_sparse_work(plan, nc, nt, cs, tps, nb_local)
+        return work, counts, dict(tps=tps)
+
+    def make_launch(i, j, dev, work, counts, st, out, scale):
+        wc, wb, wt, wo, ws0, ws1 = (_put(a[i, j], dev.device) for a in work)
+        sw = SparseWork(Rs=Rs, n_tiles=st['tps'], n_live=int(counts[i, j]),
+                        work_c=wc, work_b=wb, work_t=wt, work_o=wo,
+                        work_s0=ws0, work_s1=ws1)
+
+        def launch():
+            out.zero_()
+            kernels.synth_sparse(dev, sw, out, scale)
+        return launch
+
+    return _run_sharded_common(low, mesh, Rs, plan, out_dtype, dac_scale,
+                               make_worklist, make_launch)
+
+
+def _split_pair(plane, combine_pair):
+    """A pair-mode plane as it is, or as its (re, im) f32 planes."""
+    if combine_pair or plane.dtype != torch.complex64:
+        return plane
+    return plane.map(lambda b: b.real), plane.map(lambda b: b.imag)
+
+
+def synthesize_panels_sharded(low: LoweredSchedule, mesh,
+                              Rs: int = DEFAULT_SUBTILE_ROWS,
+                              plan: SparsePlan | None = None,
+                              out_dtype=None, dac_scale=32767.0,
+                              combine_pair: bool = True):
+    """Panel-kernel synthesis over a ('channel', 'time') mesh, one K2
+    launch per shard -> :class:`..parallel.mesh.ShardedPlane`.
+
+    Each shard zero-fills and walks only its own (channel block, sample
+    slice) panels from its local worklist (:func:`shard_panel_work`), over
+    its own descriptors, which keep the schedule's global ``n_samples`` so
+    that the absolute ``work_t`` sets each sample's time.  f32, int16,
+    bf16, f16 and pair mode, bucketed or not, under the single-device
+    panel rule applied per shard: a narrowed store with several local
+    buckets raises UnsupportedFactor.  The TPU's per-shard worklist budget
+    (``PANEL_WORK_SMEM_BUDGET``) is not carried over: the worklist lives in
+    global memory.  ``combine_pair=False`` returns pair-mode output as two
+    f32 (re, im) planes."""
+    return _split_pair(panel_shards(low, mesh, Rs, plan, out_dtype,
+                                dac_scale).run().plane(), combine_pair)
+
+
+def synthesize_sparse_sharded(low: LoweredSchedule, mesh,
+                              Rs: int = DEFAULT_SUBTILE_ROWS,
+                              plan: SparsePlan | None = None,
+                              out_dtype=None, dac_scale=32767.0,
+                              combine_pair: bool = True):
+    """Worklist synthesis over a ('channel', 'time') mesh, one K7 launch per
+    shard over its zeroed block -> :class:`..parallel.mesh.ShardedPlane`.
+
+    The global worklist partitions by (channel shard, time shard)
+    (:func:`shard_sparse_work`): each shard runs exactly its own live
+    subtiles over its channel block's descriptors and writes its sample
+    slice; bucketed descriptors shard whole bucket windows along 'time'.
+    f32, int16, bf16, f16 and pair mode; ``combine_pair=False`` returns
+    pair-mode output as two f32 (re, im) planes."""
+    return _split_pair(sparse_shards(low, mesh, Rs, plan, out_dtype,
+                                 dac_scale).run().plane(), combine_pair)

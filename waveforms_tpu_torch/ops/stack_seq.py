@@ -32,22 +32,35 @@ plans that do not pair 1:1 with the lows, and a per-channel ``dac_scale``
 with int16.  Long schedules are lowered with ``bucket_samples=None`` (one
 bucket), as the JAX ``synthesize_stack_sharded`` lowers them.
 
-``play_packed_sharded``, ``synthesize_stack_sharded`` and
-``n_super_multiple`` (the multi-device paths) are not ported yet.
+The multi-device paths: :meth:`StackSequencer.play_packed_sharded` splits
+a shot vector over every device of a mesh (:mod:`..parallel.mesh`), each
+device playing its slice on its own copy of the table, made once per
+device; :func:`synthesize_stack_sharded` runs one schedule's channel blocks
+as the K schedules of a table per channel shard and splits each one's
+chunks over the time shards, K6 evaluating a window of chunks at their
+global rows.  ``n_super_multiple`` rounds the table's count of thread-block
+groups (CTA_CHUNKS chunks each, the port's counterpart of the TPU's
+superchunk) up to a multiple, so that each time shard gets the same number
+of whole groups.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
 
 from .lowering import OP_DRAG_SIN, OP_DRAG_SINX, LoweredSchedule, \
     UnsupportedFactor
-from .stack_synth import (StackPlan, StackTables, build_stack_plan,
-                          build_stack_tables)
+from .stack_synth import (CHUNK_ROWS, CTA_CHUNKS, StackPlan, StackTables,
+                          build_stack_plan, build_stack_tables)
 from .synth import dac_scale_tensor, normalize_out_dtype, resolve_device
 
-__all__ = ['StackSequencer']
+__all__ = ['StackSequencer', 'synthesize_stack_sharded']
+
+_TABLE_TENSORS = ('inst', 'amp', 'term_nfac', 'op', 'power', 'shift_hi',
+                  'q32', 'args', 'ext', 'blk_inst', 'blk_row', 'chunk_start')
 
 
 def _widen(a: torch.Tensor, width: int, fill=0) -> torch.Tensor:
@@ -68,10 +81,14 @@ class StackSequencer:
     be passed pre-built (one :class:`.stack_synth.StackPlan` per lowering);
     otherwise they are built here.  ``device='cuda'`` without a GPU raises;
     ``device='cpu'`` plays through the kernel's plain version.
+    ``n_super_multiple`` rounds :attr:`n_super`, the table's thread-block
+    groups of CTA_CHUNKS chunks a channel, up to a multiple (a mesh's
+    time shards).
     """
 
     def __init__(self, lows: list[LoweredSchedule],
-                 plans: list[StackPlan] | None = None, device='cuda'):
+                 plans: list[StackPlan] | None = None, device='cuda',
+                 n_super_multiple: int = 1):
         if not lows:
             raise ValueError("empty sequence table")
         self.device = resolve_device(device)
@@ -116,6 +133,9 @@ class StackSequencer:
         self.sample_rate = first.sample_rate
         self.tables = self._stack([build_stack_tables(p, low, 'cpu')
                                    for p, low in zip(plans, lows)])
+        ns = -(-self.tables.n_chunks // CTA_CHUNKS)
+        self.n_super = -(-ns // n_super_multiple) * n_super_multiple
+        self._copies = {str(self.tables.inst.device): self.tables}
 
     def _stack(self, parts: list[StackTables]) -> StackTables:
         """Concatenate per-schedule tables (on the CPU), then upload."""
@@ -149,20 +169,30 @@ class StackSequencer:
             blk_row=cat('blk_row'),
             chunk_start=torch.stack([t.chunk_start + int(b)
                                      for t, b in zip(parts, blk_base)]))
-        for name in ('inst', 'amp', 'term_nfac', 'op', 'power', 'shift_hi',
-                     'q32', 'args', 'ext', 'blk_inst', 'blk_row',
-                     'chunk_start'):
+        for name in _TABLE_TENSORS:
             setattr(tables, name,
                     getattr(tables, name).contiguous().to(self.device))
         return tables
+
+    def tables_on(self, device) -> StackTables:
+        """The table on ``device``: the one made at construction, or a copy
+        made at the first call for that device and kept (the waveform
+        memory is uploaded once per device, as the JAX package replicates
+        it once per mesh)."""
+        from ..parallel.mesh import canonical_device
+        key = str(canonical_device(device))
+        if key not in self._copies:
+            t = copy.copy(self.tables)
+            for name in _TABLE_TENSORS:
+                setattr(t, name, getattr(t, name).to(key))
+            self._copies[key] = t
+        return self._copies[key]
 
     def describe(self) -> str:
         """One-line table summary (debugging / logging aid)."""
         t = self.tables
         nbytes = sum(getattr(t, n).numel() * getattr(t, n).element_size()
-                     for n in ('inst', 'amp', 'term_nfac', 'op', 'power',
-                               'shift_hi', 'q32', 'args', 'ext', 'blk_inst',
-                               'blk_row', 'chunk_start'))
+                     for n in _TABLE_TENSORS)
         return (f"{self.n_schedules} schedules x {self.n_channels} ch x "
                 f"{self.n_samples} samples, {t.inst.shape[0]} instances, "
                 f"{t.n_blocks} blocks, {t.n_chunks} chunks/channel, "
@@ -180,22 +210,136 @@ class StackSequencer:
         ``dac_scale`` (quantized in the kernel's store);
         ``torch.bfloat16`` / ``torch.float16`` round the f32 sum once in
         the store, with no scale."""
+        out, launch = self._launch(ks, out_dtype, dac_scale, self.device)
+        launch()
+        return out
+
+    def _launch(self, ks, out_dtype, dac_scale, device, chunk0=0,
+                n_chunks=None):
+        """The K6 launch that plays ``ks`` on ``device`` over chunks
+        [chunk0, chunk0 + n_chunks) of every channel -> (its output,
+        allocated here, and a call that launches into it)."""
         from .. import kernels
+        from .reference import stack_window
         dt = normalize_out_dtype(out_dtype)
         if dt == torch.int16 and np.ndim(dac_scale) != 0:
             raise UnsupportedFactor(
                 "stacked-table int16 supports a scalar dac_scale")
-        scale = dac_scale_tensor(dt, dac_scale, self.n_channels, self.device)
-        ks = torch.as_tensor(ks, device=self.device)
+        tables = self.tables_on(device)
+        device = tables.inst.device
+        scale = dac_scale_tensor(dt, dac_scale, self.n_channels, device)
+        ks = torch.as_tensor(ks, device=device)
         if ks.dim() != 1:
             raise ValueError("ks must be a 1-D vector of schedule indices")
         ks = ks.clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32).contiguous()
-        out = torch.empty((ks.shape[0], self.n_channels, self.n_samples),
-                          dtype=dt, device=self.device)
-        return kernels.synth_stack_seq(self.tables, ks, out, scale)
+        chunk0, n_chunks, n_local = stack_window(tables, chunk0, n_chunks)
+        out = torch.empty((ks.shape[0], self.n_channels, n_local), dtype=dt,
+                          device=device)
+        return out, lambda: kernels.synth_stack_seq(tables, ks, out, scale,
+                                                    chunk0, n_chunks)
 
     def play(self, k, out_dtype=None,
              dac_scale: float = 32767.0) -> torch.Tensor:
         """Synthesize schedule ``k`` -> (C, N) (a one-shot launch)."""
         return self.play_packed(torch.as_tensor(k).reshape(1),
                                 out_dtype=out_dtype, dac_scale=dac_scale)[0]
+
+    def packed_shards(self, ks, mesh, out_dtype=None,
+                      dac_scale: float = 32767.0):
+        """The launches of :meth:`play_packed_sharded`, not yet run."""
+        from ..parallel.mesh import ShardRun
+        ks = np.asarray(ks.cpu() if isinstance(ks, torch.Tensor) else ks,
+                        np.int64).reshape(-1)
+        n_shots = len(ks)
+        n_dev = mesh.size
+        n_local = -(-n_shots // n_dev)
+        # padding shots render schedule 0 and are cut off
+        ks_pad = np.zeros(n_local * n_dev, np.int64)
+        ks_pad[:n_shots] = ks
+        run = ShardRun((n_dev, 1), n_dev, 1, normalize_out_dtype(out_dtype))
+        for d, device in enumerate(mesh.devices.flat):
+            run.add(d, 0, *self._launch(
+                ks_pad[d * n_local:(d + 1) * n_local], out_dtype, dac_scale,
+                device))
+        run.n_shots = n_shots
+        return run
+
+    def play_packed_sharded(self, ks, mesh, out_dtype=None,
+                            dac_scale: float = 32767.0):
+        """Shot-parallel :meth:`play_packed` over every device of ``mesh``
+        -> a :class:`..parallel.mesh.ShardedPlane` of the (len(ks), C, N)
+        shots, one block of shots per device (``gather()`` for the tensor).
+
+        The table is copied to each device once and kept (each device
+        holds the whole waveform memory, the right trade for a shot
+        fan-out, where the table is small and the shot batch scales), and
+        the shot vector splits over the mesh's devices in mesh order: each
+        plays its contiguous slice in one K6 launch.  ``ks`` pads to a
+        multiple of the device count; the padding shots render schedule 0
+        and are cut off."""
+        from ..parallel.mesh import ShardedPlane
+        run = self.packed_shards(ks, mesh, out_dtype, dac_scale).run()
+        n_local = run.blocks[0][0].shape[0]
+        blocks = [[b[:max(0, min(n_local, run.n_shots - d * n_local))]]
+                  for d, (b,) in enumerate(run.blocks)]
+        return ShardedPlane(blocks, (run.n_shots, self.n_channels,
+                                     self.n_samples), run.dtype)
+
+
+def stack_shards(channels, start: float, stop: float, sample_rate: float,
+                 mesh, out_dtype=None, dac_scale: float = 32767.0):
+    """The launches of :func:`synthesize_stack_sharded`, not yet run; the
+    channel shards' sequencers are its ``seqs``."""
+    from ..parallel.mesh import ShardRun, time_windows
+    from .lowering import lower_schedule
+    nc, nt = mesh.devices.shape
+    C = len(channels)
+    if C % nc:
+        raise UnsupportedFactor(
+            f"{C} channels do not split over {nc} channel shards")
+    cs = C // nc
+    # bucket_samples=None: the stack tables are chunk-indexed directly,
+    # so descriptor time-bucketing would only forbid the path
+    seqs = [StackSequencer(
+        [lower_schedule(list(channels[i * cs:(i + 1) * cs]), start, stop,
+                        sample_rate, bucket_samples=None)],
+        device=mesh.device(i, 0), n_super_multiple=nt) for i in range(nc)]
+    n = seqs[0].n_samples
+    groups = seqs[0].n_super // nt             # thread-block groups a shard
+    span = groups * CTA_CHUNKS * CHUNK_ROWS * 128
+    run = ShardRun((nc, nt), C, cs, normalize_out_dtype(out_dtype))
+    for i, seq in enumerate(seqs):
+        for j, (a, b) in enumerate(time_windows(n, span, nt)):
+            chunk0 = j * groups * CTA_CHUNKS
+            n_chunks = min(groups * CTA_CHUNKS, seq.tables.n_chunks - chunk0)
+            if b == a:                          # wholly past the end
+                run.add(i, j, torch.empty(
+                    (cs, 0), dtype=run.dtype, device=mesh.device(i, j)))
+                continue
+            out, launch = seq._launch([0], out_dtype, dac_scale,
+                                      mesh.device(i, j), chunk0, n_chunks)
+            run.add(i, j, out[0], launch)
+    run.seqs = seqs
+    return run
+
+
+def synthesize_stack_sharded(channels, start: float, stop: float,
+                             sample_rate: float, mesh, out_dtype=None,
+                             dac_scale: float = 32767.0):
+    """Stack-path synthesis over a ('channel', 'time') mesh, one K6 launch
+    per shard -> :class:`..parallel.mesh.ShardedPlane`.
+
+    The multi-device twin of :func:`.stack_synth.synthesize_stack` for
+    vstack-class schedules (many narrow pulse instances): each channel
+    shard's channels lower separately, with ``bucket_samples=None``, into a
+    :class:`StackSequencer` of one schedule on its device, and each time
+    shard plays that table's window of whole thread-block groups of chunks
+    (``n_super_multiple`` = the time shards), evaluated at their global
+    rows.  Per-shard table bytes scale as 1/nc and chunk counts as 1/P.
+
+    Raises UnsupportedFactor as the JAX package does: a channel count that
+    does not split over the channel shards, a schedule outside the
+    stacked-table launch (wide instances; no pair mode: it lowers the real
+    part), and int16 with a per-channel ``dac_scale``."""
+    return stack_shards(channels, start, stop, sample_rate, mesh, out_dtype,
+                        dac_scale).run().plane()
