@@ -122,7 +122,27 @@ the host engine, with g++; a failed build ends the run) and runs:
    against scipy and ``getFTMatrix``; ``mesh_fft`` (``fft_convolve_
    sharded`` of 4 flagship rows over the 2 time shards, a centered 31-tap
    Hann kernel) against numpy's circular convolution in f64;
-9. the measurement probes (``waveforms_tpu_torch.probes``): at small size
+9. the multi-process runtime (``run_multiproc``,
+   ``waveforms_tpu_torch.parallel.multiproc_smoke``): two spawned worker
+   processes on the card, each owning 4 shards of one (4, 2) mesh of
+   ``cuda:0``, the process group on gloo, in JAX's layout and in the time
+   split (rank r owns time shard r), at full size:
+   ``synthesize_sharded`` on the dense stratum (K1 x 4 a process),
+   ``synthesize_on_mesh`` on the flagship (K2 x 4), ``synthesize_sparse_
+   sharded`` (K7 x 4), each local block bit-equal to the single-device
+   call; the global mean against the oracle; ``make_step`` with the
+   clustered filter carried across the processes in parallel (S1's full
+   call x 4 a process, and its state-only call on the 4 shards of rank 0
+   where a row crosses to rank 1: the time split and an 8-shard 'time'
+   mesh; that call also on every worker block of the step, bit-equal to
+   the full call's zf and the plain model's) and two tones,
+   against scipy, S1's long-double contract and the step in one process,
+   its bytes between the processes at most the (C, d) states and the IQ
+   points; K6 on small tables; ``fft_convolve_sharded`` of 4 flagship rows
+   on an 8-shard 'time' mesh over both processes; each worker's wall, its
+   kernel times (the workers timing in turns), the exchange's ms and
+   bytes, and S1's time for the parallel carry against the sequential;
+10. the measurement probes (``waveforms_tpu_torch.probes``): at small size
    (K = 64) P4, every P2 variant and every P3 body against its plain
    version on the card, bit for bit, and P1's compact worklist kernel on 8
    flagship channels over 32.768 us, padded and not, within TOL_PLAIN;
@@ -3372,6 +3392,179 @@ def run_mesh(fail):
     finish(rec, rec['vs_numpy'] <= TOL_FFT)
 
 
+MP_TIMEOUT = 420.0     # seconds the workers of run_multiproc may take
+
+
+def mp_cells(layout, reports):
+    """Each worker cell's launch counts as a main path of its own (both
+    workers' summed) -> {cell: counts}; ``MAIN_COUNTS`` and
+    ``MAIN_WINDOWED`` take them."""
+    from waveforms_tpu_torch import kernels
+    cells = {}
+    for rep in reports:
+        for lay in rep.get('layouts', []):
+            if lay['layout'] != layout:
+                continue
+            for cell, rec in lay['cells'].items():
+                c = cells.setdefault(cell, {'counts': {
+                    k.name: 0 for k in kernels.KERNELS}, 'windowed': 0,
+                    'state': 0})
+                for k, n in rec.get('launches', {}).items():
+                    c['counts'][k] += n
+                c['windowed'] += rec.get('windowed_launches', 0)
+                c['state'] += rec.get('state_launches', 0)
+    for cell, c in cells.items():
+        label = f"multiproc_{layout}_{cell}"
+        MAIN_COUNTS.append((label, c['counts']))
+        MAIN_WINDOWED.append((label, c['windowed']))
+    return cells
+
+
+#: the kernels each cell must launch and how often, both processes
+#: together (S1: a full call a shard, and the state-only calls of MP_STATE)
+MP_MUST = {'dense': {'synth_dense': 8}, 'panel': {'synth_panel': 8},
+           'sparse': {'synth_sparse': 8},
+           'step_clustered': {'synth_dense': 8, 'iir_df2t': 8},
+           'step_clustered_t8': {'synth_dense': 8, 'iir_df2t': 8},
+           'step_z_settle': {'synth_dense': 8, 'iir_df2t': 0},
+           'stack': {'synth_stack_seq': 8},
+           'play_packed': {'synth_stack_seq': 8}}
+#: S1's state-only calls of each step cell, both processes together: one a
+#: shard of a run of one process's shards before its row's last.  None in
+#: JAX's layout (no row crosses processes); rank 0's 4 shards in the time
+#: split (time shard 0 of each row) and on the 8-shard 'time' mesh (its
+#: run of shards 0-3)
+MP_STATE = {'jax': {'step_clustered': 0, 'step_clustered_t8': 4},
+            'time': {'step_clustered': 4, 'step_clustered_t8': 4}}
+
+
+def run_multiproc(fail, summary):
+    """The multi-process runtime (``waveforms_tpu_torch.parallel.
+    multiproc_smoke``): 2 spawned worker processes share the card, each
+    owning 4 shards of one (4, 2) ('channel', 'time') mesh of ``cuda:0``,
+    the process group on gloo (the exchanged tensors staged through the
+    host), in both layouts (JAX's, and the time split: rank r owns time
+    shard r), at full size: the flagship, the dense stratum for K1, the
+    filters of the step (the clustered one on S1, the Z-settle pair and a
+    single exponential on the doubling scan; the clustered one again over
+    an 8-shard 'time' mesh), K6 on small tables.  The parent built the
+    libraries before, so the workers load them.  Each
+    worker checks itself (blocks bit-equal to the single-device call and to
+    the mesh in one process; the mean, the IQ points, the filter with its
+    state carried in parallel against scipy, the long double and the step
+    in one process; S1's state-only call on its blocks of the step against
+    the full call's zf and the plain model's, bit for bit; the FFT against
+    numpy; the step's bytes) and times its cells in turns with the other.
+    A worker that fails a check, raises, dies or outlives its time fails
+    the run.  Each worker cell is a main path: its launch counts, summed
+    over both workers, join the kernel summary; S1's row takes the
+    state-only calls' launches and the state-only call's distances."""
+    import torch
+
+    from waveforms_tpu_torch.parallel import multiproc_smoke as mp
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ok, reports = mp.run('gloo', device='cuda', layouts=tuple(mp.LAYOUTS),
+                         size='full', timeout=MP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if not ok:
+        fail.append("multiproc: " + "; ".join(
+            str(r.get('error') or [lay['failures'] for lay in
+                                   r.get('layouts', [])])[-600:]
+            for r in reports if not r['ok'] or r['exitcode'] != 0))
+    state, state_only = 0, []
+    for layout in mp.LAYOUTS:
+        cells = mp_cells(layout, reports)
+        state += sum(c['state'] for c in cells.values())
+        rec = {'phase': 'multiproc', 'layout': layout, 'backend': 'gloo',
+               'processes': mp.N_PROC, 'shards_a_process': mp.LOCAL_SHARDS,
+               'mesh': list(mp.MESH), 'run_wall_s': wall, 'workers': []}
+        for rep in reports:
+            lay = next((x for x in rep.get('layouts', [])
+                        if x['layout'] == layout), None)
+            if lay is None:
+                rec['workers'].append({'rank': rep['rank'], 'ok': False,
+                                       'exitcode': rep['exitcode']})
+                continue
+            w = {'rank': rep['rank'], 'ok': lay['ok'],
+                 'exitcode': rep['exitcode'], 'wall_s': lay['wall_s'],
+                 'local': lay['local'], 'failures': lay['failures']}
+            for cell, c in lay['cells'].items():
+                keep = {k: v for k, v in c.items()
+                        if k not in ('checks', 'rows', 'tol')}
+                keep['checks_ok'] = all(c.get('checks', {}).values())
+                w[cell] = keep
+            for cell in MP_STATE[layout]:
+                got = lay['cells'].get(cell, {}).get('state_only')
+                if got is None or got['vs_model'] is None:
+                    fail.append(f"multiproc {layout} rank{rep['rank']} "
+                                f"{cell}: S1's state-only call not checked")
+                else:
+                    state_only.append(got)
+            rec['workers'].append(w)
+        for cell, must in MP_MUST.items():
+            if cell not in cells:
+                fail.append(f"multiproc {layout}: no {cell} cell")
+                continue
+            for k, n in must.items():
+                n += MP_STATE[layout].get(cell, 0) * (k == 'iir_df2t')
+                got = cells[cell]['counts'][k]
+                if got != n:
+                    fail.append(f"multiproc {layout} {cell}: {k} launched "
+                                f"{got}, expected {n}")
+        for cell, n in MP_STATE[layout].items():
+            if cells.get(cell, {}).get('state') != n:
+                fail.append(f"multiproc {layout} {cell}: S1 state-only "
+                            f"calls {cells.get(cell, {}).get('state')}, "
+                            f"expected {n}")
+        rec['ok'] = ok
+        log(rec, brief_multiproc(rec))
+    s1 = summary['iir_df2t']
+    s1['state_launches'] = state
+    # S1's state-only call on every worker's blocks of the step cells: its
+    # zf against the full call's and the plain model's (df2t_blocked)
+    if state_only:
+        s1['state_only_max_abs_err_vs_full_call'] = max(
+            r['vs_full_call'] for r in state_only)
+        s1['state_only_max_abs_err_vs_model'] = max(
+            r['vs_model'] for r in state_only)
+        s1['state_only_shapes'] = sorted({tuple(x) for r in state_only
+                                          for x in r['shapes']})
+        s1['max_abs_err_vs_model'] = max(
+            s1.get('max_abs_err_vs_model', 0.0),
+            s1['state_only_max_abs_err_vs_model'])
+
+
+def brief_multiproc(rec):
+    """The phase line: each worker's wall, its cells' kernel ms, the step's
+    exchange (ms, bytes, bound) and S1 parallel against sequential."""
+    out = {k: rec[k] for k in ('phase', 'layout', 'backend', 'ok',
+                               'run_wall_s')}
+    for w in rec['workers']:
+        b = {'wall_s': w.get('wall_s'), 'ok': w['ok']}
+        for cell in ('dense', 'panel', 'sparse', 'fft', 'stack'):
+            if isinstance(w.get(cell), dict) and (
+                    'kernel_ms' in w[cell] or 'ms' in w[cell]):
+                b[f'{cell}_ms'] = w[cell].get('kernel_ms', w[cell].get('ms'))
+        for cell in ('step_clustered', 'step_clustered_t8', 'step_z_settle'):
+            st = w.get(cell)
+            if not isinstance(st, dict) or 'sent' not in st:
+                continue
+            b[cell] = {'exchange_ms': st.get('exchange_ms'),
+                       'exchange_host_ms': st.get('exchange_host_ms'),
+                       'bytes': st['sent']['bytes'],
+                       'bound': st['bytes_bound']}
+            for k in ('s1_parallel_ms', 's1_sequential_ms',
+                      's1_state_only_ms', 'vs_scipy', 'vs_one_process',
+                      'parallel_vs_ld', 'scipy_vs_ld', 'state_only'):
+                if k in st:
+                    b[cell][k] = st[k]
+        if w.get('failures'):
+            b['failures'] = w['failures']
+        out[f"rank{w['rank']}"] = b
+    return out
+
+
 def ptxas_entries(lines):
     """{entry function (mangled): [registers, spill store bytes, spill
     load bytes, shared memory bytes]} from nvcc's ``-Xptxas -v`` lines, in
@@ -3551,11 +3744,12 @@ def main():
                       check_small_narrow, check_probes, run_strata,
                       engine_native, engine_torch, run_sequences,
                       signal_flagship, stream_flagship, seq_station_chain,
-                      run_mesh, run_probes):
+                      run_mesh, run_multiproc, run_probes):
             t0 = time.perf_counter()
             try:
                 if phase in (run_strata, run_sequences, signal_flagship,
-                             stream_flagship, seq_station_chain, run_probes):
+                             stream_flagship, seq_station_chain,
+                             run_multiproc, run_probes):
                     phase(fail, summary)
                 else:
                     phase(fail)
@@ -3601,8 +3795,11 @@ def main():
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
         return 1
     keys = ('name', 'route', 'source', 'replaces', 'launches',
-            'probe_launches', 'windowed_launches', 'cuda_launches_a_call',
-            'max_abs_err', 'max_abs_err_vs_model', 'ms', 'plain_ms',
+            'probe_launches', 'windowed_launches', 'state_launches',
+            'cuda_launches_a_call',
+            'max_abs_err', 'max_abs_err_vs_model',
+            'state_only_max_abs_err_vs_full_call',
+            'state_only_max_abs_err_vs_model', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms', 'registers', 'smem_bytes',
             'dynamic_smem_bytes', 's1_kernels')
     print(smi, flush=True)

@@ -1387,3 +1387,70 @@ def test_sharded_routes_on_one_card(card):
         chans, 0.0, 65.536e-6, 2e9, mesh))
     whole = lower_schedule(chans, 0.0, 65.536e-6, 2e9, bucket_samples=None)
     assert rel(got.cpu(), synthesize_stack(whole, device=card).cpu()) <= TOL
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('d', [1, 3, 16])
+def test_iir_state_only_call_writes_the_full_calls_zf(card, d, dtype):
+    """S1's state-only call (y None: the chunk pass, the carry and a walk of
+    each row's last chunk) writes the full call's zf bit for bit, and the
+    plain model's state-only zf; rows of one chunk, of whole chunks, and of
+    a ragged last chunk over several carry groups; counted in
+    ``state_launches``."""
+    from scipy.signal import butter
+    from waveforms_tpu_torch.ops import reference_iir
+    L = reference_iir.CHUNK
+    b, a = (iir_cases.filters()['clustered'] if d == 3 else butter(d, 0.3))
+    coef = iir_cases.coefficients(b, a, dtype).to(card)
+    rng = np.random.default_rng(d)
+    for n in (300, 4 * L, 70 * L + 33):
+        x = torch.tensor(rng.standard_normal((5, n)), dtype=dtype,
+                         device=card)
+        zi = torch.tensor(rng.standard_normal((5, d)) * 0.01, dtype=dtype,
+                          device=card)
+        zf, zs = torch.empty_like(zi), torch.empty_like(zi)
+        kernels.iir_df2t(x, coef, zi, torch.empty_like(x), zf)
+        n0 = (kernels.iir_df2t.launches, kernels.iir_df2t.state_launches)
+        assert kernels.iir_df2t(x, coef, zi, None, zs) is zs
+        assert (kernels.iir_df2t.launches,
+                kernels.iir_df2t.state_launches) == (n0[0] + 1, n0[1] + 1)
+        torch.testing.assert_close(zs, zf, rtol=0, atol=0, equal_nan=True)
+        zb = torch.empty_like(zi).cpu()
+        reference_iir.df2t_blocked(x.cpu(), coef.cpu(), zi.cpu(), None, zb)
+        torch.testing.assert_close(zs.cpu(), zb, rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+def test_shard_carry_on_the_card_equals_the_plain_one(card):
+    """ops.iir.shard_carry on card tensors (the state maps on the host, the
+    steps in double-double torch on the card) within 1e-15 of the largest
+    state of the plain carry on the CPU."""
+    from waveforms_tpu_torch.ops import iir, reference_iir
+    b, a = iir_cases.filters()['clustered']
+    rng = np.random.default_rng(4)
+    zf0 = torch.from_numpy(rng.standard_normal((64, 8, 3)) * 1e-3)
+    zi = torch.from_numpy(rng.standard_normal((64, 3)) * 1e-3)
+    lengths = [250_000] * 7 + [1000]
+    plain = reference_iir.shard_carry(iir_cases.coefficients(b, a), zf0,
+                                      lengths, zi)
+    got = iir.shard_carry(b, a, zf0.to(card), lengths, zi.to(card))
+    assert got.device.type == 'cuda'
+    assert (got.cpu() - plain).abs().max() <= 1e-15 * plain.abs().max()
+
+
+def test_multiproc_smoke_on_the_card():
+    """python -m waveforms_tpu_torch.parallel.multiproc_smoke --device cuda
+    --backend gloo at small size, both layouts: two processes on the card
+    (one each where there are two), exit 0."""
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, '-m', 'waveforms_tpu_torch.parallel.multiproc_smoke',
+         '--device', 'cuda', '--backend', 'gloo', '--layout', 'jax', 'time'],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-6000:] + res.stderr[-4000:]
+    assert res.stdout.strip().splitlines()[-1] == 'MULTIPROC OK'

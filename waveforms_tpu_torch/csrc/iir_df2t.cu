@@ -31,6 +31,12 @@
 //      plain sequential version, and writes y; the row's last chunk writes
 //      zf, consistent with y.
 //
+// The state-only call (y null: the end state of each row and nothing else,
+// as a time-sharded filter's carry across shards asks) runs A and B, then
+// in place of C iir_final_state_kernel: one thread a row walks only the
+// row's last chunk from S[K-1], in C's operations, and writes zf, equal to
+// the full call's bit for bit.
+//
 // What bounds the phases: A by FP64 throughput (a double-double step is ~149
 // FP64 instructions a sample at d = 3), C by memory (x read, y written), B
 // by its dependent chain of double-double products and sums, which its
@@ -584,6 +590,30 @@ iir_output_kernel(const T* __restrict__ x, const T* __restrict__ coef,
   }
 }
 
+// C without y: one thread a row walks the row's last chunk from its start
+// state (zi where the row is one chunk) in iir_output_kernel's operations
+// and writes only zf.  The chunk's samples are read straight from x,
+// uncoalesced: one chunk a row is a small share of the call (batching the
+// loads ahead of the steps measured no faster on the H100).
+template <typename T, int D>
+__global__ void __launch_bounds__(IIR_B_THREADS)
+iir_final_state_kernel(const T* __restrict__ x, const T* __restrict__ coef,
+                       const T* __restrict__ zi, const T* __restrict__ starts,
+                       T* __restrict__ zf, int rows, long long n, int K) {
+  const long long r = (long long)blockIdx.x * IIR_B_THREADS + threadIdx.x;
+  if (r >= rows) return;
+  T b[D + 1], a[D], s[D];
+  load_coef<T, T, D>(coef, b, a);
+  const T* s0 = K == 1 ? zi + r * D : starts + (r * K + K - 1) * D;
+#pragma unroll
+  for (int j = 0; j < D; ++j) s[j] = s0[j];
+  const T* xr = x + r * n;
+  for (long long i = (long long)(K - 1) * IIR_L; i < n; ++i)
+    step(s, xr[i], b, a);
+#pragma unroll
+  for (int j = 0; j < D; ++j) zf[r * D + j] = s[j];
+}
+
 // the dynamic shared memory of one thread block of A and C: the staged tiles
 template <typename T>
 constexpr int smem_bytes() {
@@ -660,6 +690,12 @@ static int launch(const void* x, const void* coef, const void* zi, void* y,
         (const double*)ends, phi, tstarts, (T*)starts, rows, (int)K, M, G);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
+  if (y == nullptr) {                        // the state-only call
+    iir_final_state_kernel<T, D><<<blocks_of(rows), IIR_B_THREADS, 0, st>>>(
+        (const T*)x, (const T*)coef, (const T*)zi, (const T*)starts, (T*)zf,
+        rows, n, (int)K);
+    return (int)cudaGetLastError();
+  }
   iir_output_kernel<T, D><<<(int)(rows * groups_c), IIR_THREADS, smem, st>>>(
       (const T*)x, (const T*)coef, (const T*)zi, (const T*)starts, (T*)y,
       (T*)zf, n, (int)K, (int)groups_c);
@@ -696,7 +732,9 @@ extern "C" {
 // wf_iir_df2t_work_doubles(rows, n, d) float64.  Launches up to five
 // kernels and returns the first non-zero cudaGetLastError() after one (0 on
 // success), or cudaErrorInvalidValue for a state of more than IIR_MAX_D (or
-// fewer than 1) entries, another dtype or too large a grid.
+// fewer than 1) entries, another dtype or too large a grid.  With y null it
+// writes zf alone (the state-only call: the output pass becomes one walk
+// of each row's last chunk), equal to the full call's.
 int wf_iir_df2t(const void* x, const void* coef, const void* zi, void* y,
                 void* zf, void* ends, void* starts, void* work, int rows,
                 long long n, int d, int dtype, void* stream) {

@@ -309,6 +309,30 @@ class _DenseKernel(_Kernel):
         return result
 
 
+class _IirKernel(_Kernel):
+    """S1's wrapper: ``y`` None is the state-only call, which writes zf
+    alone (the chunk pass, the carry and a walk of each row's last chunk,
+    no output pass) and returns it; its launches are counted again in
+    ``state_launches``."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.state_launches = 0
+
+    def __call__(self, x, coef, zi, y, zf):
+        if y is not None:
+            return super().__call__(x, coef, zi, y, zf)
+        if zf.device.type == 'cpu':
+            self.plain(x, coef, zi, None, zf)
+            return zf
+        if zf.device.type != 'cuda':
+            raise ValueError(f"{self.name}: unsupported device {zf.device}")
+        self._launch(x, coef, zi, None, zf)
+        self.launches += 1
+        self.state_launches += 1
+        return zf
+
+
 def dense_tile(d, largest=DENSE_TILE, row0=0):
     """Largest power-of-two tile <= ``largest`` that divides the bucket, so
     that no tile straddles two buckets, and the window's offset ``row0`` (a
@@ -631,12 +655,13 @@ _IIR_DTYPES = {torch.float64: 0, torch.float32: 1}
 
 def _launch_iir_df2t(x, coef, zi, y, zf):
     """Launch S1 on CUDA tensors: rows x (R, n) -> y, state zi (R, d) ->
-    zf, coefficients ``coef`` = b then a, d + 1 each.  One call runs the
-    blocked scan's kernels (five; one where a row is one chunk) on scratch
-    allocated here: the chunks' end states (R, K, d, 2) float64, start
-    states (R, K, d), K = max(1, ceil(n / chunk)), and the carry's matrices
-    and group states (float64, as many as the build asks)."""
-    if x.dim() != 2 or y.shape != x.shape:
+    zf, coefficients ``coef`` = b then a, d + 1 each; ``y`` None writes zf
+    alone (the state-only call).  One call runs the blocked scan's kernels
+    (five; one where a row is one chunk) on scratch allocated here: the
+    chunks' end states (R, K, d, 2) float64, start states (R, K, d), K =
+    max(1, ceil(n / chunk)), and the carry's matrices and group states
+    (float64, as many as the build asks)."""
+    if x.dim() != 2 or (y is not None and y.shape != x.shape):
         raise ValueError("x and y are (rows, n) tensors of one shape")
     d = zi.shape[-1] if zi.dim() == 2 else -1
     if not 1 <= d <= reference_iir.MAX_STATE:
@@ -645,24 +670,26 @@ def _launch_iir_df2t(x, coef, zi, y, zf):
     if (tuple(zi.shape) != (x.shape[0], d) or zf.shape != zi.shape
             or tuple(coef.shape) != (2 * (d + 1),)):
         raise ValueError("zi and zf are (rows, d), coef (2 * (d + 1),)")
+    given = {'x': x, 'coef': coef, 'zi': zi, 'zf': zf}
+    if y is not None:
+        given['y'] = y
     if x.dtype not in _IIR_DTYPES or any(
-            t.dtype != x.dtype for t in (coef, zi, y, zf)):
+            t.dtype != x.dtype for t in given.values()):
         raise ValueError("the recurrence runs in float64 or float32, every "
                          "tensor in one of them")
-    _check_cuda({'x': x, 'coef': coef, 'zi': zi, 'y': y, 'zf': zf},
-                y.device)
+    _check_cuda(given, zf.device)
     lib = load_library()
     rows, n = x.shape
     K = max(1, -(-n // lib.wf_iir_df2t_chunk()))
-    ends = torch.empty((rows, K, d, 2), dtype=torch.float64, device=y.device)
-    starts = torch.empty((rows, K, d), dtype=x.dtype, device=y.device)
+    ends = torch.empty((rows, K, d, 2), dtype=torch.float64, device=zf.device)
+    starts = torch.empty((rows, K, d), dtype=x.dtype, device=zf.device)
     work = torch.empty(lib.wf_iir_df2t_work_doubles(rows, n, d),
-                       dtype=torch.float64, device=y.device)
-    with torch.cuda.device(y.device):
+                       dtype=torch.float64, device=zf.device)
+    with torch.cuda.device(zf.device):
         code = lib.wf_iir_df2t(x.data_ptr(), coef.data_ptr(), zi.data_ptr(),
-                               y.data_ptr(), zf.data_ptr(), ends.data_ptr(),
+                               _ptr(y), zf.data_ptr(), ends.data_ptr(),
                                starts.data_ptr(), work.data_ptr(), rows, n, d,
-                               _IIR_DTYPES[x.dtype], _stream(y))
+                               _IIR_DTYPES[x.dtype], _stream(zf))
     _raise_on(code, 'iir_df2t')
 
 
@@ -760,9 +787,10 @@ probe_sparse_compact = _Kernel(
 #: S1: ``iir_df2t(x, coef, zi, y, zf)``: direct form II transposed over the
 #: rows of x (R, n) into y, state zi (R, d) -> zf, as a blocked scan over
 #: chunks; a port kernel with no Pallas counterpart (it replaces the
-#: lax.scan of the JAX package's ``_sequential_filter``).  ``launches``
-#: counts calls, each five CUDA kernels (one where a row is one chunk)
-iir_df2t = _Kernel(
+#: lax.scan of the JAX package's ``_sequential_filter``).  ``y`` None: zf
+#: alone.  ``launches`` counts calls, each five CUDA kernels (one where a
+#: row is one chunk); ``state_launches`` the state-only ones among them
+iir_df2t = _IirKernel(
     'iir_df2t', 'waveforms_tpu_torch/csrc/iir_df2t.cu',
     'waveforms_tpu/ops/iir.py:171', reference_iir.df2t,
     _launch_iir_df2t, out_at=3)
@@ -776,6 +804,7 @@ def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
     synth_dense.windowed_launches = 0
+    iir_df2t.state_launches = 0
 
 
 def launch_counts() -> dict:

@@ -16,8 +16,12 @@ product (``torch.matmul``); a second transpose restores the rows for step
 ``X[p::P]``), which is what convolution wants: multiply by an identically
 distributed kernel spectrum and run the inverse, which retraces the steps
 and returns the contiguous blocks.  JAX's ``all_to_all`` is the explicit
-exchange :func:`_all_to_all`, block copies between the shards' devices; one
-shard never holds more than N/P samples of one row.  Neither the short DFT
+exchange :func:`_all_to_all`: block copies between the shards' devices in
+one process, and where the shards span processes (``owners``, the rank of
+each shard) one :func:`..parallel.distributed.all_to_all` of the rows that
+cross, each process holding and transforming only its own shards' blocks
+(another's are None); one shard never holds more than N/P samples of one
+row.  Neither the short DFT
 nor the long one is a Pallas kernel in the JAX package, so the port calls
 the library for both.  Every function takes a batch of rows: blocks of shape
 (..., L).
@@ -31,12 +35,37 @@ import torch
 __all__ = ['fft_sharded', 'ifft_sharded', 'fft_convolve_sharded']
 
 
-def _all_to_all(blocks):
+def _all_to_all(blocks, owners=None):
     """JAX's ``all_to_all(split_axis=0, concat_axis=0, tiled=False)`` over
     the shards' (..., P, L/P) blocks: shard p receives row p of every shard
-    r, as its row r, on its own device."""
-    return [torch.stack([b[..., p, :].to(dst.device) for b in blocks], -2)
-            for p, dst in enumerate(blocks)]
+    r, as its row r, on its own device.  With ``owners`` (each shard's
+    rank), this process's shards hold blocks and the others None: the rows
+    from another process's shards come in one all-to-all, in (source shard,
+    destination shard) order."""
+    if owners is None:
+        return [torch.stack([b[..., p, :].to(dst.device) for b in blocks],
+                            -2) for p, dst in enumerate(blocks)]
+    from ..parallel import distributed
+    me, world = distributed.rank(), distributed.world_size()
+    mine = [r for r, o in enumerate(owners) if o == me]
+    like = blocks[mine[0]]
+    row = like[..., 0, :]
+    pieces = [torch.cat([blocks[r][..., p, :].reshape(-1) for r in mine
+                         for p, o in enumerate(owners) if o == q]
+                        or [like.new_empty(0)]) for q in range(world)]
+    numels = [row.numel() * sum(1 for o in owners if o == q) * len(mine)
+              for q in range(world)]
+    got = distributed.all_to_all(pieces, numels, like)
+    # from rank q: for each of q's shards r, the rows of my shards p
+    rows, taken = {}, [0] * world
+    for r, q in enumerate(owners):
+        for p in mine:
+            k = taken[q]
+            rows[r, p] = got[q][k:k + row.numel()].reshape(row.shape)
+            taken[q] += row.numel()
+    return [None if o != me else torch.stack(
+        [rows[r, p].to(blocks[p].device) for r in range(len(owners))], -2)
+        for p, o in enumerate(owners)]
 
 
 def _dft_matrix(P, inverse, dtype, device):
@@ -55,38 +84,48 @@ def _twiddle(me, P, L, sign, dtype, device):
 
 
 def _check(blocks):
-    P, L = len(blocks), blocks[0].shape[-1]
-    if L % P or any(b.shape != blocks[0].shape for b in blocks):
+    held = [b for b in blocks if b is not None]
+    P, L = len(blocks), held[0].shape[-1]
+    if L % P or any(b.shape != held[0].shape for b in held):
         raise ValueError(f"the {P} shards' blocks must share one shape whose "
                          f"last axis is a multiple of {P}")
-    return P, L
+    return P, L, held[0].dtype
 
 
-def fft_sharded(blocks):
+def _each(fn, blocks):
+    """``fn(p, block)`` over the blocks held here; None stays None."""
+    return [None if b is None else fn(p, b) for p, b in enumerate(blocks)]
+
+
+def fft_sharded(blocks, owners=None):
     """The P shards' contiguous blocks of x, each (..., L) complex on its
     device -> the P strided blocks of DFT(x): shard p's ``X[p + P * q]``
-    for all q, on shard p's device.  L must be a multiple of P."""
-    P, L = _check(blocks)
-    cdt = blocks[0].dtype
-    at = _all_to_all([b.reshape(b.shape[:-1] + (P, L // P)) for b in blocks])
-    C = [_dft_matrix(P, False, cdt, a.device) @ a
-         * _twiddle(p, P, L, -1.0, cdt, a.device) for p, a in enumerate(at)]
-    back = _all_to_all(C)
-    return [torch.fft.fft(r.reshape(r.shape[:-2] + (L,))) for r in back]
+    for all q, on shard p's device.  L must be a multiple of P.  With
+    ``owners`` (each shard's rank, on a mesh that spans processes) this
+    process passes and gets its own shards' blocks, None for the rest."""
+    P, L, cdt = _check(blocks)
+    at = _all_to_all(_each(lambda p, b: b.reshape(b.shape[:-1]
+                                                  + (P, L // P)), blocks),
+                     owners)
+    C = _each(lambda p, a: _dft_matrix(P, False, cdt, a.device) @ a
+              * _twiddle(p, P, L, -1.0, cdt, a.device), at)
+    back = _all_to_all(C, owners)
+    return _each(lambda p, r: torch.fft.fft(r.reshape(r.shape[:-2] + (L,))),
+                 back)
 
 
-def ifft_sharded(blocks):
+def ifft_sharded(blocks, owners=None):
     """Inverse of :func:`fft_sharded`: the P strided spectrum blocks back to
     the shards' contiguous sample blocks (the steps retraced in reverse)."""
-    P, L = _check(blocks)
-    cdt = blocks[0].dtype
-    rows = [torch.fft.ifft(x) for x in blocks]
-    C = _all_to_all([r.reshape(r.shape[:-1] + (P, L // P)) for r in rows])
-    at = [(_dft_matrix(P, True, cdt, c.device) / P)
-          @ (c * _twiddle(p, P, L, 1.0, cdt, c.device))
-          for p, c in enumerate(C)]
-    out = _all_to_all(at)
-    return [b.reshape(b.shape[:-2] + (L,)) for b in out]
+    P, L, cdt = _check(blocks)
+    rows = _each(lambda p, x: torch.fft.ifft(x), blocks)
+    C = _all_to_all(_each(lambda p, r: r.reshape(r.shape[:-1]
+                                                 + (P, L // P)), rows),
+                    owners)
+    at = _each(lambda p, c: (_dft_matrix(P, True, cdt, c.device) / P)
+               @ (c * _twiddle(p, P, L, 1.0, cdt, c.device)), C)
+    out = _all_to_all(at, owners)
+    return _each(lambda p, b: b.reshape(b.shape[:-2] + (L,)), out)
 
 
 def fft_convolve_sharded(sig, ker, mesh, axis: str = 'time',
@@ -108,10 +147,20 @@ def fft_convolve_sharded(sig, ker, mesh, axis: str = 'time',
     :func:`.fft.extract_kernel_device` -- by rolling it before the
     transform.  This is CIRCULAR convolution either way (the first and last
     ~len(ker)/2 samples wrap); :func:`.fft.fft_convolve_centered`
-    zero-pads instead."""
-    from ..parallel.mesh import ShardedPlane
-    devices = list(mesh.devices[0, :] if axis == 'time'
-                   else mesh.devices[:, 0])
+    zero-pads instead.
+
+    On a mesh that spans processes, every process passes the whole
+    ``sig`` (as each JAX process holds the host array it shards), takes
+    its own shards' blocks of it and returns a plane of those; the
+    transposes cross processes as all-to-alls."""
+    from ..parallel.mesh import Mesh, ShardedPlane
+    line = (lambda g: g[0, :]) if axis == 'time' else (lambda g: g[:, 0])
+    devices = list(line(mesh.devices))
+    ranks = [int(o) for o in line(mesh.owners)]
+    mine = [o == mesh.rank for o in ranks]
+    if not any(mine):
+        raise ValueError(f"this process owns no shard of the {axis!r} axis")
+    owners = None if Mesh.spanning(ranks) is None else ranks
     P = len(devices)
     N = sig.shape[-1]
     if N % (P * P):
@@ -130,13 +179,18 @@ def fft_convolve_sharded(sig, ker, mesh, axis: str = 'time',
     wide = sig.dtype in (torch.float64, torch.complex128)
     cdt = torch.complex128 if wide else torch.complex64
     L = N // P
-    xs = [sig[..., r * L:(r + 1) * L].to(device=d, dtype=cdt)
-          for r, d in enumerate(devices)]
-    X = fft_sharded(xs)
+    xs = [sig[..., r * L:(r + 1) * L].to(device=d, dtype=cdt) if m else None
+          for r, (d, m) in enumerate(zip(devices, mine))]
+    X = fft_sharded(xs, owners)
     # shard p multiplies its strided spectrum X[p::P] by Kf[p::P]
-    Y = [x * torch.from_numpy(Kf[p::P]).to(dtype=cdt, device=x.device)
-         for p, x in enumerate(X)]
-    out = ifft_sharded(Y)
+    Y = _each(lambda p, x: x * torch.from_numpy(Kf[p::P]).to(
+        dtype=cdt, device=x.device), X)
+    out = ifft_sharded(Y, owners)
     if not sig.is_complex():
-        out = [o.real for o in out]
-    return ShardedPlane([out], tuple(sig.shape), out[0].dtype)
+        out = _each(lambda p, o: o.real, out)
+    lead = tuple(sig.shape[:-1])
+    return ShardedPlane(
+        [out], tuple(sig.shape), cdt if sig.is_complex() else
+        torch.float64 if wide else torch.float32,
+        None if owners is None else np.array([owners]),
+        [[lead + (L,)] * P])

@@ -39,8 +39,8 @@ import torch
 
 from .synth import resolve_device
 
-__all__ = ['sosfilt', 'lfilter', 'filter_zpk', 'iir_apply',
-           'predistort_device']
+__all__ = ['sosfilt', 'lfilter', 'lfilter_zf', 'state_maps', 'shard_carry',
+           'filter_zpk', 'iir_apply', 'predistort_device']
 
 
 def _as_signal(x, device='cuda') -> torch.Tensor:
@@ -198,23 +198,25 @@ def filter_zpk(z, p, k, x, device='cuda') -> torch.Tensor:
 
 
 def _sequential_filter(bb: np.ndarray, aa: np.ndarray, x: torch.Tensor,
-                       zi0: torch.Tensor):
+                       zi0: torch.Tensor, state_only: bool = False):
     """Direct form II transposed, exact scipy semantics including zi/zf:
     the recurrence kernel S1 over the rows of ``x`` (JAX: a ``lax.scan``;
     on the card a blocked scan, on CPU tensors the sequential plain
     version).  The correctness fallback where the doubling
     scan is numerically unstable: (b, a) coefficient semantics can only be
-    reproduced by direct-form arithmetic (see :func:`filter_zpk`)."""
+    reproduced by direct-form arithmetic (see :func:`filter_zpk`).
+    ``state_only``: S1's state-only call, (None, zf)."""
     from .. import kernels
     d = len(bb) - 1
     lead, n = x.shape[:-1], x.shape[-1]
     rows = x.reshape(-1, n).contiguous()
     zi = zi0.expand(lead + (d,)).reshape(-1, d).contiguous()
     coef = _like(np.concatenate([bb, aa]), x)
-    y = torch.empty_like(rows)
+    y = None if state_only else torch.empty_like(rows)
     zf = torch.empty_like(zi)
     kernels.iir_df2t(rows, coef, zi, y, zf)
-    return y.reshape(x.shape), zf.reshape(lead + (d,))
+    return (None if state_only else y.reshape(x.shape),
+            zf.reshape(lead + (d,)))
 
 
 def _doubling_df2t(M: torch.Tensor, k: torch.Tensor, b0, x: torch.Tensor,
@@ -295,13 +297,8 @@ def sosfilt(sos, x, zi=None, device='cuda'):
     return x
 
 
-def lfilter(b, a, x, zi=None, device='cuda'):
-    """General (b, a) IIR over the last axis of ``x``: direct form II
-    transposed with state dimension ``max(len(a), len(b)) - 1``, by the
-    doubling scan or, where that is unstable, the recurrence kernel;
-    scipy-compatible ``zi`` (d,) or (..., d) and ``zf``.
-    """
-    x = _as_signal(x, device)
+def _normalised(b, a):
+    """(b, a) over a[0], both d + 1 long -> (bb, aa, d)."""
     b = np.atleast_1d(np.asarray(b, dtype=float))
     a = np.atleast_1d(np.asarray(a, dtype=float))
     d = max(len(a), len(b)) - 1
@@ -309,6 +306,27 @@ def lfilter(b, a, x, zi=None, device='cuda'):
     aa = np.zeros(d + 1)
     bb[:len(b)] = b / a[0]
     aa[:len(a)] = a / a[0]
+    return bb, aa, d
+
+
+def _state_space(bb, aa, d):
+    """s[n] = M s[n-1] + k x[n];  y[n] = b0 x[n] + s0[n-1]  -> (M, k)."""
+    M = np.zeros((d, d))
+    M[:, 0] = -aa[1:]
+    M[:-1, 1:] = np.eye(d - 1)
+    return M, bb[1:] - aa[1:] * bb[0]
+
+
+def lfilter(b, a, x, zi=None, device='cuda', route_n=None):
+    """General (b, a) IIR over the last axis of ``x``: direct form II
+    transposed with state dimension ``max(len(a), len(b)) - 1``, by the
+    doubling scan or, where that is unstable, the recurrence kernel;
+    scipy-compatible ``zi`` (d,) or (..., d) and ``zf``.  ``route_n`` is
+    the length whose doubling scan decides the route (default: ``x``'s): a
+    time shard of a longer row passes the row's, and takes the row's route.
+    """
+    x = _as_signal(x, device)
+    bb, aa, d = _normalised(b, a)
 
     return_zf = zi is not None
     zi0 = x.new_zeros((d,)) if zi is None else _like(zi, x)
@@ -317,13 +335,8 @@ def lfilter(b, a, x, zi=None, device='cuda'):
         y = bb[0] * x
         return (y, zi0) if return_zf else y
 
-    # s[n] = M s[n-1] + k x[n];  y[n] = b0 x[n] + s0[n-1]
-    M = np.zeros((d, d))
-    M[:, 0] = -aa[1:]
-    M[:-1, 1:] = np.eye(d - 1)
-    k = bb[1:] - aa[1:] * bb[0]
-
-    if _doubling_unstable(M, x.shape[-1]):
+    M, k = _state_space(bb, aa, d)
+    if _doubling_unstable(M, route_n or x.shape[-1]):
         # clustered near-unit poles: doubling diverges numerically, and no
         # factored realization reproduces (b, a) semantics either, so the
         # exact direct form runs sequentially; callers who hold the
@@ -333,6 +346,54 @@ def lfilter(b, a, x, zi=None, device='cuda'):
         y, zf = _doubling_df2t(_like(M, x), _like(k, x), float(bb[0]), x,
                                zi0)
     return (y, zf) if return_zf else y
+
+
+def lfilter_zf(b, a, x, route_n=None, zi=None) -> torch.Tensor:
+    """The final state (..., d) of ``lfilter(b, a, x, zi=zi, route_n=...)``
+    alone (``zi`` None: a zero state), by the route that call takes: where
+    the doubling scan is unstable, the recurrence kernel's state-only call
+    (S1 writes no output); else the doubling scan's own final state.  The
+    end state of a run of time shards from a zero state, which
+    :func:`shard_carry` carries across the runs."""
+    bb, aa, d = _normalised(b, a)
+    if d == 0:
+        return x.new_zeros(x.shape[:-1] + (0,))
+    zi0 = x.new_zeros((d,)) if zi is None else _like(zi, x)
+    M, k = _state_space(bb, aa, d)
+    if _doubling_unstable(M, route_n or x.shape[-1]):
+        return _sequential_filter(bb, aa, x, zi0, state_only=True)[1]
+    return _doubling_df2t(_like(M, x), _like(k, x), float(bb[0]), x,
+                          zi0)[1]
+
+
+def state_maps(b, a, lengths) -> dict:
+    """{n: Phi(n)} of the (b, a) filter's state over n zero-input samples,
+    for each n of ``lengths``, in double-double on the host
+    (:func:`.reference_iir.state_maps`): what :func:`shard_carry` takes as
+    ``maps``."""
+    from . import reference_iir
+    bb, aa, _ = _normalised(b, a)
+    return reference_iir.state_maps(
+        torch.from_numpy(np.concatenate([bb, aa])), lengths)
+
+
+def shard_carry(b, a, zf0, lengths, zi, maps=None) -> torch.Tensor:
+    """Each time shard's start state (R, P, d) from every shard's end state
+    from zero ``zf0`` (R, P, d) and its length: the carry of a filter over a
+    row split into P time shards, in parallel over the shards where the
+    sequential carry waits on each shard in turn
+    (:func:`.reference_iir.shard_carry`, whose steps run here on ``zf0``'s
+    device).  The state maps Phi(n) of (b, a) are built on the host in
+    double-double (:func:`.reference_iir.state_maps`), or taken from
+    ``maps``; the (R, d) steps, P - 1 of them, run in double-double torch on
+    the card, with no kernel of their own: they are a few numbers a
+    row."""
+    from . import reference_iir
+    bb, aa, _ = _normalised(b, a)
+    coef = torch.from_numpy(np.concatenate([bb, aa]))
+    if maps is None:
+        maps = state_maps(b, a, list(lengths)[:-1])
+    return reference_iir.shard_carry(coef, zf0, lengths, zi, maps)
 
 
 def iir_apply(sos, x, initial: float = 0.0, device='cuda'):

@@ -46,7 +46,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ['MAX_STATE', 'CHUNK', 'CARRY_GROUP', 'df2t', 'df2t_blocked',
-           'carry_matrix', 'carry_groups']
+           'carry_matrix', 'carry_groups', 'state_maps', 'shard_carry']
 
 #: the largest state the kernel holds in registers (csrc/iir_df2t.cu
 #: IIR_MAX_D)
@@ -70,7 +70,8 @@ def _check_state(d):
 def df2t(x, coef, zi, y, zf):
     """Filter the rows of ``x`` (R, n) into ``y`` from state ``zi`` (R, d),
     writing the final state to ``zf``; ``coef`` is (2 * (d + 1),), b[0..d]
-    then a[0..d] (a[0] = 1, unread).  Returns ``y``."""
+    then a[0..d] (a[0] = 1, unread).  Returns ``y``; ``y`` None writes the
+    final state alone (the same as the full call's)."""
     rows, n = x.shape
     d = zi.shape[1]
     _check_state(d)
@@ -82,7 +83,8 @@ def df2t(x, coef, zi, y, zf):
     for i in range(n):
         yn = bx0[:, i] + s[:, 0]
         s = (torch.cat([s[:, 1:], zero], 1) + bx[:, i]) - at * yn[:, None]
-        y[:, i] = yn
+        if y is not None:
+            y[:, i] = yn
     zf.copy_(s)
     return y
 
@@ -242,22 +244,15 @@ def carry_matrix(coef, chunk=CHUNK):
     """Phi = A^chunk of the state, Phi[:, j] the state ``chunk`` zero-input
     steps after the unit state e_j: a (hi, lo) pair of (d, d) float64 for a
     float64 ``coef``, one (d, d) float64 tensor for a float32 one."""
-    d = (coef.shape[0] - 2) // 2
-    _check_state(d)
-    eye = torch.eye(d, dtype=torch.float64, device=coef.device)
-    zero = torch.zeros((d, chunk), dtype=torch.float64, device=coef.device)
-    if coef.dtype == torch.float64:
-        hi, lo = _dd_walk(zero, coef, (eye, torch.zeros_like(eye)))
-        return hi.T.contiguous(), lo.T.contiguous()
-    ends = torch.empty_like(eye)
-    df2t(zero, coef.double(), eye, torch.empty_like(zero), ends)
-    return ends.T.contiguous()
+    _check_state((coef.shape[0] - 2) // 2)
+    return _pairs(lambda v: v.T.contiguous(), _unit_walk(coef, chunk))
 
 
 def df2t_blocked(x, coef, zi, y, zf, chunk=CHUNK):
     """:func:`df2t`'s function as the kernel computes it, by chunks of
     ``chunk`` samples (the module's docstring); the same arguments.
-    Returns ``y``."""
+    Returns ``y``.  ``y`` None is the kernel's state-only call: A and B,
+    then only the last chunk of C, for zf."""
     rows, n = x.shape
     d = zi.shape[1]
     _check_state(d)
@@ -279,6 +274,12 @@ def df2t_blocked(x, coef, zi, y, zf, chunk=CHUNK):
             e = e.reshape(rows, K - 1, d)
         # B: s_k = Phi s_{k-1} + e[k-1], rounded to the signal's type
         starts[:, 1:] = _carry(coef, chunk, zi, e)
+    if y is None:                    # C's last chunk alone
+        zk = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+        df2t(x[:, (K - 1) * chunk:], coef, starts[:, K - 1].clone(), None,
+             zk)
+        zf.copy_(zk)
+        return None
     # C: every chunk in the signal's type from its start state
     full = n // chunk if n % chunk == 0 else K - 1
     ends = torch.empty((rows, K, d), dtype=x.dtype, device=x.device)
@@ -298,3 +299,89 @@ def df2t_blocked(x, coef, zi, y, zf, chunk=CHUNK):
         ends[:, full] = zk
     zf.copy_(ends[:, K - 1])
     return y
+
+
+def _unit_walk(coef, n):
+    """The states n zero-input steps after each unit state, as rows (state
+    j's in row j): double-double (hi, lo) for a float64 ``coef``, float64
+    for a float32 one (:func:`carry_matrix`'s arithmetic)."""
+    d = (coef.shape[0] - 2) // 2
+    eye = torch.eye(d, dtype=torch.float64, device=coef.device)
+    zero = torch.zeros((d, n), dtype=torch.float64, device=coef.device)
+    if coef.dtype == torch.float64:
+        return _dd_walk(zero, coef, (eye, torch.zeros_like(eye)))
+    ends = torch.empty_like(eye)
+    df2t(zero, coef.double(), eye, torch.empty_like(zero), ends)
+    return ends
+
+
+def state_maps(coef, lengths) -> dict:
+    """Phi(n) = A^n, the state map over n zero-input samples, for each n of
+    ``lengths`` -> {n: Phi(n)}, each as :func:`carry_matrix` gives Phi
+    (a (hi, lo) pair of (d, d) float64 for a float64 ``coef``, one (d, d)
+    float64 for a float32 one).
+
+    Built like the kernel's carry, by steps and never by squaring (powers
+    of these companion matrices squared up lose their digits): with n =
+    (g * CARRY_GROUP + m) * CHUNK + r, Phi(n) = Psi^g Phi(CHUNK)^m Phi(r),
+    Phi(CHUNK) = :func:`carry_matrix`, Psi = Phi(CHUNK)^CARRY_GROUP by
+    CARRY_GROUP products, Phi(r) by r steps from each unit state, each
+    product a carry step of the states after each unit state."""
+    d = (coef.shape[0] - 2) // 2
+    _check_state(d)
+    dd = coef.dtype == torch.float64
+    zero = torch.zeros((1, 1), dtype=torch.float64, device=coef.device)
+    zero = (zero, zero) if dd else zero
+    phi = carry_matrix(coef, CHUNK)
+    psi = None
+    maps = {}
+    for n in sorted(set(int(v) for v in lengths)):
+        q, r = divmod(n, CHUNK)
+        g, m = divmod(q, CARRY_GROUP)
+        if g and psi is None:
+            u = _unit_walk(coef, 0)
+            for _ in range(CARRY_GROUP):
+                u = _carry_step(u, phi, zero)
+            psi = _pairs(lambda v: v.T.contiguous(), u)
+        u = _unit_walk(coef, r)
+        for mat, k in ((phi, m), (psi, g)):
+            for _ in range(k):
+                u = _carry_step(u, mat, zero)
+        maps[n] = _pairs(lambda v: v.T.contiguous(), u)
+    return maps
+
+
+def shard_carry(coef, zf0, lengths, zi, maps=None):
+    """Each time shard's start state from every shard's end state from a
+    zero state: the carry of a time-sharded filter across its shards.
+
+    ``zf0`` (R, P, d): shard j's end state from zero over its
+    ``lengths[j]`` samples (the last shard's is not read); ``zi`` (R, d)
+    the first shard's start state.  -> z_in (R, P, d) in ``zi``'s dtype:
+
+        z_in[:, 0] = zi
+        z_in[:, j] = Phi(lengths[j-1]) z_in[:, j-1] + zf0[:, j-1]
+
+    carried in double-double for a float64 ``coef`` (float64 for a float32
+    one), entry i of each step the pairwise sum of (zf0_i, Phi_i0 z_0, ...,
+    Phi_i,d-1 z_{d-1}) as in the kernel's carry, and rounded to ``zi``'s
+    type once a shard.  ``maps`` ({n: Phi(n)}, :func:`state_maps` of
+    ``coef`` and ``lengths``) is built here when not given; the steps run on
+    ``zf0``'s device."""
+    R, P, d = zf0.shape
+    dd = coef.dtype == torch.float64
+    if maps is None:
+        maps = state_maps(coef, lengths[:P - 1])
+    dev = zf0.device
+
+    def widen(v):
+        v = v.to(device=dev, dtype=torch.float64)
+        return (v, torch.zeros_like(v)) if dd else v
+
+    s = widen(zi)
+    out = [zi.to(dev)]
+    for j in range(1, P):
+        phi = _pairs(lambda v: v.to(dev), maps[int(lengths[j - 1])])
+        s = _carry_step(s, phi, widen(zf0[:, j - 1]))
+        out.append((s[0] + s[1] if dd else s).to(zi.dtype))
+    return torch.stack(out, 1)

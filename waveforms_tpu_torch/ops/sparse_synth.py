@@ -497,7 +497,8 @@ def _run_sharded_common(low: LoweredSchedule, mesh, Rs, plan, out_dtype,
     may raise UnsupportedFactor before anything launches) and
     ``make_launch(i, j, dev, work, counts, static, out, scale) -> launch``.
     A shard's block is its channel block by its slice of ``tps`` subtiles,
-    cut at the schedule's end."""
+    cut at the schedule's end.  Every process partitions the whole
+    worklist alike and uploads and launches its own shards' parts only."""
     from ..parallel.mesh import ShardRun, _shard_scales, shard_schedule, \
         time_windows
     C, NB, S, T, F = low.shape
@@ -534,10 +535,13 @@ def _run_sharded_common(low: LoweredSchedule, mesh, Rs, plan, out_dtype,
             bucket_samples=low.bucket_samples))
     work, counts, static = make_worklist(plan, nc, nt, cs, tps, nb_local)
     scales = _shard_scales(dt, dac_scale, C, c_pad, mesh)
-    run = ShardRun(mesh.devices.shape, C, cs, dt)
+    windows = time_windows(low.n_samples, tps * tile, nt)
+    run = ShardRun(mesh.devices.shape, C, cs, dt,
+                   [b - a for a, b in windows], mesh.plane_owners)
     for i in range(nc):
-        for j, (a, b) in enumerate(time_windows(low.n_samples, tps * tile,
-                                                nt)):
+        for j, (a, b) in enumerate(windows):
+            if not mesh.is_local(i, j):
+                continue               # another process's shard
             dev = grid[i][j]
             out = torch.empty((cs, b - a), dtype=dt, device=dev.device)
             scale = None if scales is None else scales[i][j]

@@ -256,12 +256,17 @@ class StackSequencer:
         # padding shots render schedule 0 and are cut off
         ks_pad = np.zeros(n_local * n_dev, np.int64)
         ks_pad[:n_shots] = ks
-        run = ShardRun((n_dev, 1), n_dev, 1, normalize_out_dtype(out_dtype))
-        for d, device in enumerate(mesh.devices.flat):
-            run.add(d, 0, *self._launch(
-                ks_pad[d * n_local:(d + 1) * n_local], out_dtype, dac_scale,
-                device))
-        run.n_shots = n_shots
+        run = ShardRun((n_dev, 1), n_dev, 1, normalize_out_dtype(out_dtype),
+                       [self.n_samples],
+                       None if mesh.plane_owners is None
+                       else mesh.owners.reshape(n_dev, 1))
+        for d, (device, owner) in enumerate(zip(mesh.devices.flat,
+                                                mesh.owners.flat)):
+            if owner == mesh.rank:           # another process's: its own
+                run.add(d, 0, *self._launch(
+                    ks_pad[d * n_local:(d + 1) * n_local], out_dtype,
+                    dac_scale, device))
+        run.n_shots, run.n_local = n_shots, n_local
         return run
 
     def play_packed_sharded(self, ks, mesh, out_dtype=None,
@@ -274,16 +279,20 @@ class StackSequencer:
         holds the whole waveform memory, the right trade for a shot
         fan-out, where the table is small and the shot batch scales), and
         the shot vector splits over the mesh's devices in mesh order: each
-        plays its contiguous slice in one K6 launch.  ``ks`` pads to a
+        plays its contiguous slice in one K6 launch (on a mesh that spans
+        processes, each process its own devices' slices).  ``ks`` pads to a
         multiple of the device count; the padding shots render schedule 0
         and are cut off."""
         from ..parallel.mesh import ShardedPlane
         run = self.packed_shards(ks, mesh, out_dtype, dac_scale).run()
-        n_local = run.blocks[0][0].shape[0]
-        blocks = [[b[:max(0, min(n_local, run.n_shots - d * n_local))]]
-                  for d, (b,) in enumerate(run.blocks)]
+        keep = [max(0, min(run.n_local, run.n_shots - d * run.n_local))
+                for d in range(len(run.blocks))]
+        blocks = [[None if b is None else b[:k]]
+                  for (b,), k in zip(run.blocks, keep)]
+        shapes = [[(k, self.n_channels, self.n_samples)] for k in keep]
         return ShardedPlane(blocks, (run.n_shots, self.n_channels,
-                                     self.n_samples), run.dtype)
+                                     self.n_samples), run.dtype, run.owners,
+                            shapes)
 
 
 def stack_shards(channels, start: float, stop: float, sample_rate: float,
@@ -299,17 +308,31 @@ def stack_shards(channels, start: float, stop: float, sample_rate: float,
             f"{C} channels do not split over {nc} channel shards")
     cs = C // nc
     # bucket_samples=None: the stack tables are chunk-indexed directly,
-    # so descriptor time-bucketing would only forbid the path
-    seqs = [StackSequencer(
-        [lower_schedule(list(channels[i * cs:(i + 1) * cs]), start, stop,
-                        sample_rate, bucket_samples=None)],
-        device=mesh.device(i, 0), n_super_multiple=nt) for i in range(nc)]
-    n = seqs[0].n_samples
-    groups = seqs[0].n_super // nt             # thread-block groups a shard
+    # so descriptor time-bucketing would only forbid the path.  A channel
+    # shard's table lives on its first local shard's device; a process
+    # builds none for a row it holds no shard of
+    seqs = []
+    for i in range(nc):
+        js = [j for j in range(nt) if mesh.is_local(i, j)]
+        seqs.append(StackSequencer(
+            [lower_schedule(list(channels[i * cs:(i + 1) * cs]), start,
+                            stop, sample_rate, bucket_samples=None)],
+            device=mesh.device(i, js[0]), n_super_multiple=nt)
+            if js else None)
+    built = [s for s in seqs if s is not None]
+    if not built:
+        raise ValueError("this process owns no shard of the mesh")
+    n = built[0].n_samples
+    groups = built[0].n_super // nt            # thread-block groups a shard
     span = groups * CTA_CHUNKS * CHUNK_ROWS * 128
-    run = ShardRun((nc, nt), C, cs, normalize_out_dtype(out_dtype))
+    run = ShardRun((nc, nt), C, cs, normalize_out_dtype(out_dtype),
+                   [b - a for a, b in time_windows(n, span, nt)],
+                   mesh.plane_owners)
+    run.seqs = seqs
     for i, seq in enumerate(seqs):
         for j, (a, b) in enumerate(time_windows(n, span, nt)):
+            if not mesh.is_local(i, j):
+                continue
             chunk0 = j * groups * CTA_CHUNKS
             n_chunks = min(groups * CTA_CHUNKS, seq.tables.n_chunks - chunk0)
             if b == a:                          # wholly past the end
@@ -319,7 +342,6 @@ def stack_shards(channels, start: float, stop: float, sample_rate: float,
             out, launch = seq._launch([0], out_dtype, dac_scale,
                                       mesh.device(i, j), chunk0, n_chunks)
             run.add(i, j, out[0], launch)
-    run.seqs = seqs
     return run
 
 

@@ -6,14 +6,20 @@ evaluation is pointwise in t, so sharding needs no halos: the 'channel' axis
 splits the descriptor rows, and the 'time' axis splits the output, with
 each shard's global sample offset handed to its kernel.
 
-The mesh is single-process, as the JAX mesh is single-controller: one
-process drives every shard, and a :class:`Mesh` is a grid of torch devices
-that may name one device more than once.  So a (4, 2) mesh runs on one
-GPU, each shard's kernel launched on it in turn, and on a host with several
-GPUs the same code places the shards on ``cuda:0..n-1``; the data moves
-between them as copies outside any kernel.  Where JAX returns one global
-array sharded ``P('channel', 'time')``, the port returns a
-:class:`ShardedPlane`: the grid of local blocks, each on its shard's device,
+A :class:`Mesh` is a grid of torch devices that may name one device more
+than once, so a (4, 2) mesh runs on one GPU, each shard's kernel launched
+on it in turn, and on a host with several GPUs the same code places the
+shards on ``cuda:0..n-1``.  In one process it is single-controller, as the
+JAX mesh is: one process drives every shard.  After
+:func:`.distributed.init_distributed` a mesh may span processes, as a JAX
+mesh does under ``jax.distributed``: :func:`channel_mesh` takes each
+process's own devices and lays out every rank's in rank order (JAX's global
+device list), and each shard knows the rank that owns it
+(:attr:`Mesh.owners`).  Every process lowers the whole schedule and shards
+it alike (the lowering is deterministic), and launches only its own shards'
+kernels.  Where JAX returns one global array sharded ``P('channel',
+'time')``, the port returns a :class:`ShardedPlane`: the grid of local
+blocks, each on its shard's device (None for another process's shard),
 which the sharded pipeline (:mod:`.pipeline`) takes without a gather.
 
 Not carried over: the opcode remap of the TPU kernel's branch table
@@ -49,18 +55,26 @@ def canonical_device(device) -> torch.device:
 
 
 class Mesh:
-    """A ('channel', 'time') grid of torch devices, in one process.
+    """A ('channel', 'time') grid of torch devices.
 
     ``devices`` is an (nc, nt) object array of ``torch.device``; a device
-    may appear more than once.  ``shape`` maps each axis name to its size,
-    as a JAX ``Mesh.shape`` does."""
+    may appear more than once.  ``owners`` is the rank of the process that
+    owns each shard (default: all this process's), and ``rank`` this
+    process's; a shard of another process has no device here (None).
+    ``shape`` maps each axis name to its size, as a JAX ``Mesh.shape``
+    does."""
 
     axis_names = ('channel', 'time')
 
-    def __init__(self, devices):
+    def __init__(self, devices, owners=None, rank: int = 0):
         self.devices = np.asarray(devices, dtype=object)
         if self.devices.ndim != 2:
             raise ValueError("a mesh is an (n_channel, n_time) grid")
+        self.owners = (np.full(self.devices.shape, rank, np.int64)
+                       if owners is None else np.asarray(owners, np.int64))
+        if self.owners.shape != self.devices.shape:
+            raise ValueError("one owner a shard")
+        self.rank = int(rank)
         self.shape = dict(zip(self.axis_names, self.devices.shape))
 
     @property
@@ -68,20 +82,62 @@ class Mesh:
         return int(self.devices.size)
 
     def device(self, i, j) -> torch.device:
+        """Shard (i, j)'s device (None for another process's shard)."""
         return self.devices[i, j]
 
+    def is_local(self, i, j) -> bool:
+        """Whether this process owns shard (i, j)."""
+        return bool(self.owners[i, j] == self.rank)
+
+    @staticmethod
+    def spanning(owners):
+        """``owners`` (shards' ranks) as an array where they name more than
+        one process, else None: the one test of whether shards span
+        processes, and so whether what is made of them needs collectives
+        (a plane's ``owners``, the distributed FFT's exchange)."""
+        owners = np.asarray(owners, np.int64)
+        return owners if (owners != owners.flat[0]).any() else None
+
+    @property
+    def plane_owners(self):
+        """``owners`` for the planes of a mesh that spans processes, else
+        None (a plane in one process needs no collective)."""
+        return Mesh.spanning(self.owners)
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.plane_owners is not None
+
+    @property
+    def local(self) -> list:
+        """This process's shards (i, j), in mesh order."""
+        return [(int(i), int(j)) for i, j in zip(*np.nonzero(
+            self.owners == self.rank))]
+
     def __repr__(self):
-        return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
+        devs = [str(d) if o == self.rank else f'rank{o}'
+                for d, o in zip(self.devices.flat, self.owners.flat)]
+        return f"Mesh({self.shape}, {devs})"
 
 
 def channel_mesh(n_channel: int | None = None, n_time: int = 1,
-                 devices=None) -> Mesh:
+                 devices=None, order=None) -> Mesh:
     """Build a ('channel', 'time') mesh over ``devices`` (row-major).
 
     ``devices`` defaults to every visible GPU, and raises when torch sees
     none (nothing carries on on the CPU unasked); pass ``['cpu'] * 8`` for
     the plain versions, or ``['cuda:0'] * 8`` for a (4, 2) mesh on one
-    card.  ``n_channel`` defaults to the devices over ``n_time``."""
+    card.  ``n_channel`` defaults to the devices over ``n_time``.
+
+    In a process group of several processes (:func:`.distributed.
+    init_distributed`; every rank calls this alike) ``devices`` are this
+    process's own, and the mesh's device list is every rank's, in rank
+    order, as ``jax.devices()`` lists them under ``jax.distributed``.
+    ``order`` permutes that list (the flat indices of its devices, in the
+    mesh's row-major order), as JAX's ``devices=`` takes any order of the
+    global devices: on 2 processes of 4 devices each, ``order=[0, 4, 1, 5,
+    2, 6, 3, 7]`` makes a (4, 2) mesh whose time shard r is rank r's."""
+    from . import distributed
     if devices is None:
         if not torch.cuda.is_available() or not torch.cuda.device_count():
             raise RuntimeError(
@@ -89,15 +145,30 @@ def channel_mesh(n_channel: int | None = None, n_time: int = 1,
                 "none: pass devices=['cpu'] * n for the plain versions")
         devices = [f'cuda:{k}' for k in range(torch.cuda.device_count())]
     devs = [canonical_device(d) for d in devices]
+    me = distributed.rank()
+    if distributed.world_size() > 1:
+        n = torch.tensor([len(devs)], device=devs[0] if (
+            distributed.backend() == 'nccl') else 'cpu')
+        counts = [int(c) for c in distributed.all_gather(n)]
+        flat = [(r, k) for r, c in enumerate(counts) for k in range(c)]
+    else:
+        flat = [(me, k) for k in range(len(devs))]
+    if order is not None:
+        order = [int(g) for g in order]
+        if sorted(order) != list(range(len(flat))):
+            raise ValueError(f"order must permute the {len(flat)} devices")
+        flat = [flat[g] for g in order]
     if n_channel is None:
-        n_channel = len(devs) // n_time
-    if n_channel < 1 or n_time < 1 or n_channel * n_time != len(devs):
-        raise ValueError(f"{len(devs)} devices do not make a "
+        n_channel = len(flat) // n_time
+    if n_channel < 1 or n_time < 1 or n_channel * n_time != len(flat):
+        raise ValueError(f"{len(flat)} devices do not make a "
                          f"({n_channel}, {n_time}) mesh")
     grid = np.empty((n_channel, n_time), dtype=object)
-    for k, d in enumerate(devs):
-        grid[k // n_time, k % n_time] = d
-    return Mesh(grid)
+    owners = np.empty((n_channel, n_time), np.int64)
+    for k, (r, d) in enumerate(flat):
+        grid[k // n_time, k % n_time] = devs[d] if r == me else None
+        owners[k // n_time, k % n_time] = r
+    return Mesh(grid, owners, me)
 
 
 def _pad_channels(arr: np.ndarray, c_pad: int) -> np.ndarray:
@@ -120,37 +191,84 @@ class ShardedPlane:
     """A (C, N) result held shard by shard: ``blocks[i][j]`` is the block
     of channel shard i and time shard j, on its shard's device, cut to the
     plane's extent (silent padding channels and samples past the end are
-    not in it; a shard wholly past the end holds an empty block).
-    ``gather`` assembles the plane on one device.  A (n_shots, C, N) stack
-    of shots split over a mesh's devices is held the same way, as an
-    (n_devices, 1) grid of blocks along the shot axis."""
+    not in it; a shard wholly past the end holds an empty block).  A
+    (n_shots, C, N) stack of shots split over a mesh's devices is held the
+    same way, as an (n_devices, 1) grid of blocks along the shot axis.
+
+    On a mesh that spans processes, ``owners[i][j]`` is the rank that holds
+    block (i, j) (None in one process) and ``block_shapes[i][j]`` its
+    shape, known to every rank; another process's block is None here.
+    ``gather`` and ``mean`` are then collectives: every rank calls them."""
     blocks: list
     shape: tuple
     dtype: torch.dtype
+    owners: np.ndarray | None = None
+    block_shapes: list | None = None
 
-    def gather(self, device=None) -> torch.Tensor:
-        """The whole result on ``device`` (default: the first block's)."""
-        device = self.blocks[0][0].device if device is None else device
-        return torch.cat([torch.cat([b.to(device) for b in row], -1)
-                          for row in self.blocks], 0)
+    def local_blocks(self) -> list:
+        """This process's blocks, in mesh order."""
+        return [b for row in self.blocks for b in row if b is not None]
+
+    def gather(self, device=None, dst: int = 0) -> torch.Tensor | None:
+        """The whole result on ``device`` (default: the first local
+        block's).  Across processes it is assembled on rank ``dst``, which
+        receives the other ranks' blocks, and every other rank gets None;
+        only tests and checks call it, never the production step."""
+        if self.owners is None:
+            device = self.blocks[0][0].device if device is None else device
+            return torch.cat([torch.cat([b.to(device) for b in row], -1)
+                              for row in self.blocks], 0)
+        from . import distributed
+        owners = np.asarray(self.owners)
+        items = [(int(owners[i, j]), b, self.block_shapes[i][j], self.dtype)
+                 for i, row in enumerate(self.blocks)
+                 for j, b in enumerate(row)]
+        got = distributed.gather_to(items, dst, device)
+        if got is None:
+            return None
+        nt = len(self.blocks[0])
+        return torch.cat([torch.cat(got[i * nt:(i + 1) * nt], -1)
+                          for i in range(len(self.blocks))], 0)
+
+    def mean(self) -> float:
+        """The mean of every element of the result (float64 sums): a sum
+        over every process's blocks where the plane spans processes, the
+        cross-process collective of JAX's ``jnp.mean`` of a global
+        array."""
+        from . import distributed
+        local = self.local_blocks()
+        device = local[0].device if local else torch.device('cpu')
+        total = torch.zeros((), dtype=torch.float64, device=device)
+        for b in local:
+            total = total + b.to(device).double().sum()
+        if self.owners is not None:
+            total = distributed.all_reduce_sum(total)
+        return float(total) / float(np.prod(self.shape))
 
     def map(self, fn) -> 'ShardedPlane':
-        """Apply ``fn`` to every block (a view or a new tensor on the same
-        device) -> a plane of the results."""
-        blocks = [[fn(b) for b in row] for row in self.blocks]
-        return ShardedPlane(blocks, self.shape, blocks[0][0].dtype)
+        """Apply ``fn`` to every local block (a view or a new tensor of the
+        same shape on the same device) -> a plane of the results."""
+        blocks = [[None if b is None else fn(b) for b in row]
+                  for row in self.blocks]
+        dtype = fn(torch.empty(0, dtype=self.dtype)).dtype
+        return ShardedPlane(blocks, self.shape, dtype, self.owners,
+                            self.block_shapes)
 
 
 class ShardRun:
     """The kernel launches of one sharded call, into local blocks allocated
-    up front: ``run()`` launches every shard in mesh order (again, if
+    up front: ``run()`` launches every local shard in mesh order (again, if
     called again: the time of the launches alone), ``plane()`` is the
     result.  ``grid`` is the (rows, columns) of blocks; each block is (the
     shard's ``cs`` channels incl. padding, its samples up to the plane's
-    end)."""
+    end), column j ``widths[j]`` samples wide; ``owners`` the rank of each
+    shard (None: all this process's).  Another process's shard is never
+    added and stays None."""
 
-    def __init__(self, grid, n_channels: int, cs: int, dtype):
+    def __init__(self, grid, n_channels: int, cs: int, dtype, widths,
+                 owners=None):
         self.n_channels, self.cs, self.dtype = n_channels, cs, dtype
+        self.widths, self.owners = list(widths), owners
         self.blocks = [[None] * grid[1] for _ in range(grid[0])]
         self.calls = []
 
@@ -167,9 +285,11 @@ class ShardRun:
     def plane(self) -> ShardedPlane:
         keep = [max(0, min(self.cs, self.n_channels - i * self.cs))
                 for i in range(len(self.blocks))]
-        blocks = [[b[:k] for b in row] for row, k in zip(self.blocks, keep)]
-        n = sum(b.shape[1] for b in blocks[0])
-        return ShardedPlane(blocks, (self.n_channels, n), self.dtype)
+        blocks = [[None if b is None else b[:k] for b in row]
+                  for row, k in zip(self.blocks, keep)]
+        shapes = [[(k, w) for w in self.widths] for k in keep]
+        return ShardedPlane(blocks, (self.n_channels, sum(self.widths)),
+                            self.dtype, self.owners, shapes)
 
 
 def time_windows(n_samples: int, span: int, nt: int):
@@ -193,7 +313,8 @@ def shard_schedule(low: LoweredSchedule, mesh: Mesh,
     schedule's bucket ``j * nb_pad / nt`` (K1's ``bucket0``).  Each shard
     keeps the schedule's global ``n_samples``: the kernels take the global
     time of every sample.  Shards on one device with the same slice share
-    their tensors."""
+    their tensors.  Only this process's shards are uploaded; another
+    process's stay None."""
     C, NB, S, T, F = low.shape
     nc, nt = mesh.devices.shape
     c_pad = -(-C // nc) * nc
@@ -213,6 +334,8 @@ def shard_schedule(low: LoweredSchedule, mesh: Mesh,
     for i in range(nc):
         rows = slice(i * cs, (i + 1) * cs)
         for j in range(nt):
+            if not mesh.is_local(i, j):
+                continue
             b0 = j * nbl if sliced else 0
             key = (i, b0, str(mesh.device(i, j)))
             if key not in made:
@@ -226,8 +349,8 @@ def shard_schedule(low: LoweredSchedule, mesh: Mesh,
 
 
 def _shard_scales(dt, dac_scale, C, c_pad, mesh):
-    """Each channel shard's slice of the (C,) int16 scale, on each shard's
-    device -> a grid, or None for a float output."""
+    """Each channel shard's slice of the (C,) int16 scale, on each local
+    shard's device -> a grid, or None for a float output."""
     scale = dac_scale_tensor(dt, dac_scale, C, 'cpu')
     if scale is None:
         return None
@@ -235,6 +358,7 @@ def _shard_scales(dt, dac_scale, C, c_pad, mesh):
     nc, nt = mesh.devices.shape
     cs = c_pad // nc
     return [[scale[i * cs:(i + 1) * cs].to(mesh.device(i, j))
+             if mesh.is_local(i, j) else None
              for j in range(nt)] for i in range(nc)]
 
 
@@ -269,9 +393,13 @@ def dense_shards(low: LoweredSchedule, mesh: Mesh,
         bucket0 = [0] * nt
     scales = _shard_scales(dt, dac_scale, C, c_pad, mesh)
     cs = c_pad // nc
-    run = ShardRun(mesh.devices.shape, C, cs, dt)
+    windows = time_windows(n, rows_local * 128, nt)
+    run = ShardRun(mesh.devices.shape, C, cs, dt,
+                   [b - a for a, b in windows], mesh.plane_owners)
     for i in range(nc):
-        for j, (a, b) in enumerate(time_windows(n, rows_local * 128, nt)):
+        for j, (a, b) in enumerate(windows):
+            if not mesh.is_local(i, j):
+                continue
             dev = grid[i][j]
             out = torch.empty((cs, b - a), dtype=dt, device=dev.device)
             scale = None if scales is None else scales[i][j]
@@ -299,7 +427,8 @@ def synthesize_sharded(low: LoweredSchedule, mesh: Mesh,
     ``dac_scale`` as on one device (int16 codes with a scalar or
     per-channel scale, bf16 / f16); a ``part='complex'`` lowering gives
     complex64.  Each shard's block equals the same samples of the
-    single-device kernel's output bit for bit."""
+    single-device kernel's output bit for bit.  On a mesh that spans
+    processes each process launches its own shards only."""
     return dense_shards(low, mesh, rows_per_tile, out_dtype,
                         dac_scale).run().plane()
 

@@ -57,6 +57,25 @@ def _make_postfilter(ba_filters, device):
     return apply
 
 
+def _runs(owners) -> list:
+    """A row's time shards grouped into runs of one owner, in order ->
+    [(owner, [j, ...]), ...]."""
+    runs = []
+    for j, o in enumerate(int(o) for o in owners):
+        if runs and runs[-1][0] == o:
+            runs[-1][1].append(j)
+        else:
+            runs.append((o, [j]))
+    return runs
+
+
+def _shard_runs(owners) -> list:
+    """Every time shard a run of its own: the carry that crosses processes,
+    between every two shards, in one process (the tests' way to hold it
+    there)."""
+    return [(int(o), [j]) for j, o in enumerate(owners)]
+
+
 def make_step(low, mesh, ba_filters=None, demod_freqs=None,
               rows_per_tile: int | None = None):
     """Build the sharded production step for a lowered schedule.
@@ -66,26 +85,57 @@ def make_step(low, mesh, ba_filters=None, demod_freqs=None,
     demodulation (None skips it).  Returns ``step() -> (signals, iq)``:
     ``signals`` a :class:`.mesh.ShardedPlane` (f32 from
     :func:`.mesh.synthesize_sharded`, float64 when filtered) and ``iq`` the
-    (C, n_tones) complex64 IQ points on the mesh's first device, or None.
+    (C, n_tones) complex64 IQ points on the mesh's first device (on a mesh
+    that spans processes, every rank's first local device), or None.
 
     The filter runs on each shard's block in float64 (as
-    :func:`run_sequence`'s; the JAX package filters in f32), shard (i, j)
-    starting from the final state of shard (i, j - 1), so the result is
-    scipy's recurrence over the whole row.  That carry is sequential over
-    the time shards, where XLA carries the associative scan's state across
-    them in parallel.  Each time shard demodulates its block against its
-    rows of the ``demod_matrix`` (JAX shards the matrix ``P('time',
-    None)``), and the partial sums are added on the first device."""
+    :func:`run_sequence`'s; the JAX package filters in f32), from the
+    state that the row's samples before the shard leave: scipy's recurrence
+    over the whole row, by the route that :func:`..ops.iir.lfilter` takes
+    for the whole row (JAX filters the global array), whatever the shard's
+    length.  A row's time shards fall into runs, each of one process's
+    shards in a row; within a run each shard starts from the final state
+    of the one before it.  Across runs the state is carried in parallel,
+    as XLA's associative scan carries it: (a) each run but a row's last
+    takes its end state from a zero state, its shards' final states alone
+    one after another (:func:`..ops.iir.lfilter_zf`: S1's state-only call,
+    or the doubling scan's own final state); (b) one all-gather of those
+    (C, d) boundary states; (c) each run's start state from the runs
+    before it by :func:`..ops.iir.shard_carry` (Phi(n) z + zf0), and its
+    shards filtered from it.  No process waits on another's filter.  Where
+    no row crosses processes (every mesh in one process, and JAX's layout)
+    a row is one run: no state-only call, no exchange, and the shards run
+    one after another.
+
+    Each time shard demodulates its block against its rows of the
+    ``demod_matrix`` (JAX shards the matrix ``P('time', None)``), and the
+    partial sums are added: on the first device in one process, by a sum
+    over the processes of a (C, n_tones) tensor where the mesh spans them.
+    Between processes the step sends the boundary states and the IQ points
+    and never a signal-sized tensor (``distributed.SENT``)."""
+    return _make_step(low, mesh, ba_filters, demod_freqs, rows_per_tile,
+                      _runs)
+
+
+def _make_step(low, mesh, ba_filters, demod_freqs, rows_per_tile, runs_of):
+    """:func:`make_step` with each row's runs of shards from ``runs_of``
+    (a row's owners -> [(owner, [j, ...]), ...])."""
     from ..ops.demod import demod_matrix, demodulate
-    from ..ops.iir import lfilter
+    from ..ops.iir import lfilter, lfilter_zf, shard_carry, state_maps
+    from . import distributed
     from .mesh import ShardedPlane, synthesize_sharded
-    first = mesh.device(0, 0)
+    local = mesh.local
+    if not local:
+        raise ValueError("this process owns no shard of the mesh")
+    home = mesh.device(*local[0])
+    n_row = low.n_samples          # every shard takes its whole row's route
     coeffs = _postfilter_coeffs(ba_filters)
     demod = None
     if demod_freqs is not None:
         demod = demod_matrix(demod_freqs, low.n_samples, low.sample_rate,
                              device='cpu')
     rows_on = {}                 # (first sample, device) -> demod rows
+    maps = {}                    # the carry's state maps, built once
 
     def demod_rows(a, b, device):
         key = (a, str(device))
@@ -93,38 +143,94 @@ def make_step(low, mesh, ba_filters=None, demod_freqs=None,
             rows_on[key] = demod[a:b].to(device)
         return rows_on[key]
 
+    def filtered(plane):
+        b, a, zi0 = coeffs
+        d = len(zi0)
+        nc, nt = mesh.devices.shape
+        widths = [w for _, w in plane.block_shapes[0]]
+        keep = [s[0][0] for s in plane.block_shapes]
+        runs = [runs_of(mesh.owners[i]) for i in range(nc)]
+        lengths = [[sum(widths[j] for j in js) for _, js in row]
+                   for row in runs]
+        mine = [[k for k, (o, _) in enumerate(row) if o == mesh.rank]
+                for row in runs]
+        # (a) the end state from zero of each local run but a row's last
+        run_end = {}
+        for i in range(nc):
+            for k in mine[i]:
+                if k == len(runs[i]) - 1:
+                    continue
+                js = runs[i][k][1]
+                z = torch.zeros((keep[i], d), dtype=torch.float64,
+                                device=mesh.device(i, js[0]))
+                for j in js:
+                    block = plane.blocks[i][j]
+                    if block.shape[1]:
+                        z = lfilter_zf(b, a, block.double(), n_row,
+                                       zi=z.to(block.device))
+                run_end[i, k] = z
+        # (b) one all-gather of those boundary states, one a run
+        slots = [[(i, k) for i in range(nc)
+                  for k, (o, _) in enumerate(runs[i][:-1]) if o == r]
+                 for r in range(distributed.world_size())]
+        m, cs = max(len(s) for s in slots), max(keep)
+        if m and mesh.spans_processes:
+            mine_end = torch.zeros((m, cs, d), dtype=torch.float64,
+                                   device=home)
+            for q, (i, k) in enumerate(slots[mesh.rank]):
+                mine_end[q, :keep[i]] = run_end[i, k].to(home)
+            for r, got in enumerate(distributed.all_gather(mine_end)):
+                for q, (i, k) in enumerate(slots[r]):
+                    if r != mesh.rank:
+                        run_end[i, k] = got[q, :keep[i]]
+        # (c) each local run's start state from the runs before it, and
+        # its shards filtered one after another from it
+        rows = [[None] * nt for _ in range(nc)]
+        for i in sorted({i for i, _ in local}):
+            dev = mesh.device(i, runs[i][mine[i][0]][1][0])
+            zi = torch.as_tensor(zi0).to(dev).expand(keep[i], d)
+            last = max(mine[i])
+            starts = zi[:, None]
+            if last:
+                if not maps:
+                    maps.update(state_maps(b, a, [
+                        n for row in lengths for n in row[:-1]]))
+                ends = [run_end[i, k].to(dev) for k in range(last)]
+                starts = shard_carry(
+                    b, a, torch.stack(ends + [torch.zeros_like(ends[0])], 1),
+                    lengths[i][:last] + [0], zi, maps)
+            for k in mine[i]:
+                z = starts[:, k]
+                for j in runs[i][k][1]:
+                    block = plane.blocks[i][j].double()
+                    if block.shape[1]:
+                        block, z = lfilter(b, a, block, zi=z.to(
+                            block.device), route_n=n_row)
+                    rows[i][j] = block
+        return rows
+
     def step():
         plane = synthesize_sharded(low, mesh, rows_per_tile=rows_per_tile)
         if coeffs is not None:
-            b, a, zi0 = coeffs
-            rows = []
-            for row in plane.blocks:
-                zi = torch.as_tensor(zi0).expand(
-                    row[0].shape[0], -1).contiguous()
-                out = []
-                for block in row:
-                    zi = zi.to(block.device)
-                    if block.shape[1]:
-                        block, zi = lfilter(b, a, block.double(), zi=zi)
-                    else:
-                        block = block.double()
-                    out.append(block)
-                rows.append(out)
-            plane = ShardedPlane(rows, plane.shape, torch.float64)
+            plane = ShardedPlane(filtered(plane), plane.shape, torch.float64,
+                                 plane.owners, plane.block_shapes)
         iq = None
         if demod is not None:
-            parts = []
-            for row in plane.blocks:
+            iq = torch.zeros((low.shape[0], len(demod_freqs)),
+                             dtype=torch.complex64, device=home)
+            cs = max(s[0][0] for s in plane.block_shapes)
+            for i, row in enumerate(plane.blocks):
                 acc, s0 = None, 0
-                for block in row:
-                    n = block.shape[1]
-                    if n:
+                for block, (_, n) in zip(row, plane.block_shapes[i]):
+                    if block is not None and n:
                         p = demodulate(block, demod_rows(
-                            s0, s0 + n, block.device)).to(first)
+                            s0, s0 + n, block.device)).to(home)
                         acc = p if acc is None else acc + p
                     s0 += n
-                parts.append(acc)
-            iq = torch.cat(parts, 0)
+                if acc is not None:
+                    iq[i * cs:i * cs + acc.shape[0]] = acc
+            if mesh.spans_processes:
+                iq = distributed.all_reduce_sum(iq)
         return plane, iq
 
     return step
