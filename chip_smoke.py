@@ -81,21 +81,24 @@ the host engine, with g++; a failed build ends the run) and runs:
    kernel's, the plain version's and the fill's times;
 7. the signal chain at full width (the flagship, 128 x 2,000,000, and the
    seq_station table), each stage a main path with its counts read right
-   after it: ``signal_flagship`` -- the flagship's f32 plane (K2) in f64
-   through ``lfilter`` of the station's Z-settle pair (the doubling scan),
-   ``lfilter`` of the clustered three-pole filter (the recurrence kernel
-   S1) and ``filter_zpk`` of it, a 31-tap Hann ``fft_convolve_centered``
-   and ``demodulate`` at the two readout tones, each against scipy on 4
-   seeded rows with its route and device time, then S1 (a blocked scan)
-   against its plain version over the first chunk and the plain model of
-   its arithmetic beyond, on the main path's rows and on (8, 20,000) rows,
-   and timed alone on the Z-settle pair; ``stream_flagship`` --
-   ``synthesize_stream``
-   in chunks of 512 rows (31 K1 windows a pass), f32 equal to one-shot K1
-   bit for bit, filtered against the port's whole-row ``sosfilt`` and
-   scipy, int16 codes equal to one-shot K1's; ``seq_station_chain`` --
-   ``run_sequence`` of 1000 shots with the Z-settle pair and two tones,
-   8 shots against ``Sequencer.play`` + scipy ``lfilter`` + ``getFTMatrix``;
+   after it; every real filter section runs the recurrence kernel S1 (a
+   blocked scan): ``signal_flagship`` -- the flagship's f32 plane (K2) in
+   f64 through ``lfilter`` of the station's Z-settle pair (one S1 call),
+   ``lfilter`` of the clustered three-pole filter (one) and ``filter_zpk``
+   of it (three, a real pole and zero each), each against scipy and the
+   long-double answer on 4 seeded rows with its route, device time and the
+   doubling scan's time on the same rows, a 31-tap Hann
+   ``fft_convolve_centered`` and ``demodulate`` at the two readout tones,
+   then S1 against its plain version over the first chunk and the plain
+   model of its arithmetic beyond, on the main path's rows and on (8,
+   20,000) rows; ``stream_flagship`` -- ``synthesize_stream`` in chunks of
+   512 rows (31 K1 windows a pass), f32 equal to one-shot K1 bit for bit,
+   filtered (2 S1 calls a chunk) against the port's whole-row ``sosfilt``
+   and scipy, int16 codes equal to one-shot K1's; ``seq_station_chain`` --
+   ``run_sequence`` of 1000 shots (K1 and S1 each) with the Z-settle pair
+   and two tones, 8 shots against ``Sequencer.play`` + scipy ``lfilter`` +
+   ``getFTMatrix``; ``iir_routes`` -- at each shape the main paths give a
+   filter, S1's device time beside the doubling scan's, and the route;
 8. the mesh (``run_mesh``): a (4, 2) ('channel', 'time') mesh of
    distinct cards where the host has two or more, else of ``cuda:0``
    eight times (``distinct_devices`` in every record).  First
@@ -117,8 +120,8 @@ the host engine, with g++; a failed build ends the run) and runs:
    K6's plain version, TOL_ORACLE of the oracle on 3 channels;
    ``mesh_play_packed`` (stackseq_ladder's table, 16 shots) bit-equal to
    ``play_packed``; ``mesh_step`` (``make_step`` on the flagship with the
-   Z-settle pair, the doubling scan, and the clustered filter, S1 x 8,
-   each with the two tones) against scipy on 4 seeded rows and the IQ
+   Z-settle pair and with the clustered filter, S1 x 8 each, and the two
+   tones) against scipy on 4 seeded rows and the IQ
    against scipy and ``getFTMatrix``; ``mesh_fft`` (``fft_convolve_
    sharded`` of 4 flagship rows over the 2 time shards, a centered 31-tap
    Hann kernel) against numpy's circular convolution in f64;
@@ -131,7 +134,8 @@ the host engine, with g++; a failed build ends the run) and runs:
    ``synthesize_on_mesh`` on the flagship (K2 x 4), ``synthesize_sparse_
    sharded`` (K7 x 4), each local block bit-equal to the single-device
    call; the global mean against the oracle; ``make_step`` with the
-   clustered filter carried across the processes in parallel (S1's full
+   clustered filter, the Z-settle pair and a single exponential, each
+   carried across the processes in parallel (S1's full
    call x 4 a process, and its state-only call on the 4 shards of rank 0
    where a row crosses to rank 1: the time split and an 8-shard 'time'
    mesh; that call also on every worker block of the step, bit-equal to
@@ -1497,7 +1501,7 @@ def engine_torch(fail):
     torch.profiler's trace, peak memory; against the oracle on four seeded
     channels and against the double tier's kernel (K4, K3) on the whole
     plane.  Then ``sample()`` with an SOS filter on one flagship channel
-    against scipy."""
+    against scipy, each of the filter's sections one S1 call."""
     import numpy as np
     import scipy.signal as sps
     import torch
@@ -1580,8 +1584,10 @@ def engine_torch(fail):
                              / np.abs(want).max()),
            'within_rtol_atol': bool(np.all(
                np.abs(got - want) <= atol + rtol * np.abs(want)))}
+    # each of the filter's sections one S1 call
     rec['ok'] = bool(got.dtype == np.float64 and got.shape == want.shape
-                     and rec['within_rtol_atol'])
+                     and rec['within_rtol_atol']
+                     and counts['iir_df2t'] == sos.shape[0])
     log(rec)
     if not (ok and rec['ok']):
         fail.append('engine_torch')
@@ -2445,18 +2451,19 @@ def run_probes(fail, summary):
 
 
 # The signal chain's filters (tests/test_station_e2e.py, test_ops_iir_fft.py):
-# the station's Z-settle inverse pair (d = 2 combined: the doubling scan),
-# the clustered three-pole exp-settling filter (d = 3: the recurrence kernel
-# S1 as (b, a), the parallel scan as zpk; ops/iir_cases.py's CLUSTERED), and
-# the readout tones FR - READ_LO.
+# the station's Z-settle inverse pair (d = 2 combined), the clustered
+# three-pole exp-settling filter (d = 3 as (b, a), three first-order
+# sections as zpk; ops/iir_cases.py's CLUSTERED), each real section on the
+# recurrence kernel S1 on the card, and the readout tones FR - READ_LO.
 Z_SETTLE = ([0.02, 0.005], [3e-6, 20e-6])
 TONES = [6.87836e9 - 6.99e9, 6.92248e9 - 6.99e9]
-# vs scipy on the host, of each row's peak.  The doubling scan's bound is
-# set by the JAX package's own accuracy there: its doubling lfilter of the
-# Z-settle pair (poles 1 - 2.5e-5, 1 - 1.7e-4) is 5.8e-9 off scipy on row
-# 109 of these rows (float64, on the CPU, where the port's path equals it;
-# tests/test_torch_signal.py holds both to this bound and the reference
-# above 1e-9), and the card's matrix products round in another order; the
+# vs scipy on the host, of each row's peak.  The Z-settle bound is set by
+# the doubling scan that the JAX package runs there (and the port on CPU
+# tensors): its doubling lfilter of the Z-settle pair (poles 1 - 2.5e-5,
+# 1 - 1.7e-4) is 5.8e-9 off scipy on row 109 of these rows (float64, on
+# the CPU, where the port's path equals it; tests/test_torch_signal.py
+# holds both to this bound and the reference above 1e-9); the card's S1 is
+# held to it unchanged, and to S1's contract below; the
 # direct form and zpk bounds are the JAX suite's
 # (tests/test_ops_iir_fft.py), the FFT's its rtol.
 TOL_DOUBLING = 2e-8
@@ -2572,19 +2579,66 @@ def s1_main_check(coef, zi, x, y_main):
     return rec, yp, yk
 
 
+def lfilter_doubling(b, a, x):
+    """The JAX package's doubling scan of (b, a) over the rows of x, from
+    a zero state (``ops.iir._doubling_df2t``, the route CPU tensors take
+    where it is stable): the comparison beside S1 on the card."""
+    from waveforms_tpu_torch.ops import iir
+    bb, aa, d = iir._normalised(b, a)
+    M, k = iir._state_space(bb, aa, d)
+    return iir._doubling_df2t(iir._like(M, x), iir._like(k, x),
+                              float(bb[0]), x, x.new_zeros((d,)))[0]
+
+
+def zpk_doubling(z, p, k, x):
+    """The JAX package's ``filter_zpk`` of real roots over the rows of x:
+    the gain, then each real zero as a 1-tap FIR and the real pole at its
+    index as an AR1 doubling scan (``ops.iir._ar1_doubling``)."""
+    import numpy as np
+
+    from waveforms_tpu_torch.ops import iir
+    zr = sorted(np.real(z), reverse=True)
+    pr = sorted(np.real(p), reverse=True)
+    y = x * float(np.real(k))
+    for zero, pole in zip(zr, pr):
+        y = iir._ar1_doubling(pole, y - zero * iir._delay(y))
+    return y
+
+
+def zpk_rows(z, p, k, rows, dtype):
+    """filter_zpk of real roots over numpy rows as the card runs it -- the
+    gain, then each real pole with the real zero at its index as one
+    first-order section -- by scipy's lfilter in ``dtype`` (float64: the
+    sequential recurrence S1 is held against; np.longdouble: the
+    long-double answer)."""
+    import numpy as np
+    import scipy.signal as sps
+    zr = sorted(np.real(z), reverse=True)
+    pr = sorted(np.real(p), reverse=True)
+    out = []
+    for h in rows:
+        y = h.astype(dtype) * dtype(np.real(k))
+        for zero, pole in zip(zr, pr):
+            y = sps.lfilter(np.array([1, -zero], dtype),
+                            np.array([1, -pole], dtype), y)
+        out.append(y)
+    return out
+
+
 def signal_flagship(fail, summary):
     """The flagship's f32 plane from ``synthesize`` (K2), pre-compensated
-    in f64 on all 128 rows -- lfilter of the Z-settle pair (the doubling
-    scan), lfilter of the clustered filter (S1) and filter_zpk of it --
-    then the Z-settle output through a 31-tap Hann FFT convolution and
-    demodulated against the two readout tones -> (128, 2).  Each stage is
-    a main path with its counts read right after it; each against scipy on
-    4 seeded rows, S1's also against the long-double answer.  S1 against
-    its contract on the main path's rows (s1_main_check) and on (8,
-    20,000) random rows; S1's summary entry timed on the flagship's rows,
-    its output held to the main path's over the first S1_COLS columns; S1
-    timed alone on the Z-settle pair, which lfilter sends to the doubling
-    scan, against scipy and the long-double answer."""
+    in f64 on all 128 rows -- lfilter of the Z-settle pair, lfilter of the
+    clustered filter, each one S1 call, and filter_zpk of it, three S1
+    calls of one real pole and zero each -- then the Z-settle output
+    through a 31-tap Hann FFT convolution and demodulated against the two
+    readout tones -> (128, 2).  Each stage is a main path with its counts
+    read right after it; each against scipy on 4 seeded rows, each filter
+    stage also against the long-double answer (S1's contract) and timed
+    beside the doubling scan that the JAX package runs there, called
+    directly on the same rows.  S1 against its contract on the main path's
+    rows (s1_main_check) and on (8, 20,000) random rows; S1's summary
+    entry timed on the flagship's rows, its output held to the main
+    path's over the first S1_COLS columns."""
     import numpy as np
     import scipy.signal as sps
     import torch
@@ -2619,45 +2673,70 @@ def signal_flagship(fail, summary):
     rec = {'phase': 'signal_flagship', 'shape': [C, N], 'rows': rows,
            'synthesize': {'launches': cnt, 'wall_s': wall}}
     ok = True
+
+    def ba_rows(b, a, dtype):
+        c = iir_cases.coefficients(b, a).numpy().astype(dtype)
+        d = len(c) // 2 - 1
+        return [sps.lfilter(c[:d + 1], c[d + 1:], h.astype(dtype))
+                for h in host]
+
+    # (name, main path, scipy's answer and its bound, S1 calls, the
+    # sequential recurrence and the long-double answer, the doubling scan)
     stages = (
         ('lfilter_z_settle', lambda: lfilter(b_s, a_s, x),
-         lambda h: sps.lfilter(b_s, a_s, h), TOL_DOUBLING),
+         lambda h: sps.lfilter(b_s, a_s, h), TOL_DOUBLING, 1,
+         lambda t: ba_rows(b_s, a_s, t),
+         lambda: lfilter_doubling(b_s, a_s, x)),
         ('lfilter_clustered', lambda: lfilter(b_c, a_c, x),
-         lambda h: sps.lfilter(b_c, a_c, h), TOL_DIRECT_FORM),
+         lambda h: sps.lfilter(b_c, a_c, h), TOL_DIRECT_FORM, 1,
+         lambda t: ba_rows(b_c, a_c, t),
+         lambda: lfilter_doubling(b_c, a_c, x)),
         ('filter_zpk_clustered', lambda: filter_zpk(z_c, p_c, k_c, x),
-         lambda h: sps.sosfilt(sps.zpk2sos(z_c, p_c, k_c), h), TOL_ZPK))
+         lambda h: sps.sosfilt(sps.zpk2sos(z_c, p_c, k_c), h), TOL_ZPK, 3,
+         lambda t: zpk_rows(z_c, p_c, k_c, host, t),
+         lambda: zpk_doubling(z_c, p_c, k_c, x)))
     settled = None
-    for name, run, ref, tol in stages:
+    for name, run, ref, tol, calls, direct, doubling in stages:
         torch.cuda.empty_cache()
-        out, wall, cnt = main_path(f'signal_flagship {name}', run, fail, {})
+        out, wall, cnt = main_path(f'signal_flagship {name}', run, fail,
+                                   {'iir_df2t': calls})
         route = 'S1' if cnt.get('iir_df2t') else 'doubling'
-        want = 'S1' if name == 'lfilter_clustered' else 'doubling'
-        err = rows_err(out[rows].cpu().numpy(), [ref(h) for h in host])
+        want = [ref(h) for h in host]
+        got = out[rows].cpu().numpy()
+        truth = direct(np.longdouble)
+        seq = direct(np.float64)
+        err = rows_err(got, want)
         stage = {'route': route, 'launches': cnt, 'wall_s': wall,
                  'vs_scipy': err, 'tol': tol, 'finite': bool(
                      torch.isfinite(out).all()),
+                 'vs_long_double': rows_err(got, truth),
+                 'scipy_vs_long_double': rows_err(want, truth),
+                 'sequential_vs_long_double': rows_err(seq, truth),
                  'ms': cuda_ms(run, reps=3)}
-        stage['ok'] = bool(route == want and err <= tol and stage['finite']
-                           and cnt.get('iir_df2t', 0) == (route == 'S1'))
+        # the doubling scan beside it (on the clustered (b, a) filter it
+        # is unstable: timed, its output unused)
+        torch.cuda.empty_cache()
+        stage['doubling_ms'] = cuda_ms(doubling, reps=3)
+        if name != 'lfilter_clustered':
+            stage['doubling_vs_scipy'] = rows_err(
+                doubling()[rows].cpu().numpy(), want)
+        stage['ok'] = bool(
+            route == 'S1' and err <= tol and stage['finite']
+            and cnt.get('iir_df2t') == calls
+            and stage['vs_long_double'] <= max(
+                TOL_S1_LD * stage['sequential_vs_long_double'],
+                TOL_S1_FLOOR))
         rec[name] = stage
         ok &= stage['ok']
         if name == 'lfilter_clustered':
             coef_c, zi_c = s1_rows(b_c, a_c, x)
-            truth = long_double(coef_c, host)
-            stage['vs_long_double'] = rows_err(out[rows].cpu().numpy(),
-                                               truth)
-            stage['scipy_vs_long_double'] = rows_err(
-                [ref(h) for h in host], truth)
-            stage['ok'] &= stage['vs_long_double'] <= max(
-                TOL_S1_LD * stage['scipy_vs_long_double'], TOL_S1_FLOOR)
-            ok &= stage['ok']
             s1_main, yp_main, yk_main = s1_main_check(coef_c, zi_c, x, out)
             rec['s1_main_path_contract'] = s1_main
             ok &= s1_main['ok']
         if name == 'lfilter_z_settle':
             settled = out
         del out
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     ker = torch.tensor(hann, device='cuda')
     conv, wall, cnt = main_path('signal_flagship fft_convolve_centered',
                                 lambda: fft_convolve_centered(settled, ker),
@@ -2694,13 +2773,14 @@ def signal_flagship(fail, summary):
     ok &= stage['ok']
     del conv, iq
     torch.cuda.empty_cache()
-    # predistort_device as a user calls it (the same doubling scan, from
-    # lfiltic's steady state, then the kernel), and its doubling scan alone
+    # predistort_device as a user calls it (the Z-settle lfilter on S1,
+    # from lfiltic's steady state, then the kernel)
     settle = [exp_decay_filter(a, t, FS, inv=True) for a, t in zip(*Z_SETTLE)]
     rec['predistort_device'] = {
         'ms': cuda_ms(lambda: predistort_device(x, settle, ker=hann),
                       reps=3),
-        'doubling_scan_ms': rec['lfilter_z_settle']['ms']}
+        'lfilter_ms': rec['lfilter_z_settle']['ms'],
+        'fft_ms': rec['fft_convolve_centered']['ms']}
     torch.cuda.empty_cache()
 
     # S1 against its contract on random rows, three filters
@@ -2743,25 +2823,6 @@ def signal_flagship(fail, summary):
             r'iir_\w+_kernel')}
     ok &= (rec['s1_flagship']['first_chunk_equal']
            and rec['s1_flagship']['model_equal'])
-    # S1 alone on the Z-settle pair (lfilter routes it to the doubling scan)
-    coef_s, zi_s = s1_rows(b_s, a_s, x)
-    zf_s = torch.empty_like(zi_s)
-    ms_s = cuda_ms(lambda: kernels.iir_df2t(x, coef_s, zi_s, y, zf_s),
-                   reps=3)
-    got = y[rows].cpu().numpy()
-    want = [sps.lfilter(b_s, a_s, h) for h in host]
-    truth = long_double(coef_s, host)
-    zs = {'ms': ms_s, 'doubling_ms': rec['lfilter_z_settle']['ms'],
-          'vs_scipy': rows_err(got, want),
-          'vs_long_double': rows_err(got, truth),
-          'scipy_vs_long_double': rows_err(want, truth),
-          'finite': bool(torch.isfinite(y).all())}
-    zs['ok'] = bool(zs['finite'] and zs['vs_scipy'] <= TOL_DIRECT_FORM
-                    and zs['vs_long_double'] <= max(
-                        TOL_S1_LD * zs['scipy_vs_long_double'],
-                        TOL_S1_FLOOR))
-    rec['s1_z_settle'] = zs
-    ok &= zs['ok']
     d = zi_c.shape[1]
     K = -(-N // L)
     traced = rec['s1_flagship']['cuda_kernels']
@@ -2794,21 +2855,19 @@ def signal_flagship(fail, summary):
     del x, y, xs, yp_main, yk_main
     torch.cuda.empty_cache()
     brief = {k: {kk: vv for kk, vv in v.items()
-                 if kk in ('route', 'vs_scipy', 'vs_host', 'ms', 'ok')}
+                 if kk in ('route', 'vs_scipy', 'vs_host', 'ms',
+                           'doubling_ms', 'vs_long_double',
+                           'sequential_vs_long_double', 'ok')}
              for k, v in rec.items() if isinstance(v, dict)
-             and k not in ('synthesize', 's1_vs_plain', 'predistort_device',
-                           's1_main_path_contract', 's1_flagship',
-                           's1_z_settle')}
-    brief['lfilter_clustered']['vs_long_double'] = rec[
-        'lfilter_clustered'].get('vs_long_double')
+             and k not in ('synthesize', 's1_vs_plain',
+                           's1_main_path_contract', 's1_flagship')}
     log(rec, dict(brief, phase='signal_flagship', ok=rec['ok'],
                   s1_vs_plain={k: {kk: v[kk] for kk in (
                       'ok', 'vs_long_double', 'plain_vs_long_double')}
                       for k, v in s1.items()},
                   s1_main_path_contract={
                       'ok': s1_main['ok'], 'plain_ms': s1_main['plain_ms']},
-                  s1_flagship=rec['s1_flagship'], s1_z_settle=zs,
-                  predistort_device_ms=rec['predistort_device']['ms']))
+                  s1_flagship=rec['s1_flagship']))
     if not ok:
         fail.append('signal_flagship')
 
@@ -2817,7 +2876,8 @@ def stream_flagship(fail, summary):
     """``synthesize_stream`` of the flagship, chunk_rows=512 (65,536 samples
     a chunk, 31 chunks, the last trimmed), K1 from row0 = k * 65,536: f32
     equal to one-shot K1 bit for bit; with ``filters=(tf2sos(butter(3,
-    0.02)), 0)`` against one-shot K1 plus the port's sosfilt over the whole
+    0.02)), 0)`` (each of the 2 sections one S1 call a chunk, its state
+    carried) against one-shot K1 plus the port's sosfilt over the whole
     row and against scipy on 4 seeded rows; int16 codes equal to one-shot
     K1's.  Each pass a main path with 31 K1 launches."""
     import numpy as np
@@ -2862,7 +2922,8 @@ def stream_flagship(fail, summary):
     del got
     got, wall, cnt = main_path('stream_flagship filtered',
                                lambda: stream(filters=(sos, 0.0)), fail,
-                               {'synth_dense': n_chunks})
+                               {'synth_dense': n_chunks,
+                                'iir_df2t': sos.shape[0] * n_chunks})
     whole = sosfilt(sos, one.double())
     host = [sps.sosfilt(sos, one[r].double().cpu().numpy()) for r in rows]
     filt = {'launches': cnt, 'wall_s': wall,
@@ -2899,7 +2960,9 @@ def seq_station_chain(fail, summary):
     200,000 samples), 1000 shots in the replay's seeded order, with the
     Z-settle pre-compensation and the two readout tones -> (1000, 2, 2);
     8 shots' IQ points against ``Sequencer.play`` plus scipy's lfilter
-    (from lfiltic's zero history) plus ``getFTMatrix`` on the host."""
+    (from lfiltic's zero history) plus ``getFTMatrix`` on the host.  Each
+    shot one K1 launch and one S1 call; its time a shot on the host's
+    clock (the main path's wall) and on the card's (CUDA events)."""
     import numpy as np
     import scipy.signal as sps
     import torch
@@ -2924,7 +2987,7 @@ def seq_station_chain(fail, summary):
         return run_sequence(seq, ks, ba_filters=ba, demod_freqs=TONES)
 
     iq, wall, cnt = main_path('seq_station_chain', run, fail,
-                              {'synth_dense': len(ks)})
+                              {'synth_dense': len(ks), 'iir_df2t': len(ks)})
     b, a = combine_filters(ba)
     zi = sps.lfiltic(b, a, np.zeros(len(a) - 1), np.zeros(len(b) - 1))
     ft = getFTMatrix(TONES, seq.n_samples, sampleRate=FS)
@@ -2949,6 +3012,74 @@ def seq_station_chain(fail, summary):
     log(rec)
     if not rec['ok']:
         fail.append('seq_station_chain')
+
+
+# The shapes the main paths give a filter: (rows, samples, the filter's
+# order) -> where.  d = 2 is the Z-settle pair, d = 1 a real pole and zero
+# of the clustered filter's zpk form.
+IIR_SHAPES = (((128, 2_000_000, 2), 'signal_flagship lfilter, mesh_step'),
+              ((128, 2_000_000, 1), 'signal_flagship filter_zpk'),
+              ((128, 65_536, 2), 'stream_flagship, a chunk'),
+              ((2, 200_000, 2), 'seq_station_chain, a shot'),
+              ((32, 1_000_000, 2), 'run_multiproc, a JAX-layout shard'),
+              ((128, 250_000, 2), 'run_multiproc, a time-split shard'),
+              ((8, 4_096, 2), 'the small mesh and process steps, a shard'))
+
+
+def iir_routes(fail):
+    """The evidence for the card's IIR route: at each shape of IIR_SHAPES,
+    f64 rows drawn from a seed, the device time of the doubling scan the
+    JAX package runs there (``_doubling_df2t`` for d = 2, the FIR and
+    ``_ar1_doubling`` for d = 1) and of one S1 call on the same rows, S1's
+    output against the doubling scan's, and the route ``ops.iir._route``
+    takes.  The run fails where the route is not S1."""
+    import numpy as np
+    import torch
+
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.distortion import (combine_filters,
+                                                exp_decay_filter)
+    from waveforms_tpu_torch.ops import iir, iir_cases
+    from waveforms_tpu_torch.schedules import FS
+
+    b2, a2 = combine_filters([exp_decay_filter(a, t, FS, inv=True)
+                              for a, t in zip(*Z_SETTLE)])
+    z, p, _ = exp_decay_filter(*iir_cases.CLUSTERED, FS, output='zpk')
+    zero, pole = float(np.real(z).max()), float(np.real(p).max())
+    rng = np.random.default_rng(14)
+    rec = {'phase': 'iir_routes', 'dtype': 'float64', 'cells': []}
+    ok = True
+    for (R, n, d), where in IIR_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((R, n))).cuda()
+        if d == 2:
+            b, a = b2, a2
+
+            def doubling(x=x):
+                return lfilter_doubling(b2, a2, x)
+        else:
+            b, a = [1.0, -zero], [1.0, -pole]
+
+            def doubling(x=x):
+                return iir._ar1_doubling(pole, x - zero * iir._delay(x))
+        coef, zi = s1_rows(b, a, x)
+        y, zf = torch.empty_like(x), torch.empty_like(zi)
+        reps = 3 if R * n > 10**8 else 11
+        cell = {'shape': [R, n], 'd': d, 'where': where,
+                'route': iir._route(x.device, iir._normalised(b, a)[1], n),
+                's1_ms': cuda_ms(lambda: kernels.iir_df2t(x, coef, zi, y,
+                                                          zf), reps=reps)}
+        torch.cuda.empty_cache()
+        cell['doubling_ms'] = cuda_ms(doubling, reps=reps)
+        cell['s1_vs_doubling'] = rel_err_t(y, doubling())
+        cell['doubling_over_s1'] = cell['doubling_ms'] / cell['s1_ms']
+        ok &= cell['route'] == 'S1'
+        rec['cells'].append(cell)
+        del x, y
+        torch.cuda.empty_cache()
+    rec['ok'] = bool(ok)
+    log(rec)
+    if not ok:
+        fail.append('iir_routes')
 
 
 # The mesh phase: a (4, 2) ('channel', 'time') mesh, on distinct cards when
@@ -3348,24 +3479,22 @@ def run_mesh(fail):
     host = raw[rows].double().cpu().numpy()
     del raw
     ft = getFTMatrix(TONES, N, sampleRate=FS)
-    for name, ba, route, tol in (
+    # each on S1, one call a shard
+    for name, ba, tol in (
             ('z_settle', [exp_decay_filter(a, t, FS, inv=True)
-                          for a, t in zip(*Z_SETTLE)], 'doubling',
-             TOL_DOUBLING),
+                          for a, t in zip(*Z_SETTLE)], TOL_DOUBLING),
             ('clustered', [exp_decay_filter(*iir_cases.CLUSTERED, FS,
-                                            output='ba')], 'S1',
-             TOL_DIRECT_FORM)):
+                                            output='ba')], TOL_DIRECT_FORM)):
         step = make_step(low, mesh, ba_filters=ba, demod_freqs=TONES)
         (sig, iq), rec = mesh_cell(
-            'mesh_step', step, fail,
-            {'synth_dense': 8, **({'iir_df2t': 8} if route == 'S1' else {})},
-            absent=() if route == 'S1' else ('iir_df2t',), windowed=4)
+            'mesh_step', step, fail, {'synth_dense': 8, 'iir_df2t': 8},
+            windowed=4)
         got = sig.gather()[rows].cpu().numpy()
         del sig
         b, a = combine_filters(ba)
         want = [sps.lfilter(b, a, h) for h in host]
         ref_iq = np.stack(want) @ ft
-        rec.update(filter=name, route=route, rows=rows,
+        rec.update(filter=name, route='S1', rows=rows,
                    vs_scipy=rows_err(got, want), tol=tol,
                    iq_shape=list(iq.shape),
                    iq_vs_host=float(np.abs(iq[rows].cpu().numpy() - ref_iq)
@@ -3426,16 +3555,19 @@ MP_MUST = {'dense': {'synth_dense': 8}, 'panel': {'synth_panel': 8},
            'sparse': {'synth_sparse': 8},
            'step_clustered': {'synth_dense': 8, 'iir_df2t': 8},
            'step_clustered_t8': {'synth_dense': 8, 'iir_df2t': 8},
-           'step_z_settle': {'synth_dense': 8, 'iir_df2t': 0},
+           'step_z_settle': {'synth_dense': 8, 'iir_df2t': 8},
+           'step_exp_decay': {'synth_dense': 8, 'iir_df2t': 8},
            'stack': {'synth_stack_seq': 8},
            'play_packed': {'synth_stack_seq': 8}}
 #: S1's state-only calls of each step cell, both processes together: one a
 #: shard of a run of one process's shards before its row's last.  None in
 #: JAX's layout (no row crosses processes); rank 0's 4 shards in the time
 #: split (time shard 0 of each row) and on the 8-shard 'time' mesh (its
-#: run of shards 0-3)
-MP_STATE = {'jax': {'step_clustered': 0, 'step_clustered_t8': 4},
-            'time': {'step_clustered': 4, 'step_clustered_t8': 4}}
+#: run of shards 0-3).  Every filter runs on S1 on the card
+MP_STATE = {'jax': {'step_clustered': 0, 'step_clustered_t8': 4,
+                    'step_z_settle': 0, 'step_exp_decay': 0},
+            'time': {'step_clustered': 4, 'step_clustered_t8': 4,
+                     'step_z_settle': 4, 'step_exp_decay': 4}}
 
 
 def run_multiproc(fail, summary):
@@ -3445,9 +3577,9 @@ def run_multiproc(fail, summary):
     the process group on gloo (the exchanged tensors staged through the
     host), in both layouts (JAX's, and the time split: rank r owns time
     shard r), at full size: the flagship, the dense stratum for K1, the
-    filters of the step (the clustered one on S1, the Z-settle pair and a
-    single exponential on the doubling scan; the clustered one again over
-    an 8-shard 'time' mesh), K6 on small tables.  The parent built the
+    filters of the step (the clustered one, the Z-settle pair and a single
+    exponential, each on S1; the clustered one again over an 8-shard
+    'time' mesh), K6 on small tables.  The parent built the
     libraries before, so the workers load them.  Each
     worker checks itself (blocks bit-equal to the single-device call and to
     the mesh in one process; the mean, the IQ points, the filter with its
@@ -3546,7 +3678,8 @@ def brief_multiproc(rec):
             if isinstance(w.get(cell), dict) and (
                     'kernel_ms' in w[cell] or 'ms' in w[cell]):
                 b[f'{cell}_ms'] = w[cell].get('kernel_ms', w[cell].get('ms'))
-        for cell in ('step_clustered', 'step_clustered_t8', 'step_z_settle'):
+        for cell in ('step_clustered', 'step_clustered_t8', 'step_z_settle',
+                     'step_exp_decay'):
             st = w.get(cell)
             if not isinstance(st, dict) or 'sent' not in st:
                 continue
@@ -3744,7 +3877,7 @@ def main():
                       check_small_narrow, check_probes, run_strata,
                       engine_native, engine_torch, run_sequences,
                       signal_flagship, stream_flagship, seq_station_chain,
-                      run_mesh, run_multiproc, run_probes):
+                      iir_routes, run_mesh, run_multiproc, run_probes):
             t0 = time.perf_counter()
             try:
                 if phase in (run_strata, run_sequences, signal_flagship,

@@ -1454,3 +1454,177 @@ def test_multiproc_smoke_on_the_card():
         cwd=repo, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout[-6000:] + res.stderr[-4000:]
     assert res.stdout.strip().splitlines()[-1] == 'MULTIPROC OK'
+
+
+def _card_route_cases():
+    """name -> (call on a (rows, n) signal, its answer in np.longdouble on
+    numpy rows or None, S1 calls, complex doubling scans)."""
+    from scipy.signal import butter, lfilter, tf2sos
+    from waveforms_tpu_torch.distortion import (combine_filters,
+                                                exp_decay_filter)
+    from waveforms_tpu_torch.ops import iir
+    from waveforms_tpu_torch.schedules import FS
+    ld = np.longdouble
+    b_s, a_s = combine_filters([exp_decay_filter(a, t, FS, inv=True)
+                                for a, t in zip([0.02, 0.005],
+                                                [3e-6, 20e-6])])
+    z_c, p_c, k_c = exp_decay_filter(*iir_cases.CLUSTERED, FS,
+                                     output='zpk')
+    sos = tf2sos(*butter(3, 0.02))
+    zi = np.random.default_rng(2).standard_normal((4, 2, 2)) * 0.1
+    mixed = ([0.999, 0.9 * np.exp(0.3j), 0.9 * np.exp(-0.3j)],
+             [0.9995, 0.95 * np.exp(0.2j), 0.95 * np.exp(-0.2j), 0.5], 0.2)
+
+    def ba_truth(b, a):
+        c = iir_cases.coefficients(b, a).numpy().astype(ld)
+        d = len(c) // 2 - 1
+        return lambda xs: [lfilter(c[:d + 1], c[d + 1:], h.astype(ld))
+                           for h in xs]
+
+    def sos_truth(xs):
+        out = []
+        for r, h in enumerate(xs):
+            y = h.astype(ld)
+            for k, s in enumerate(sos):
+                y = lfilter(s[:3].astype(ld) / ld(s[3]),
+                            s[3:].astype(ld) / ld(s[3]), y,
+                            zi=zi[r, k].astype(ld))[0]
+            out.append(y)
+        return out
+
+    def zpk_truth(xs):
+        zr, pr = sorted(np.real(z_c))[::-1], sorted(np.real(p_c))[::-1]
+        out = []
+        for h in xs:
+            y = h.astype(ld) * ld(k_c)
+            for zero, pole in zip(zr, pr):
+                y = lfilter(np.array([1, -zero], ld),
+                            np.array([1, -pole], ld), y)
+            out.append(y)
+        return out
+    return {
+        'lfilter_z_settle': (lambda x: iir.lfilter(b_s, a_s, x),
+                             ba_truth(b_s, a_s), 1, 0),
+        'lfilter_clustered': (lambda x: iir.lfilter(
+            *iir_cases.filters()['clustered'], x),
+            ba_truth(*iir_cases.filters()['clustered']), 1, 0),
+        'sosfilt_zi': (lambda x: iir.sosfilt(
+            sos, x, zi=torch.from_numpy(zi).to(x.device))[0], sos_truth,
+            2, 0),
+        'iir_apply': (lambda x: iir.iir_apply(sos, x), None, 2, 0),
+        'filter_zpk_clustered': (lambda x: iir.filter_zpk(z_c, p_c, k_c, x),
+                                 zpk_truth, 3, 0),
+        'filter_zpk_mixed': (lambda x: iir.filter_zpk(*mixed, x), None, 2,
+                             2),
+    }
+
+
+@pytest.mark.parametrize('name', ['lfilter_z_settle', 'lfilter_clustered',
+                                  'sosfilt_zi', 'iir_apply',
+                                  'filter_zpk_clustered', 'filter_zpk_mixed'])
+def test_signal_chain_runs_s1_on_the_card(card, name, monkeypatch):
+    """On CUDA tensors every real section of lfilter, sosfilt (with zi),
+    iir_apply and filter_zpk launches S1, one call a section, and never
+    the doubling scan; complex pole pairs alone take the complex doubling
+    scan (two AR1 scans a pair).  Against the same call on the CPU through
+    S1's plain version (``_route`` answering as for the card): the first
+    chunk bit-equal, and no farther from the long-double answer than twice
+    the plain version, or 1e-13 of the peak (chip_smoke.py's contract);
+    with a complex pair, within 1e-12 of the peak of the plain route."""
+    from waveforms_tpu_torch.ops import iir, reference_iir
+    call, truth, n_s1, n_complex = _card_route_cases()[name]
+    route = iir._route
+    monkeypatch.setattr(iir, '_route', lambda dev, *a, **kw: route(
+        card, *a, **kw))
+    seen = {'_doubling_df2t': 0, '_ar1_doubling': 0}
+    for fn in seen:
+        real = getattr(iir, fn)
+
+        def spy(*a, _real=real, _fn=fn, **kw):
+            seen[_fn] += 1
+            assert _fn == '_ar1_doubling' and np.iscomplexobj(a[0])
+            return _real(*a, **kw)
+        monkeypatch.setattr(iir, fn, spy)
+    x = torch.from_numpy(iir_cases.pulse_train(20_000, 3)[None]
+                         * np.linspace(0.5, 1.5, 4)[:, None])
+    plain = call(x)
+    seen.update({'_doubling_df2t': 0, '_ar1_doubling': 0})
+    kernels.reset_launch_counts()
+    got = call(x.to(card))
+    torch.cuda.synchronize()
+    assert kernels.iir_df2t.launches == n_s1
+    assert seen == {'_doubling_df2t': 0, '_ar1_doubling': n_complex}
+    assert got.dtype == torch.float64 and got.shape == x.shape
+    got = got.cpu()
+    L = reference_iir.CHUNK
+    if n_complex:
+        assert rel(got, plain) <= 1e-12
+        return
+    assert torch.equal(got[:, :L], plain[:, :L])
+    if truth is None:
+        assert rel(got, plain) <= 1e-12
+        return
+    want = truth(x.numpy())
+    dist = {}
+    for key, v in (('kernel', got), ('plain', plain)):
+        dist[key] = max(float(np.abs(r.numpy() - w).max() / np.abs(w).max())
+                        for r, w in zip(v, want))
+    assert dist['kernel'] <= max(2 * dist['plain'], 1e-13), dist
+
+
+def test_lfilter_zf_on_the_card_is_lfilters_zf(card):
+    """lfilter_zf of a CUDA tensor is S1's state-only call, bit-equal to
+    lfilter's zf on the same rows and state."""
+    from waveforms_tpu_torch.ops import iir
+    b, a = iir_cases.filters()['clustered']
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((6, 9000))).to(card)
+    zi = torch.from_numpy(rng.standard_normal((6, 3)) * 0.01).to(card)
+    kernels.reset_launch_counts()
+    zf = iir.lfilter_zf(b, a, x, route_n=2_000_000, zi=zi)
+    assert (kernels.iir_df2t.launches, kernels.iir_df2t.state_launches) == (
+        1, 1)
+    _, want = iir.lfilter(b, a, x, zi=zi, route_n=2_000_000)
+    assert torch.equal(zf, want)
+
+
+def test_lfilter_f32_on_the_card(card):
+    """An f32 signal on the card runs S1's f32 build (its chunk pass and
+    carry in f64): f32 out, within 1e-6 of the peak of scipy's f64 answer
+    on the same f32 samples."""
+    from scipy.signal import butter, lfilter
+    from waveforms_tpu_torch.ops import iir
+    b, a = butter(2, 0.3)
+    x = np.random.default_rng(6).standard_normal((3, 50_000)).astype(
+        np.float32)
+    kernels.reset_launch_counts()
+    y = iir.lfilter(b, a, torch.from_numpy(x).to(card))
+    assert y.dtype == torch.float32 and kernels.iir_df2t.launches == 1
+    assert rel(y.cpu(), lfilter(b, a, x.astype(np.float64))) <= 1e-6
+
+
+def test_iir_kernel_equals_the_model_through_underflow(card):
+    """A single exponential (pole 1 - 1/190) over rows whose pulses end
+    early: over the quiet rest of 136,000 samples the state decays into
+    the subnormal range, where the double-double products' error terms
+    underflow (Dekker's split of the operands gives other bits there).  The
+    full call and the state-only call stay bit-equal to the plain model
+    (whose TwoProd gives the fused multiply-add's error there too)."""
+    from waveforms_tpu_torch.distortion import exp_decay_filter
+    from waveforms_tpu_torch.ops import reference_iir
+    from waveforms_tpu_torch.schedules import FS
+    b, a = exp_decay_filter(0.05, 100e-9, FS, inv=True)
+    coef = iir_cases.coefficients(b, a).to(card)
+    rng = np.random.default_rng(12)
+    x = np.zeros((4, 139_000))
+    x[:, :3000] = rng.standard_normal((4, 3000))
+    x = torch.from_numpy(x).to(card)
+    zi = torch.zeros((4, 1), dtype=torch.float64, device=card)
+    y, zf, zs = torch.empty_like(x), torch.empty_like(zi), torch.empty_like(zi)
+    kernels.iir_df2t(x, coef, zi, y, zf)
+    kernels.iir_df2t(x, coef, zi, None, zs)
+    yb, zb = torch.empty_like(x).cpu(), torch.empty_like(zi).cpu()
+    reference_iir.df2t_blocked(x.cpu(), coef.cpu(), zi.cpu(), yb, zb)
+    assert 0 < float(zb.abs().max()) < 2.0 ** -1022     # subnormal
+    assert torch.equal(y.cpu(), yb)
+    assert torch.equal(zf.cpu(), zb) and torch.equal(zs.cpu(), zb)

@@ -188,3 +188,26 @@ def test_blocked_model_refuses_a_state_past_the_kernels():
             torch.zeros(1, 17, dtype=torch.float64),
             torch.empty(1, 8, dtype=torch.float64),
             torch.empty(1, 17, dtype=torch.float64))
+
+
+@pytest.mark.parametrize('scale', ['normal', 'underflowing', 'subnormal'])
+def test_two_prod_is_the_fused_multiply_adds_error(scale):
+    """The model's TwoProd error term equals fma(a, b, -a*b), the kernel's
+    ``__fma_rn``, bit for bit: the exact a b - p rounded once
+    (``fractions.Fraction``), on products of normal size, of a size where
+    a partial product of Dekker's split of a and b underflows (a filter's
+    state decaying through ~1e-300, as a single exponential's over a long
+    quiet row), and of subnormal size."""
+    from waveforms_tpu_torch.ops.reference_iir import _two_prod
+    rng = np.random.default_rng({'normal': 1, 'underflowing': 2,
+                                 'subnormal': 3}[scale])
+    lo, hi = {'normal': (-60, 10), 'underflowing': (-1000, -960),
+              'subnormal': (-1080, -1030)}[scale]
+    a = rng.uniform(-1, 1, 2000) * 2.0 ** rng.integers(-20, 0, 2000)
+    b = rng.uniform(-1, 1, 2000) * 2.0 ** rng.integers(lo, hi, 2000)
+    p, e = _two_prod(torch.tensor(a), torch.tensor(b))
+    assert torch.equal(p, torch.tensor(a * b))
+    want = [float(fractions.Fraction(x) * fractions.Fraction(y)
+                  - fractions.Fraction(float(q)))
+            for x, y, q in zip(a, b, p)]
+    assert e.tolist() == want

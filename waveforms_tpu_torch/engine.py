@@ -37,8 +37,9 @@ elsewhere as in JAX.
 
 :func:`sample` is the engine-selected analog of ``Waveform.sample()``: it
 synthesizes one waveform and applies the SOS filters attached to it, on
-the card (:func:`.ops.iir.iir_apply`) for the kernel engines and
-``'torch'``, and with scipy on the host for ``'numpy'`` and ``'native'``.
+the card (:func:`.ops.iir.iir_apply`, each section on the recurrence
+kernel S1) for the kernel engines and ``'torch'``, and with scipy on the
+host for ``'numpy'`` and ``'native'``.
 """
 
 from __future__ import annotations
@@ -340,7 +341,8 @@ def sample(wav, sample_rate=None, engine: str = 'auto', device='cuda'):
     SOS filters attached to the waveform (``wav.filters = (sos,
     initial)``) apply on ``device`` in the synthesized signal's dtype for
     the kernel engines and ``'torch'`` (:func:`.ops.iir.iir_apply`: the
-    doubling scan, or the recurrence kernel where that is unstable) and
+    recurrence kernel S1 on the card; on the CPU JAX's route, the doubling
+    scan or, where that is unstable, S1) and
     with scipy on the host for ``engine='numpy'`` and ``'native'``, which
     return an ndarray.
     """

@@ -1,24 +1,32 @@
-"""IIR filtering on the card: doubling scans, and a kernel for the rest.
+"""IIR filtering on the card: the recurrence kernel S1, and doubling scans.
 
 The port of the JAX package's ``waveforms_tpu/ops/iir.py``; the names map
 one to one, except ``predistort_jax`` -> :func:`predistort_device`.
 
-An IIR filter is a linear recurrence.  Where it is well conditioned, the
-same recurrence runs in O(log n) depth as a doubling scan over affine
-state maps, exactly as the JAX module writes it (XLA code there, plain
-torch here, in the same order of operations: concatenate, ``@``, add):
-each sample contributes ``k * x[n]`` to the direct-form-II-transposed
-state, and level ``j`` of the scan adds ``M^(2^j)`` times the state
-``2^j`` samples back.  Where the doubling scan is numerically unstable
-(clustered near-unit poles, a defective biquad), the JAX module runs the
-direct form as a ``lax.scan``; PyTorch has no scan, so the port runs the
-hand-written recurrence kernel S1 (``csrc/iir_df2t.cu``, through
-``kernels.iir_df2t``: on the card a blocked parallel-in-time scan with a
-double-double carry, equal to the sequential recurrence over each row's
-first chunk and closer to the exact answer beyond; its sequential plain
-version ``ops/reference_iir.py`` for CPU tensors).  The routing is the JAX module's host numpy, copied unchanged
-(:func:`_doubling_unstable` and the defective-section test), so every
-filter takes the route it takes in JAX.
+An IIR filter is a linear recurrence.  The JAX module runs it, where it is
+well conditioned, in O(log n) depth as a doubling scan over affine state
+maps: each sample contributes ``k * x[n]`` to the direct-form-II-transposed
+state, and level ``j`` of the scan adds ``M^(2^j)`` times the state ``2^j``
+samples back.  Where the doubling scan is numerically unstable (clustered
+near-unit poles, a defective biquad), it runs the direct form as a
+``lax.scan``.  That choice suits a TPU, where XLA fuses a level into one
+pass and a sequential scan is slow.
+
+The port decides by the signal's device (:func:`_route`):
+
+- On the card every real section of 1 to 16 states runs the hand-written
+  recurrence kernel S1 (``csrc/iir_df2t.cu``, through ``kernels.iir_df2t``:
+  a blocked parallel-in-time scan with a double-double carry, equal to the
+  sequential recurrence over each row's first chunk and closer to the
+  exact answer beyond): every ``lfilter``, every ``sosfilt`` section, and
+  each real pole of ``filter_zpk`` with the real zero beside it.  Only
+  ``filter_zpk``'s complex pole pairs keep the (complex) doubling scan,
+  since S1 is real.
+- On CPU tensors every filter takes the route it takes in JAX: the JAX
+  module's host probe, copied unchanged (:func:`_doubling_unstable` and
+  the defective-section test), between the doubling scan in plain torch
+  (the JAX module's order of operations: concatenate, ``@``, add) and S1's
+  sequential plain version (``ops/reference_iir.py``).
 
 Signals are tensors of any leading batch shape with time on the last axis
 (JAX ``vmap``s a 1-D function over rows; here the batch is written out).
@@ -37,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .reference_iir import MAX_STATE
 from .synth import resolve_device
 
 __all__ = ['sosfilt', 'lfilter', 'lfilter_zf', 'state_maps', 'shard_carry',
@@ -132,15 +141,20 @@ def _delay(y: torch.Tensor, k: int = 1) -> torch.Tensor:
 
 
 def filter_zpk(z, p, k, x, device='cuda') -> torch.Tensor:
-    """Numerically stable parallel IIR from the FACTORED (zpk) form.
+    """Numerically stable IIR from the FACTORED (zpk) form.
 
     H(z) = k * prod (1 - z_i/z) / (1 - p_i/z), applied as a series of
-    first-order sections: real poles as real AR1 doubling scans, complex
-    pairs as a complex AR1 scan (complex128 for an f64 signal, complex64
-    for f32) followed by its conjugate, zeros as 1- or 2-tap FIR sections,
-    each pole next to the zero that nearly cancels it.  Zero initial state.
-    The parallel path for clustered-pole pre-compensation: keep the
-    factored form end to end (``exp_decay_filter(..., output='zpk')``).
+    first-order sections, each pole next to the zero that nearly cancels
+    it (real roots sorted in descending order and paired by index, as JAX
+    pairs them); zero initial state.  Real poles: on the card, each with
+    the real zero at its index as one d = 1 section of the recurrence
+    kernel S1; on CPU tensors, as in JAX, the zero as a 1-tap FIR and the
+    pole as a real AR1 doubling scan.  An unpaired real zero is a 1-tap FIR
+    on both.  Complex pairs: a complex AR1 doubling scan (complex128 for an
+    f64 signal, complex64 for f32) followed by its conjugate, zeros as
+    2-tap FIR sections, on every device.  The path for clustered-pole
+    pre-compensation: keep the factored form end to end
+    (``exp_decay_filter(..., output='zpk')``).
     """
     x = _as_signal(x, device)
     z = np.atleast_1d(np.asarray(z, complex))
@@ -177,8 +191,21 @@ def filter_zpk(z, p, k, x, device='cuda') -> torch.Tensor:
     zc.sort(key=lambda c: -c.real)
     pc.sort(key=lambda c: -c.real)
 
+    n = x.shape[-1]
     y = x * g                       # a tensor of our own from here on
     for i in range(max(len(pr), len(zr))):
+        if i < len(pr) and _route(y.device, [1.0, -pr[i]], n,
+                                  'zpk') == 'S1':
+            # pole i and zero i as one section, b = [1, -zr[i]] (an
+            # unpaired pole: [1, 0]), a = [1, -pr[i]].  Its direct form,
+            # y[n] = x[n] + s and s' = -zr[i] x[n] + pr[i] y[n], is
+            # y[n] = (x[n] - zr[i] x[n-1]) + pr[i] y[n-1]: the FIR below
+            # followed by the AR1 scan, in one recurrence
+            b1 = -zr[i] if i < len(zr) else 0.0
+            y = _sequential_filter(np.array([1.0, b1]),
+                                   np.array([1.0, -pr[i]]), y,
+                                   y.new_zeros((1,)))[0]
+            continue
         if i < len(zr):
             y = y - zr[i] * _delay(y)
         if i < len(pr):
@@ -202,9 +229,9 @@ def _sequential_filter(bb: np.ndarray, aa: np.ndarray, x: torch.Tensor,
     """Direct form II transposed, exact scipy semantics including zi/zf:
     the recurrence kernel S1 over the rows of ``x`` (JAX: a ``lax.scan``;
     on the card a blocked scan, on CPU tensors the sequential plain
-    version).  The correctness fallback where the doubling
-    scan is numerically unstable: (b, a) coefficient semantics can only be
-    reproduced by direct-form arithmetic (see :func:`filter_zpk`).
+    version), with the coefficients ``bb``, ``aa`` (float64) in ``x``'s
+    dtype.  The route of every real section on the card; on CPU tensors,
+    as in JAX, where the doubling scan is numerically unstable.
     ``state_only``: S1's state-only call, (None, zf)."""
     from .. import kernels
     d = len(bb) - 1
@@ -263,15 +290,44 @@ def _defective(a_np) -> bool:
                 > 1.0 - 1e-4)
 
 
+def _route(device, aa, n, form='lfilter') -> str:
+    """The route of one real section with normalised denominator ``aa``
+    over rows of ``n`` samples (the length that decides: a time shard
+    passes its whole row's) of a signal on ``device``: ``'S1'``, the
+    recurrence kernel, or ``'doubling'``, the doubling scan.
+
+    On the card, S1 for every section of 1 to MAX_STATE states, whatever
+    ``n``: at every shape the main paths give a filter, from one shot's
+    2 x 200,000 samples to the flagship's 128 x 2,000,000, it is 6x to
+    135x faster than the doubling scan on an NVIDIA H100 80GB HBM3 at
+    700 W (``chip_smoke.py``'s ``iir_routes`` record, PERF.md section 5),
+    and at least as accurate, so there is no crossover.  On CPU tensors,
+    and above MAX_STATE states on the card, the JAX module's host rule for
+    the calling ``form``: ``'lfilter'`` takes S1 where the doubling scan's
+    squarings are unstable; ``'sos'`` (one biquad of sosfilt) also for a
+    defective section; ``'zpk'`` (a real pole of filter_zpk) always takes
+    the doubling scan."""
+    d = len(aa) - 1
+    if torch.device(device).type == 'cuda' and 1 <= d <= MAX_STATE:
+        return 'S1'
+    if form == 'zpk':
+        return 'doubling'
+    if form == 'sos' and _defective(aa):
+        return 'S1'
+    M = _state_space(aa, aa, d)[0]          # M is a's alone
+    return 'S1' if _doubling_unstable(M, n) else 'doubling'
+
+
 def sosfilt(sos, x, zi=None, device='cuda'):
     """Cascaded second-order sections, scipy-compatible, over the last axis
     of ``x``.
 
     sos: (n_sections, 6).  With ``zi`` of shape (n_sections, 2) or
     (..., n_sections, 2), returns ``(y, zf)`` with zf (..., n_sections, 2);
-    without, returns ``y`` (zero initial state).  A section whose doubling
-    scan would be unstable runs the recurrence kernel instead, as the JAX
-    module routes it.
+    without, returns ``y`` (zero initial state).  Each section runs the
+    recurrence kernel S1 on the card, with its own ``zi`` and ``zf``, in
+    the cascade's order; on CPU tensors it takes the doubling scan, or S1
+    where that would be unstable, as the JAX module routes it.
     """
     x = _as_signal(x, device)
     sos_np = np.asarray(sos.cpu() if isinstance(sos, torch.Tensor) else sos,
@@ -284,8 +340,7 @@ def sosfilt(sos, x, zi=None, device='cuda'):
     zf = []
     for k in range(sos_np.shape[0]):
         a_np = sos_np[k, 3:] / sos_np[k, 3]
-        M_np = np.array([[-a_np[1], 1.0], [-a_np[2], 0.0]])
-        if _defective(a_np) or _doubling_unstable(M_np, n):
+        if _route(x.device, a_np, n, 'sos') == 'S1':
             b_np = sos_np[k, :3] / sos_np[k, 3]
             x, z = _sequential_filter(b_np, a_np, x, zi[..., k, :])
         else:
@@ -320,10 +375,11 @@ def _state_space(bb, aa, d):
 def lfilter(b, a, x, zi=None, device='cuda', route_n=None):
     """General (b, a) IIR over the last axis of ``x``: direct form II
     transposed with state dimension ``max(len(a), len(b)) - 1``, by the
-    doubling scan or, where that is unstable, the recurrence kernel;
+    recurrence kernel S1 on the card; on CPU tensors by the doubling scan
+    or, where that is unstable, S1, as in JAX (:func:`_route`);
     scipy-compatible ``zi`` (d,) or (..., d) and ``zf``.  ``route_n`` is
-    the length whose doubling scan decides the route (default: ``x``'s): a
-    time shard of a longer row passes the row's, and takes the row's route.
+    the length that decides the route (default: ``x``'s): a time shard of
+    a longer row passes the row's, and takes the row's route.
     """
     x = _as_signal(x, device)
     bb, aa, d = _normalised(b, a)
@@ -335,14 +391,15 @@ def lfilter(b, a, x, zi=None, device='cuda', route_n=None):
         y = bb[0] * x
         return (y, zi0) if return_zf else y
 
-    M, k = _state_space(bb, aa, d)
-    if _doubling_unstable(M, route_n or x.shape[-1]):
-        # clustered near-unit poles: doubling diverges numerically, and no
-        # factored realization reproduces (b, a) semantics either, so the
-        # exact direct form runs sequentially; callers who hold the
-        # factored form should use filter_zpk, both stable and parallel
+    if _route(x.device, aa, route_n or x.shape[-1]) == 'S1':
+        # the card's route; on CPU tensors, clustered near-unit poles,
+        # where doubling diverges numerically and no factored realization
+        # reproduces (b, a) semantics either, so the exact direct form
+        # runs sequentially (callers who hold the factored form should use
+        # filter_zpk)
         y, zf = _sequential_filter(bb, aa, x, zi0)
     else:
+        M, k = _state_space(bb, aa, d)
         y, zf = _doubling_df2t(_like(M, x), _like(k, x), float(bb[0]), x,
                                zi0)
     return (y, zf) if return_zf else y
@@ -350,18 +407,18 @@ def lfilter(b, a, x, zi=None, device='cuda', route_n=None):
 
 def lfilter_zf(b, a, x, route_n=None, zi=None) -> torch.Tensor:
     """The final state (..., d) of ``lfilter(b, a, x, zi=zi, route_n=...)``
-    alone (``zi`` None: a zero state), by the route that call takes: where
-    the doubling scan is unstable, the recurrence kernel's state-only call
-    (S1 writes no output); else the doubling scan's own final state.  The
+    alone (``zi`` None: a zero state), by the route that call takes
+    (:func:`_route`): on S1's, the recurrence kernel's state-only call (S1
+    writes no output); else the doubling scan's own final state.  The
     end state of a run of time shards from a zero state, which
     :func:`shard_carry` carries across the runs."""
     bb, aa, d = _normalised(b, a)
     if d == 0:
         return x.new_zeros(x.shape[:-1] + (0,))
     zi0 = x.new_zeros((d,)) if zi is None else _like(zi, x)
-    M, k = _state_space(bb, aa, d)
-    if _doubling_unstable(M, route_n or x.shape[-1]):
+    if _route(x.device, aa, route_n or x.shape[-1]) == 'S1':
         return _sequential_filter(bb, aa, x, zi0, state_only=True)[1]
+    M, k = _state_space(bb, aa, d)
     return _doubling_df2t(_like(M, x), _like(k, x), float(bb[0]), x,
                           zi0)[1]
 
@@ -411,8 +468,8 @@ def predistort_device(sig, filters=None, ker=None, initial: float = 0.0,
     (JAX: ``predistort_jax``).
 
     Mirrors :func:`waveforms_tpu_torch.distortion.predistort` (steady-state
-    ``initial`` handling included) with the doubling scan or the recurrence
-    kernel, and ``torch.fft``, instead of scipy.
+    ``initial`` handling included) with :func:`lfilter` (the recurrence
+    kernel S1 on the card) and ``torch.fft`` instead of scipy.
     """
     sig = _as_signal(sig, device)
     if filters is not None:

@@ -33,9 +33,9 @@ C. every chunk runs :func:`df2t`'s recurrence, in the signal's type, from
    S[k] (chunk 0 from ``zi``); the last chunk's end state is ``zf``.
 
 Double-double numbers are (hi, lo) pairs of float64 (Dekker; about 106
-bits).  TwoProd's exact error term comes from Dekker's split here and from
-a fused multiply-add on the card: the same exact value wherever no partial
-product underflows (|a b| above ~1e-292).  The blocked output is not the
+bits).  TwoProd's error term is a fused multiply-add's on the card and the
+same value here, gradual underflow included (:func:`_two_prod`).  The
+blocked output is not the
 sequential one beyond the first chunk: the carry is more precise than the
 sequential recurrence, whose state on a clustered-pole filter amplifies
 rounding by ~1e10.  Tests use this model; no user path runs it.
@@ -104,14 +104,27 @@ def _fast_two_sum(a, b):
 
 
 def _two_prod(a, b):
+    """(p, e): p = a * b rounded, and e = fma(a, b, -p), the kernel's
+    ``__fma_rn`` error term, bit for bit.  Dekker's product of the
+    mantissas of a and b (``torch.frexp``, in [0.5, 1): no partial product
+    underflows) is exact, h + l, and a b = (h + l) 2^S.  Where p is normal
+    it is h 2^S, so the error is l 2^S, which ``ldexp`` rounds once, as the
+    fused multiply-add does.  Where p is below 2^-1021 the error is at most
+    half the subnormal quantum, and both give 0.  (Dekker's split of a and
+    b themselves differs from the fused multiply-add wherever a partial
+    product underflows, |a b| below ~1e-292.)"""
     p = a * b
-    t = a * _SPLIT
-    ah = t - (t - a)
-    al = a - ah
-    t = b * _SPLIT
-    bh = t - (t - b)
-    bl = b - bh
-    return p, (((ah * bh - p) + ah * bl) + al * bh) + al * bl
+    ma, ea = torch.frexp(a)
+    mb, eb = torch.frexp(b)
+    t = ma * _SPLIT
+    ah = t - (t - ma)
+    al = ma - ah
+    t = mb * _SPLIT
+    bh = t - (t - mb)
+    bl = mb - bh
+    h = ma * mb
+    return p, torch.ldexp((((ah * bh - h) + ah * bl) + al * bh) + al * bl,
+                          ea + eb)
 
 
 def _dd_add(x, y):

@@ -5,7 +5,8 @@ device analog of the reference's chunked ``Waveform.sample(chunk_size=...)``:
 the dense kernel K1 takes a window (a global sample offset ``row0`` and a
 width), so streaming is repeated K1 launches over successive windows of
 the same descriptors, with SOS filter state ``zi`` carried across chunk
-boundaries by :func:`.iir.sosfilt`.  A bucketed schedule needs no slicing
+boundaries by :func:`.iir.sosfilt` (on the card each section one call of
+the recurrence kernel S1 a chunk).  A bucketed schedule needs no slicing
 of its descriptors: each tile of a window reads the bucket of its own
 global samples.
 

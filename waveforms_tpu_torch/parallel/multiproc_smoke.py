@@ -36,8 +36,9 @@ dense stratum for K1):
 - ``demod``: :func:`.pipeline.make_step` with two tones and no filter, the
   IQ points summed over the processes, against the oracle's (rtol 2e-4,
   atol 1e-6, JAX's);
-- ``step_clustered`` (the recurrence kernel S1), ``step_z_settle`` and
-  ``step_exp_decay`` (the doubling scan): ``make_step`` with the filter
+- ``step_clustered``, ``step_z_settle`` and ``step_exp_decay`` (all
+  three on the recurrence kernel S1 on the card; on the CPU the last two
+  on the doubling scan, as in JAX): ``make_step`` with the filter
   carried across the processes in parallel (S1's state-only call on the
   shards of a run of one process's shards before its row's last; none in
   JAX's layout, where no row crosses processes), against scipy's float64
@@ -125,18 +126,25 @@ def small_channels():
     return chans
 
 
-def filters():
-    """{name: (the filters, their route)} of the filtered steps: the
-    clustered three-pole filter (S1), the station's Z-settle pair and a
-    single exponential whose pole f32 holds (the doubling scan)."""
+def filters(device='cuda'):
+    """{name: (the filters, their route on ``device``)} of the filtered
+    steps: the clustered three-pole filter, the station's Z-settle pair
+    and a single exponential whose pole f32 holds.  On the card all three
+    run the recurrence kernel S1; on the CPU the clustered filter runs S1
+    and the other two the doubling scan, as in JAX
+    (:func:`..ops.iir._route`)."""
+    import torch
+
     from ..distortion import exp_decay_filter
     from ..ops import iir_cases
+    card = torch.device(device).type == 'cuda'
     return {'clustered': ([exp_decay_filter(*iir_cases.CLUSTERED, FS,
                                             output='ba')], 'S1'),
             'z_settle': ([exp_decay_filter(a, t, FS, inv=True)
-                          for a, t in zip(*Z_SETTLE)], 'doubling'),
+                          for a, t in zip(*Z_SETTLE)],
+                         'S1' if card else 'doubling'),
             'exp_decay': ([exp_decay_filter(0.05, 100e-9, FS, inv=True)],
-                          'doubling')}
+                          'S1' if card else 'doubling')}
 
 
 def rows_err(got, want, peak):
@@ -400,7 +408,7 @@ def run_layout(w, layout, backend):
     raw = synthesize_device(DeviceSchedule(low, dev))     # the step's K1
     host = raw[rows].double().cpu().numpy()
     del raw, whole
-    for name, (ba, route) in filters().items():
+    for name, (ba, route) in filters(w.device).items():
         _step_cell(w, f'step_{name}', name, ba, route, low, mesh, one,
                    tones, rows, host, rpt)
     # the clustered filter over 8 time shards, 4 a process: rank 0's run
@@ -409,7 +417,7 @@ def run_layout(w, layout, backend):
     fmesh = channel_mesh(1, MESH[0] * MESH[1], devices=[dev] * LOCAL_SHARDS)
     one8 = Mesh(np.array([dev] * fmesh.size, dtype=object).reshape(
         1, fmesh.size), rank=w.rank)
-    ba, route = filters()['clustered']
+    ba, route = filters(w.device)['clustered']
     _step_cell(w, 'step_clustered_t8', 'clustered', ba, route, low, fmesh,
                one8, tones, rows, host, None if full else 1, strict=False)
 

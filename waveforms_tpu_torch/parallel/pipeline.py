@@ -3,11 +3,11 @@
 The port of the JAX package's ``waveforms_tpu/parallel/pipeline.py``.
 :func:`make_step` builds the sharded production step over a device mesh
 (:mod:`.mesh`): the dense kernel K1 on every shard, the per-channel (b, a)
-pre-compensation IIR (:func:`..ops.iir.lfilter`, the doubling scan or the
-recurrence kernel S1) on every shard, its state carried from each time
-shard to the next, and readout demodulation against a tone comb
-(:func:`..ops.demod.demodulate`) with the time shards' partial sums added
-on one device, JAX's psum.  :func:`run_step` lowers and runs one such step.
+pre-compensation IIR (:func:`..ops.iir.lfilter`: the recurrence kernel S1
+on the card, JAX's route on CPU shards) on every shard, its state carried
+from each time shard to the next, and readout demodulation against a tone
+comb (:func:`..ops.demod.demodulate`) with the time shards' partial sums
+added on one device, JAX's psum.  :func:`run_step` lowers and runs one such step.
 :func:`run_sequence` plays a shot table through a
 :class:`~waveforms_tpu_torch.ops.Sequencer` (K1 for each shot) on one
 device through the same filter and demodulation.
@@ -99,7 +99,8 @@ def make_step(low, mesh, ba_filters=None, demod_freqs=None,
     as XLA's associative scan carries it: (a) each run but a row's last
     takes its end state from a zero state, its shards' final states alone
     one after another (:func:`..ops.iir.lfilter_zf`: S1's state-only call,
-    or the doubling scan's own final state); (b) one all-gather of those
+    or, on a CPU shard whose row JAX routes to the doubling scan, the
+    scan's own final state); (b) one all-gather of those
     (C, d) boundary states; (c) each run's start state from the runs
     before it by :func:`..ops.iir.shard_carry` (Phi(n) z + zf0), and its
     shards filtered from it.  No process waits on another's filter.  Where
