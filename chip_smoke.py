@@ -31,14 +31,18 @@ the host engine, with g++; a failed build ends the run) and runs:
    and within one ulp (over the f32 contract) of its plain version;
 3. the strata at full size (128 channels, 2 GS/s), each main path through
    ``waveforms_tpu_torch.synthesize(..., device='cuda')`` with the launch
-   counts set to 0 just before it and read just after:
-   flagship f32 and int16, mid and dense (``engine='auto'``), ladder120 f32
-   and int16 (``auto``, the stack route), flagship ``part='complex'``
-   (``auto``, the panel kernel in pair mode), flagship f32 with
-   ``engine='cuda-sparse'`` (the worklist kernel), flagship, dense and
-   ladder120 with ``precision='double'`` (``auto``: K4, K3, K3), and
-   flagship and dense with ``out_dtype=torch.bfloat16`` (K2, K1), each
-   equal to its f32 cell's output rounded once;
+   counts set to 0 just before it and read just after, each on the route
+   of the card's rule (``ops.routes.CARD_RULE``): flagship f32 and int16
+   (``engine='auto'``, the worklist kernel), mid and dense (``auto``, the
+   dense kernel), ladder120 f32 and int16
+   (``auto``, the stack kernel), flagship ``part='complex'`` (``auto``,
+   the worklist kernel in pair mode), flagship f32 with
+   ``engine='cuda-panel'`` (the panel kernel, which no stratum's ``auto``
+   takes on the card), flagship, dense and ladder120 with
+   ``precision='double'`` (``auto``: K3 on all three), flagship and dense
+   with ``out_dtype=torch.bfloat16`` (K7, K1), each equal to its f32
+   cell's output rounded once, and the flagship through
+   ``synthesize_hi_panels`` (K4, which no ``auto`` takes on the card);
 4. for each stratum: the host lowering by the walker (its seconds and its
    channels lowered and declined; the run fails if it lowered no channel
    of the flagship or ladder120) and, for each of flagship, mid, dense and
@@ -62,7 +66,7 @@ the host engine, with g++; a failed build ends the run) and runs:
    ``engine_torch`` (``engine='torch'`` on the flagship and the dense
    stratum: wall time, device time of the evaluation, the CUDA launches of
    one call in torch.profiler's trace, peak memory; against the oracle on
-   four seeded channels and K4 / K3 within TOL_ORACLE_HI; then ``sample()``
+   four seeded channels and K3 within TOL_ORACLE_HI; then ``sample()``
    with an SOS filter on one channel against scipy within TOL_SOS);
 6. the sequence tables: at small size (tests/test_torch_sequencer.py's and
    test_torch_stack_seq.py's tables) every ``Sequencer`` method and
@@ -82,7 +86,7 @@ the host engine, with g++; a failed build ends the run) and runs:
 7. the signal chain at full width (the flagship, 128 x 2,000,000, and the
    seq_station table), each stage a main path with its counts read right
    after it; every real filter section runs the recurrence kernel S1 (a
-   blocked scan): ``signal_flagship`` -- the flagship's f32 plane (K2) in
+   blocked scan): ``signal_flagship`` -- the flagship's f32 plane (K7) in
    f64 through ``lfilter`` of the station's Z-settle pair (one S1 call),
    ``lfilter`` of the clustered three-pole filter (one) and ``filter_zpk``
    of it (three, a real pole and zero each), each against scipy and the
@@ -99,7 +103,25 @@ the host engine, with g++; a failed build ends the run) and runs:
    and two tones, 8 shots against ``Sequencer.play`` + scipy ``lfilter`` +
    ``getFTMatrix``; ``iir_routes`` -- at each shape the main paths give a
    filter, S1's device time beside the doubling scan's, and the route;
-8. the mesh (``run_mesh``): a (4, 2) ('channel', 'time') mesh of
+8. the routers' occupancy ladder (``route_ladder``,
+   ``waveforms_tpu_torch.route_ladder``, the port of
+   ``tools/tpu_capture.py``'s ``task_occ_ladder`` and
+   ``task_occ_ladder_stack``): 128 channels over 524.288 us with 5, 10,
+   25, 60, 120, 200 and 300 pulses a channel, the mid, flagship and dense
+   strata, and the short windows (a ``seq_station`` schedule, the
+   flagship's first 16,384 samples, 2 channels of 120 pulses over 100
+   us); at each rung every route that takes the schedule (K1, K2, the
+   worklist path, K5) timed in f32, int16 and pair mode, and K3 against
+   K4 in the double tier (on the rung's buckets and on one bucket), all
+   outputs held against each other and the oracle on 2 channels; each
+   rung's occupancy, ``small``, ``pallas_ok``, stack plan (and its host
+   time) and both rules' routes; the run fails if a check fails.  The
+   ladder's criteria -- the card's route on a rung within 10% of the
+   cheapest route, the stack kernel's cost counting its plan where the
+   card's router would not build one, and the card's routes summed no
+   longer than the JAX rule's -- are recorded, not failed on here
+   (schedules the spawned workers build);
+9. the mesh (``run_mesh``): a (4, 2) ('channel', 'time') mesh of
    distinct cards where the host has two or more, else of ``cuda:0``
    eight times (``distinct_devices`` in every record).  First
    ``mesh_small``: on a (2, 2) mesh, four channels of 16,384 samples in
@@ -111,11 +133,13 @@ the host engine, with g++; a failed build ends the run) and runs:
    chunk0 against their plain versions on the card and the CPU.  Then the
    cells at full width, each a main path with its launch counts, wall
    time, the shards' summed kernel time (CUDA events, the launches alone)
-   beside the unsharded kernel's: ``mesh_flagship`` f32 and int16,
-   ``mesh_mid`` (``synthesize_on_mesh`` -> K2 x 8), ``mesh_dense`` (K1 x
-   8, 4 windowed), ``mesh_dense_bucketed`` (62 buckets, bucket0 31),
-   ``mesh_sparse`` (K7 x 8) and ``mesh_complex`` (K2 pair mode, combined
-   and as two planes), each bit-equal to the single-device call;
+   beside the unsharded kernel's: ``mesh_flagship`` f32 and int16 and
+   ``mesh_mid`` (``synthesize_panels_sharded`` -> K2 x 8: the card's
+   router takes them to K7 and K1), ``mesh_dense`` (``synthesize_on_mesh``
+   -> K1 x 8, 4 windowed), ``mesh_dense_bucketed`` (62 buckets, bucket0
+   31), ``mesh_sparse`` (``synthesize_on_mesh`` -> K7 x 8) and
+   ``mesh_complex`` (K2 pair mode, combined and as two planes), each
+   bit-equal to the single-device call of the same kernel;
    ``mesh_ladder120`` (K6 x 8, K5 never) within TOL_PLAIN of K5 and of
    K6's plain version, TOL_ORACLE of the oracle on 3 channels;
    ``mesh_play_packed`` (stackseq_ladder's table, 16 shots) bit-equal to
@@ -125,14 +149,15 @@ the host engine, with g++; a failed build ends the run) and runs:
    against scipy and ``getFTMatrix``; ``mesh_fft`` (``fft_convolve_
    sharded`` of 4 flagship rows over the 2 time shards, a centered 31-tap
    Hann kernel) against numpy's circular convolution in f64;
-9. the multi-process runtime (``run_multiproc``,
+10. the multi-process runtime (``run_multiproc``,
    ``waveforms_tpu_torch.parallel.multiproc_smoke``): two spawned worker
    processes on the card, each owning 4 shards of one (4, 2) mesh of
    ``cuda:0``, the process group on gloo, in JAX's layout and in the time
    split (rank r owns time shard r), at full size:
    ``synthesize_sharded`` on the dense stratum (K1 x 4 a process),
-   ``synthesize_on_mesh`` on the flagship (K2 x 4), ``synthesize_sparse_
-   sharded`` (K7 x 4), each local block bit-equal to the single-device
+   ``synthesize_panels_sharded`` on the flagship (K2 x 4), ``synthesize_sparse_
+   sharded`` (K7 x 4), ``synthesize_on_mesh`` (the card's router, K7 x
+   4), each local block bit-equal to the single-device
    call; the global mean against the oracle; ``make_step`` with the
    clustered filter, the Z-settle pair and a single exponential, each
    carried across the processes in parallel (S1's full
@@ -146,7 +171,7 @@ the host engine, with g++; a failed build ends the run) and runs:
    on an 8-shard 'time' mesh over both processes; each worker's wall, its
    kernel times (the workers timing in turns), the exchange's ms and
    bytes, and S1's time for the parallel carry against the sequential;
-10. the measurement probes (``waveforms_tpu_torch.probes``): at small size
+11. the measurement probes (``waveforms_tpu_torch.probes``): at small size
    (K = 64) P4, every P2 variant and every P3 body against its plain
    version on the card, bit for bit, and P1's compact worklist kernel on 8
    flagship channels over 32.768 us, padded and not, within TOL_PLAIN;
@@ -227,20 +252,25 @@ OP_COST = {0: 3, 1: 13, 2: 33, 3: 38, 4: 19, 5: 13, 6: 67, 7: 23, 8: 23,
 
 
 def start_builds():
-    """Build the ladder120 schedules in worker processes while the first
-    phases run -> the pool, which ``main`` shuts down.  The builder is the
-    waveform algebra in Python, ~5 s a schedule on the card's host, and the
-    main paths need five: the ladder120 stratum's and stackseq_ladder's
-    four.  The workers are spawned, import no CUDA and only build."""
+    """Build the ladder120 schedules and the route ladder's rungs in worker
+    processes while the first phases run -> the pool, which ``main`` shuts
+    down.  The builder is the waveform algebra in Python, ~5 s a ladder120
+    schedule and ~12 s for ladder300 on the card's host; the main paths
+    need five ladder120 schedules (the stratum's and stackseq_ladder's
+    four), ``route_ladder`` the rungs that no stratum builds.  The workers
+    are spawned, import no CUDA and only build."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from functools import partial
 
+    from waveforms_tpu_torch.route_ladder import sources
     from waveforms_tpu_torch.schedules import STRATA, build_ladder_schedule
     jobs = {'ladder120': STRATA['ladder120'][0]}
     jobs.update({('ladder', s): partial(build_ladder_schedule, 120, seed=s)
                  for s in LADDER_SEEDS})
-    pool = ProcessPoolExecutor(max_workers=len(jobs),
+    jobs.update({('rung', k): job for k, job in sources().items()
+                 if k not in STRATA})
+    pool = ProcessPoolExecutor(max_workers=min(len(jobs), os.cpu_count()),
                                mp_context=multiprocessing.get_context('spawn'))
     BUILDS.update({key: pool.submit(job) for key, job in jobs.items()})
     return pool
@@ -1023,26 +1053,31 @@ def check_small_hi(fail):
 
 
 # (stratum, part, engine, dtype, expected route, kernels that must launch);
-# dtype 'float64' is precision='double'
+# dtype 'float64' is precision='double'.  The expected routes are the card's
+# (waveforms_tpu_torch.ops.routes.CARD_RULE); K2 and K4, which no stratum's
+# 'auto' takes on the card, each run a forced cell of the flagship, the
+# stratum they took before: 'cuda-panel', and 'hi-panel' (the double tier's
+# panel entry point, synthesize_hi_panels: no engine forces K4)
 CELLS = [
-    ('flagship', 'real', 'auto', 'float32', 'panel', ('synth_panel',)),
-    ('flagship', 'real', 'auto', 'int16', 'panel', ('synth_panel',)),
-    ('mid', 'real', 'auto', 'float32', 'panel', ('synth_panel',)),
+    ('flagship', 'real', 'auto', 'float32', 'sparse', ('synth_sparse',)),
+    ('flagship', 'real', 'auto', 'int16', 'sparse', ('synth_sparse',)),
+    ('mid', 'real', 'auto', 'float32', 'dense', ('synth_dense',)),
     ('dense', 'real', 'auto', 'float32', 'dense', ('synth_dense',)),
     ('ladder120', 'real', 'auto', 'float32', 'stack', ('synth_stack',)),
     ('ladder120', 'real', 'auto', 'int16', 'stack', ('synth_stack',)),
-    ('flagship', 'complex', 'auto', 'float32', 'panel', ('synth_panel',)),
-    ('flagship', 'real', 'cuda-sparse', 'float32', 'sparse',
-     ('synth_sparse',)),
-    ('flagship', 'real', 'auto', 'float64', 'panel', ('synth_panel_hi',)),
+    ('flagship', 'complex', 'auto', 'float32', 'sparse', ('synth_sparse',)),
+    ('flagship', 'real', 'cuda-panel', 'float32', 'panel', ('synth_panel',)),
+    ('flagship', 'real', 'auto', 'float64', 'dense', ('synth_dense_hi',)),
     ('dense', 'real', 'auto', 'float64', 'dense', ('synth_dense_hi',)),
     ('ladder120', 'real', 'auto', 'float64', 'dense', ('synth_dense_hi',)),
-    ('flagship', 'real', 'auto', 'bfloat16', 'panel', ('synth_panel',)),
+    ('flagship', 'real', 'auto', 'bfloat16', 'sparse', ('synth_sparse',)),
     ('dense', 'real', 'auto', 'bfloat16', 'dense', ('synth_dense',)),
+    ('flagship', 'real', 'hi-panel', 'float64', 'panel',
+     ('synth_panel_hi',)),
 ]
 # each kernel's time is taken at its own stratum
-KERNEL_CELL = {'synth_panel': 0, 'synth_dense': 3, 'synth_stack': 4,
-               'synth_sparse': 7, 'synth_panel_hi': 8, 'synth_dense_hi': 9}
+KERNEL_CELL = {'synth_panel': 7, 'synth_dense': 3, 'synth_stack': 4,
+               'synth_sparse': 0, 'synth_panel_hi': 13, 'synth_dense_hi': 9}
 
 
 def cell_name(cell):
@@ -1080,12 +1115,16 @@ def run_strata(fail, summary):
         stratum, part, engine, dtype, _, must = cell
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        outs[cell] = wt.synthesize(chans[stratum], 0.0, STRATA[stratum][1],
-                                   FS, engine=engine, part=part,
-                                   out_dtype=dtypes[dtype],
-                                   precision=('double' if dtype == 'float64'
-                                              else 'single'),
-                                   dac_scale=32767.0, device='cuda')
+        if engine == 'hi-panel':
+            outs[cell] = wt.synthesize_hi_panels(lower_schedule(
+                chans[stratum], 0.0, STRATA[stratum][1], FS, keep_f64=True),
+                device='cuda')
+        else:
+            outs[cell] = wt.synthesize(
+                chans[stratum], 0.0, STRATA[stratum][1], FS, engine=engine,
+                part=part, out_dtype=dtypes[dtype],
+                precision='double' if dtype == 'float64' else 'single',
+                dac_scale=32767.0, device='cuda')
         torch.cuda.synchronize()
         walls[cell] = time.perf_counter() - t0
         counts[cell] = kernels.launch_counts()
@@ -1160,7 +1199,7 @@ def run_strata(fail, summary):
         engine_mod.build_stack_plan = timed_stack_plan
         try:
             kind, plan = classify_route(low, force=_FORCE.get(engine),
-                                        out_dtype=dtype)
+                                        out_dtype=dtype, device='cuda')
         finally:
             engine_mod.build_stack_plan = build_stack_plan
         rec_host['route_and_plan'] = time.perf_counter() - t1
@@ -1331,7 +1370,8 @@ def brief_stratum(rec):
 
 def hi_stratum(cell, out, chans, wall, counts):
     """Phase 4 for a double-tier cell: ``out`` came from synthesize(...,
-    precision='double', device='cuda').  The host layers of the same path
+    precision='double', device='cuda'), or for 'hi-panel' from
+    synthesize_hi_panels.  The host layers of the same path
     timed one by one, the kernel against its plain f64 version over the
     whole output, the oracle on 3 channels at full length, and the times."""
     import torch
@@ -1340,17 +1380,18 @@ def hi_stratum(cell, out, chans, wall, counts):
     from waveforms_tpu_torch import kernels
     from waveforms_tpu_torch.ops.hi_synth import HiSchedule, classify_hi_route
     from waveforms_tpu_torch.ops.lowering import lower_schedule
-    from waveforms_tpu_torch.ops.sparse_synth import PanelWork
+    from waveforms_tpu_torch.ops.sparse_synth import PanelWork, build_panel_plan
     from waveforms_tpu_torch.schedules import FS, STRATA
 
-    stratum, expect = cell[0], cell[4]
+    stratum, engine, expect = cell[0], cell[2], cell[4]
     stop = STRATA[stratum][1]
     host = {}
     t0 = time.perf_counter()
     low = lower_schedule(chans, 0.0, stop, FS, keep_f64=True)
     host['lower_keep_f64'] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    kind, plan = classify_hi_route(low)
+    kind, plan = (('panel', build_panel_plan(low)) if engine == 'hi-panel'
+                  else classify_hi_route(low, 'cuda'))
     host['route_and_plan'] = time.perf_counter() - t0
     t0 = time.perf_counter()
     dev = HiSchedule(low, 'cuda')
@@ -1479,7 +1520,8 @@ def engine_native(fail):
                         engine='numpy')
     rec['oracle_channels'] = picks
     rec['vs_oracle'] = rel_err(out[picks], ora)
-    k2 = wt.synthesize(chans, 0.0, stop, FS, device='cuda')
+    k2 = wt.synthesize(chans, 0.0, stop, FS, engine='cuda-panel',
+                       device='cuda')
     rec['vs_k2'] = rel_err_t(k2, torch.from_numpy(out).to('cuda'))
     del k2
     torch.cuda.empty_cache()
@@ -2626,7 +2668,7 @@ def zpk_rows(z, p, k, rows, dtype):
 
 
 def signal_flagship(fail, summary):
-    """The flagship's f32 plane from ``synthesize`` (K2), pre-compensated
+    """The flagship's f32 plane from ``synthesize`` (K7), pre-compensated
     in f64 on all 128 rows -- lfilter of the Z-settle pair, lfilter of the
     clustered filter, each one S1 call, and filter_zpk of it, three S1
     calls of one real pole and zero each -- then the Z-settle output
@@ -2664,7 +2706,7 @@ def signal_flagship(fail, summary):
     sig, wall, cnt = main_path(
         'signal_flagship synthesize',
         lambda: wt.synthesize(chans, 0.0, 1e-3, FS, device='cuda'), fail,
-        {'synth_panel': 1})
+        {'synth_sparse': 1})
     x = sig.double()
     del sig
     C, N = x.shape
@@ -3082,6 +3124,23 @@ def iir_routes(fail):
         fail.append('iir_routes')
 
 
+def route_ladder(fail):
+    """Phase 8: the routers' occupancy ladder
+    (``waveforms_tpu_torch.route_ladder``) on the strata's schedules and
+    the rungs built in the workers; fails on a failed check.  Its criteria
+    (the card's route on each rung within ROUTE_SLACK of the cheapest
+    route, and the card's routes summed no longer than the JAX rule's) are
+    recorded in its summary, ``criteria_ok``, and fail the ladder's own
+    command, not this run: they are timing margins."""
+    from waveforms_tpu_torch import route_ladder as rl
+    chans = STASH['chans']
+    schedules = {key: chans[key] if key in chans else schedule(('rung', key))
+                 for key, _, _ in rl.RUNGS.values()}
+    _, summary = rl.run(schedules, log=log)
+    if not summary['ok']:
+        fail.append("route_ladder")
+
+
 # The mesh phase: a (4, 2) ('channel', 'time') mesh, on distinct cards when
 # the host has two or more and on cuda:0 eight times otherwise.
 MESH = (4, 2)
@@ -3336,21 +3395,26 @@ def run_mesh(fail):
     def scale_of(dt, C):
         return dac_scale_tensor(dt, 32767.0, C, 'cuda')
 
-    # ---- K2 on the flagship (f32, int16) and mid; K1 on dense
+    # ---- K2 on the flagship (f32, int16) and mid, by name (the card's
+    # router takes them to K7 and K1); K1 on dense, routed
     for label, stratum, dt, kernel in (
             ('mesh_flagship', 'flagship', torch.float32, 'synth_panel'),
             ('mesh_flagship', 'flagship', torch.int16, 'synth_panel'),
             ('mesh_mid', 'mid', torch.float32, 'synth_panel'),
             ('mesh_dense', 'dense', torch.float32, 'synth_dense')):
         stop = STRATA[stratum][1]
-        out, rec = mesh_cell(label, lambda: synthesize_on_mesh(
-            chans[stratum], 0.0, stop, FS, mesh, out_dtype=dt), fail,
-            {kernel: 8}, windowed=4 if kernel == 'synth_dense' else None)
+        low = lower_schedule(chans[stratum], 0.0, stop, FS)
+        panel = kernel == 'synth_panel'
+        out, rec = mesh_cell(label, lambda: (
+            sp.synthesize_panels_sharded(low, mesh, out_dtype=dt) if panel
+            else synthesize_on_mesh(chans[stratum], 0.0, stop, FS, mesh,
+                                    out_dtype=dt)), fail,
+            {kernel: 8}, windowed=None if panel else 4)
         got = out.gather()
         del out
-        low = lower_schedule(chans[stratum], 0.0, stop, FS)
         dev = DeviceSchedule(low, 'cuda')
         one = wt.synthesize(chans[stratum], 0.0, stop, FS, out_dtype=dt,
+                            engine='cuda-panel' if panel else 'auto',
                             device='cuda')
         rec.update(dtype=str(dt)[6:], route=kernel,
                    vs_single_device_bits=bits_equal(got, one))
@@ -3384,10 +3448,10 @@ def run_mesh(fail):
     del one, dev
     finish(rec, rec['vs_single_device_bits'])
 
-    # ---- K7 on the flagship
+    # ---- K7 on the flagship, routed (the card's route for it)
     low = lower_schedule(chans['flagship'], 0.0, 1e-3, FS)
-    out, rec = mesh_cell('mesh_sparse', lambda: sp.synthesize_sparse_sharded(
-        low, mesh), fail, {'synth_sparse': 8})
+    out, rec = mesh_cell('mesh_sparse', lambda: synthesize_on_mesh(
+        chans['flagship'], 0.0, 1e-3, FS, mesh), fail, {'synth_sparse': 8})
     dev = DeviceSchedule(low, 'cuda')
     one = sp.synthesize_sparse(dev, low)
     rec.update(route='synth_sparse',
@@ -3402,13 +3466,13 @@ def run_mesh(fail):
     del one, dev, work
     finish(rec, rec['vs_single_device_bits'])
 
-    # ---- K2 in pair mode on the flagship, combined and as two planes
-    out, rec = mesh_cell('mesh_complex', lambda: synthesize_on_mesh(
-        chans['flagship'], 0.0, 1e-3, FS, mesh, part='complex'), fail,
-        {'synth_panel': 8})
+    # ---- K2 in pair mode on the flagship, by name, combined and as two
+    # planes
+    low = lower_schedule(chans['flagship'], 0.0, 1e-3, FS, part='complex')
+    out, rec = mesh_cell('mesh_complex', lambda: sp.synthesize_panels_sharded(
+        low, mesh), fail, {'synth_panel': 8})
     got = out.gather()
     del out
-    low = lower_schedule(chans['flagship'], 0.0, 1e-3, FS, part='complex')
     dev = DeviceSchedule(low, 'cuda')
     one = sp.synthesize_panels(dev, low)
     re, im = sp.synthesize_panels_sharded(low, mesh, combine_pair=False)
@@ -3552,7 +3616,7 @@ def mp_cells(layout, reports):
 #: the kernels each cell must launch and how often, both processes
 #: together (S1: a full call a shard, and the state-only calls of MP_STATE)
 MP_MUST = {'dense': {'synth_dense': 8}, 'panel': {'synth_panel': 8},
-           'sparse': {'synth_sparse': 8},
+           'sparse': {'synth_sparse': 8}, 'routed': {'synth_sparse': 8},
            'step_clustered': {'synth_dense': 8, 'iir_df2t': 8},
            'step_clustered_t8': {'synth_dense': 8, 'iir_df2t': 8},
            'step_z_settle': {'synth_dense': 8, 'iir_df2t': 8},
@@ -3877,7 +3941,8 @@ def main():
                       check_small_narrow, check_probes, run_strata,
                       engine_native, engine_torch, run_sequences,
                       signal_flagship, stream_flagship, seq_station_chain,
-                      iir_routes, run_mesh, run_multiproc, run_probes):
+                      iir_routes, route_ladder, run_mesh, run_multiproc,
+                      run_probes):
             t0 = time.perf_counter()
             try:
                 if phase in (run_strata, run_sequences, signal_flagship,

@@ -109,7 +109,7 @@ def jax_side():
                           demod_freqs=mp.TONES, rows_per_tile=8,
                           interpret=True)
     t = np.arange(low.n_samples) / FS
-    return {
+    out = {
         'dense': np.asarray(mj.synthesize_sharded(low, mesh, rows_per_tile=8,
                                                   interpret=True)),
         'sparse': np.asarray(sj.synthesize_sparse_sharded(
@@ -119,6 +119,9 @@ def jax_side():
         'step_exp_decay': np.asarray(step),
         'oracle': np.stack([w(t) for w in chans]),
     }
+    # the port's router on CPU devices takes the JAX rule's route
+    out['routed'] = out['panel']
+    return out
 
 
 def _blocks(files, layout, cell):
@@ -157,7 +160,8 @@ def test_workers_pass_their_checks(smoke, layout):
                   for k, v in cell.get('checks', {}).items()}
         for name in ('dense.vs_single_device', 'dense.vs_one_process',
                      'sparse.vs_single_device', 'sparse.vs_one_process',
-                     'panel.vs_one_process', 'layout.ranks_agree',
+                     'panel.vs_one_process', 'routed.vs_one_process',
+                     'layout.ranks_agree',
                      'step_clustered.vs_one_process', 'stack.vs_one_process',
                      'play_packed.vs_play_packed',
                      'gather.on_rank0' if rank == 0
@@ -173,7 +177,7 @@ def test_workers_pass_their_checks(smoke, layout):
         layout, 1]['cells']['layout']['digest']
 
 
-@pytest.mark.parametrize('cell', ['dense', 'sparse', 'panel'])
+@pytest.mark.parametrize('cell', ['dense', 'sparse', 'panel', 'routed'])
 @pytest.mark.parametrize('layout', LAYOUTS)
 def test_blocks_match_jax(smoke, jax_side, layout, cell):
     """Both ranks' blocks together cover the plane, within 1e-6 of each

@@ -3,10 +3,11 @@
 Engines:
 
 * ``'auto'`` / ``'cuda'`` -- lower on the host, upload to ``device`` and run
-  the kernel that :func:`classify_route` picks: the panel, worklist
-  ('sparse'), stack or dense kernel.  On ``device='cuda'`` these are the
-  hand-written CUDA kernels; on ``device='cpu'`` their plain PyTorch
-  versions.
+  the kernel that :func:`classify_route` picks by ``device``'s rule
+  (:mod:`.ops.routes`): the panel, worklist ('sparse'), stack or dense
+  kernel.  On ``device='cuda'`` these are the hand-written CUDA kernels,
+  routed by the H100's occupancy ladder; on ``device='cpu'`` their plain
+  PyTorch versions, routed as the JAX package routes.
 * ``'cuda-dense'`` / ``'cuda-panel'`` / ``'cuda-sparse'`` / ``'cuda-stack'``
   -- force one kernel, as the JAX package's ``'pallas-dense'`` /
   ``'pallas-panel'`` / ``'pallas-sparse'`` / ``'pallas-stack'`` do.
@@ -24,10 +25,11 @@ the TPU; the port's ``'auto'`` is the kernel route.
 
 ``precision='double'`` runs the double tier (:mod:`.ops.hi_synth`, the
 float64 kernels K3 and K4): ``'auto'`` and ``'cuda'`` run
-``synthesize_hi_routed``, which routes as the JAX one does
-(``classify_hi_route``), ``'cuda-dense'`` forces the dense kernel, and the
-other forced engines refuse it, as the JAX package's forced pallas engines
-do; ``'native'``, ``'torch'`` and ``'numpy'`` compute in float64 already.
+``synthesize_hi_routed``, which routes by the device's rule
+(``classify_hi_route``: as the JAX one on the CPU, K3 on the card),
+``'cuda-dense'`` forces the dense kernel, and the other forced engines
+refuse it, as the JAX package's forced pallas engines do; ``'native'``,
+``'torch'`` and ``'numpy'`` compute in float64 already.
 
 ``out_dtype`` takes f32, int16 DAC codes, and the narrowed float stores
 bf16 and f16 (the f32 sum rounded once at the store), on every route where
@@ -50,19 +52,16 @@ import torch
 from .ops.hi_synth import (check_hi_schedule, synthesize_hi,
                            synthesize_hi_routed)
 from .ops.lowering import UnsupportedFactor, lower_schedule
-from .ops.sparse_synth import (PANEL_OCCUPANCY_THRESHOLD,
-                               SPARSE_OCCUPANCY_THRESHOLD, build_panel_plan,
-                               build_sparse_plan, panels_eligible,
-                               synthesize_panels, synthesize_sparse)
-from .ops.stack_synth import (DEFAULT_ADVANTAGE, STACK_MIN_NARROW,
-                              STACK_OCC_FLOOR, build_stack_plan,
-                              synthesize_stack)
-from .ops.synth import (DeviceSchedule, default_rows_per_tile,
-                        normalize_out_dtype, resolve_device,
+from .ops.routes import (facts, rule_for, stack_first, stack_wins,
+                         store_kind, takes_worklist)
+from .ops.sparse_synth import (build_panel_plan, build_sparse_plan,
+                               panels_eligible, synthesize_panels,
+                               synthesize_sparse)
+from .ops.stack_synth import build_stack_plan, synthesize_stack
+from .ops.synth import (DeviceSchedule, normalize_out_dtype, resolve_device,
                         synthesize_device)
 
-__all__ = ['synthesize', 'sample', 'classify_route', 'padded_occupancy',
-           'stack_wins', 'ENGINES']
+__all__ = ['synthesize', 'sample', 'classify_route', 'ENGINES']
 
 ENGINES = ('auto', 'cuda', 'cuda-dense', 'cuda-panel', 'cuda-sparse',
            'cuda-stack', 'native', 'torch', 'numpy')
@@ -70,45 +69,30 @@ _FORCE = {'cuda-dense': 'dense', 'cuda-panel': 'panel',
           'cuda-sparse': 'sparse', 'cuda-stack': 'stack'}
 
 
-def padded_occupancy(low, sparse_plan) -> tuple[float, bool]:
-    """The router's occupancy of a lowering -> ``(occ, small)``: the live
-    subtile fraction of ``sparse_plan`` against the PADDED tile count of
-    the JAX dense grid, as the JAX router computes it, and whether the
-    schedule is at most two of those tiles (``small``: too short for the
-    stack kernel to amortize anything)."""
-    NB = low.shape[1]
-    R = default_rows_per_tile(low.n_samples, low.bucket_samples, NB)
-    n_rows = -(-low.n_samples // 128)
-    padded_rows = -(-n_rows // R) * R
-    occ = sparse_plan.occupied_fraction * n_rows / padded_rows
-    return occ, padded_rows <= 2 * R
-
-
-def stack_wins(plan) -> bool:
-    """Whether a StackPlan takes the stack route on its merits: at least
-    STACK_MIN_NARROW narrow instances and an advantage of at least
-    DEFAULT_ADVANTAGE."""
-    return (plan is not None and plan.n_narrow >= STACK_MIN_NARROW
-            and plan.advantage >= DEFAULT_ADVANTAGE)
-
-
-def classify_route(low, force=None, out_dtype=None):
+def classify_route(low, force=None, out_dtype=None, device=None):
     """Pick the kernel for a lowered schedule -> ``(kind, plan)``, kind in
     {'panel', 'sparse', 'stack', 'dense'}; ``plan`` is the PanelPlan,
     SparsePlan or StackPlan of that kind, None for 'dense'.
 
     The JAX package's rule (``waveforms_tpu.engine.classify_pallas_route``)
-    step by step, with its thresholds (TPU values, unmeasured on the
-    H100).  With occupancy the padded live-subtile fraction:
+    step by step, with the thresholds of ``device``'s
+    :class:`.ops.routes.RouteRule` (:func:`.ops.routes.rule_for`: the JAX
+    package's for None or a CPU device, the H100's for a CUDA device).
+    With occupancy, ``small`` and the schedule's size band the rule's
+    (:func:`.ops.routes.facts`):
 
-    1. not ``small`` and occupancy >= STACK_OCC_FLOOR: the stack kernel if
-       the plan has >= STACK_MIN_NARROW narrow instances and an advantage
-       >= DEFAULT_ADVANTAGE;
-    2. ``small`` or occupancy < PANEL_OCCUPANCY_THRESHOLD: the panel
-       kernel, if it takes the plan (int16 needs one bucket);
-    3. occupancy < SPARSE_OCCUPANCY_THRESHOLD: the worklist kernel;
-    4. the stack kernel on the same condition as in 1, or for a schedule
-       over the TPU's descriptor budget whose plan has no wide residual;
+    1. occupancy at least the band's ``stack`` floor and not ``small``
+       (:func:`.ops.routes.stack_first`): the stack kernel if the plan has
+       >= ``stack_min_narrow`` narrow instances and an advantage >=
+       ``stack_advantage``;
+    2. ``small`` or occupancy < ``panel_occ``: the panel kernel, if it
+       takes the plan (int16, bf16 and f16 need one bucket);
+    3. occupancy below the band's ``worklist`` bound for the output's
+       store, f32, a two-byte store or pair mode
+       (:func:`.ops.routes.takes_worklist`): the worklist kernel;
+    4. under the TPU's rule, the stack kernel on the merits of step 1, or
+       for a schedule over the TPU's descriptor budget whose plan has no
+       wide residual;
     5. the dense kernel.
 
     Two differences from the JAX rule, both because the card keeps
@@ -117,14 +101,17 @@ def classify_route(low, force=None, out_dtype=None):
     * 'panel-windowed' is 'panel' here: there is no worklist budget to
       window against, and the output is one buffer.
     * ``low.pallas_ok`` (the TPU's scalar-memory budget) refuses no forced
-      engine here.  Under ``force=None`` it still routes as in JAX -- such
-      a schedule skips steps 1-3, as a many-overlap schedule that the
-      stack kernel serves best -- so that the routes agree.
+      engine here.  Under ``force=None`` the JAX rule still routes by it
+      -- such a schedule skips steps 1-3, as a many-overlap schedule that
+      the stack kernel serves best -- so that the routes agree; the
+      card's rule does not.
     """
     if force not in (None, 'dense', 'panel', 'sparse', 'stack'):
         raise ValueError(f"unknown route {force!r}")
     if force == 'dense':
         return 'dense', None
+    rule = rule_for(device)
+    budget_ok = low.pallas_ok or not rule.tpu
     memo = []                       # build_stack_plan is O(instances)
 
     def stack_plan():
@@ -133,19 +120,19 @@ def classify_route(low, force=None, out_dtype=None):
         return memo[0]
 
     sparse_plan = None
-    if force in ('sparse', 'panel') or (force is None and low.pallas_ok):
+    if force in ('sparse', 'panel') or (force is None and budget_ok):
         try:
             sparse_plan = build_sparse_plan(low)
         except UnsupportedFactor:
             if force in ('sparse', 'panel'):
                 raise
     if sparse_plan is not None:
-        occ, small = padded_occupancy(low, sparse_plan)
-        if (force is None and not small and occ >= STACK_OCC_FLOOR
-                and stack_wins(stack_plan())):
+        occ, small, band = facts(low, sparse_plan, rule)
+        if (force is None and stack_first(occ, small, band)
+                and stack_wins(stack_plan(), rule)):
             return 'stack', stack_plan()
         if force == 'panel' or (force is None and (
-                small or occ < PANEL_OCCUPANCY_THRESHOLD)):
+                small or occ < rule.panel_occ)):
             plan = build_panel_plan(low, base=sparse_plan)
             if panels_eligible(plan, normalize_out_dtype(out_dtype)):
                 return 'panel', plan
@@ -153,12 +140,13 @@ def classify_route(low, force=None, out_dtype=None):
                 raise UnsupportedFactor(
                     "int16, bf16 and f16 panel output need a single-bucket "
                     "schedule")
-        if force == 'sparse' or occ < SPARSE_OCCUPANCY_THRESHOLD:
+        if force == 'sparse' or (force is None and takes_worklist(
+                occ, band, store_kind(out_dtype, low.amp_im is not None))):
             return 'sparse', sparse_plan
-    if force in (None, 'stack'):
+    if force == 'stack' or (force is None and rule.tpu):
         p = stack_plan()
-        if p is not None and (force == 'stack' or stack_wins(p) or (
-                not low.pallas_ok and p.wide is None)):
+        if p is not None and (force == 'stack' or stack_wins(p, rule) or (
+                not budget_ok and p.wide is None)):
             return 'stack', p
         if force == 'stack':
             raise UnsupportedFactor(
@@ -319,7 +307,8 @@ def synthesize(channels, start: float, stop: float, sample_rate: float,
     device = resolve_device(device)
     low = lower_schedule(channels, start, stop, sample_rate, part=part,
                          bucket_samples=bucket_samples)
-    kind, plan = classify_route(low, force=_FORCE.get(engine), out_dtype=dt)
+    kind, plan = classify_route(low, force=_FORCE.get(engine), out_dtype=dt,
+                                device=device)
     if kind == 'stack':
         return synthesize_stack(low, plan, out_dtype=dt, dac_scale=dac_scale,
                                 device=device)

@@ -10,7 +10,9 @@ the H100 has one, so both kernels here compute in native float64:
   ``csrc/synth_panel_hi.cu`` (K4) over the live subtiles of a
   single-bucket schedule, zeros elsewhere;
 * :func:`synthesize_hi_routed` picks between them by the f32 router's
-  occupancy rule (:func:`classify_hi_route`).
+  occupancy rule, with the thresholds of the schedule's device
+  (:func:`classify_hi_route`; on the card K3 throughout, the H100's
+  occupancy ladder finding K4 no faster).
 
 On CPU tensors the kernels' plain versions run (:mod:`.reference_hi`).
 Inputs come from ``lower_schedule(..., keep_f64=True)``: ``args + args_lo``
@@ -34,10 +36,10 @@ from .lowering import (OP_COS, OP_COSH, OP_DRAG, OP_DRAG_SIN, OP_DRAG_SINX,
                        OP_ERF, OP_EXP, OP_GAUSSIAN, OP_LINEAR, OP_LINEARCHIRP,
                        OP_MOLLIFIER, OP_POLY_GAUSS, OP_SINC, OP_SINH,
                        LoweredSchedule, UnsupportedFactor)
-from .sparse_synth import (PANEL_OCCUPANCY_THRESHOLD, PanelPlan, PanelWork,
-                           _validate_panel_plan, build_panel_plan,
-                           build_sparse_plan)
-from .synth import default_rows_per_tile, resolve_device
+from .routes import facts, rule_for
+from .sparse_synth import (PanelPlan, PanelWork, _validate_panel_plan,
+                           build_panel_plan, build_sparse_plan)
+from .synth import resolve_device
 
 __all__ = ['HI_OPS', 'HiSchedule', 'check_hi_schedule', 'synthesize_hi',
            'synthesize_hi_panels', 'synthesize_hi_routed',
@@ -158,25 +160,26 @@ def synthesize_hi_panels(dev, low: LoweredSchedule | None = None,
     return out if combine else (out, lo)
 
 
-def classify_hi_route(low: LoweredSchedule):
+def classify_hi_route(low: LoweredSchedule, device=None):
     """The double tier's route -> ``('panel', PanelPlan)`` or ``('dense',
-    None)``, by the rule of the JAX ``synthesize_hi_routed``: a
-    single-bucket real schedule within the TPU's descriptor budget
-    (``pallas_ok``, kept so that the routes agree) goes to the panel kernel
-    when its padded live-subtile occupancy is below
-    PANEL_OCCUPANCY_THRESHOLD or its window is ``small`` (at most two dense
-    tiles), as in ``engine.classify_route``; everything else goes dense."""
-    if low.shape[1] == 1 and low.pallas_ok and low.amp_im is None:
+    None)``, by the rule of the JAX ``synthesize_hi_routed`` with the
+    thresholds of ``device``'s :class:`.routes.RouteRule` (the JAX
+    package's for None or a CPU device, the H100's for a CUDA device): a
+    single-bucket real schedule goes to the panel kernel when its
+    occupancy is below the rule's ``panel_occ`` or its window is the
+    JAX rule's ``small``, as in ``engine.classify_route``; everything else
+    goes dense.  Under the JAX rule the schedule must also be within the
+    TPU's descriptor budget (``pallas_ok``, kept so that the routes
+    agree)."""
+    rule = rule_for(device)
+    if (low.shape[1] == 1 and (low.pallas_ok or not rule.tpu)
+            and low.amp_im is None):
         try:
             sp = build_sparse_plan(low)
         except UnsupportedFactor:
             return 'dense', None
-        R = default_rows_per_tile(low.n_samples, low.bucket_samples,
-                                  low.shape[1])
-        n_rows = -(-low.n_samples // 128)
-        padded_rows = -(-n_rows // R) * R
-        occ = sp.occupied_fraction * n_rows / padded_rows
-        if padded_rows <= 2 * R or occ < PANEL_OCCUPANCY_THRESHOLD:
+        occ, small, _ = facts(low, sp, rule)
+        if small or occ < rule.panel_occ:
             return 'panel', build_panel_plan(low, base=sp)
     return 'dense', None
 
@@ -186,7 +189,7 @@ def synthesize_hi_routed(low: LoweredSchedule, combine: bool = True,
     """Occupancy-routed double tier: the panel kernel or the dense kernel,
     as :func:`classify_hi_route` picks."""
     dev = HiSchedule(low, device)
-    kind, plan = classify_hi_route(low)
+    kind, plan = classify_hi_route(low, dev.device)
     if kind == 'panel':
         return synthesize_hi_panels(dev, plan=plan, combine=combine)
     return synthesize_hi(dev, combine=combine)

@@ -45,13 +45,19 @@ __all__ = ['SparsePlan', 'SparseWork', 'build_sparse_plan', 'PanelPlan',
 DEFAULT_SUBTILE_ROWS = 32
 
 # Route engine='auto' to the panel kernel below this padded live-subtile
-# fraction.  The JAX package's value, measured on TPU v5e; unmeasured on
-# the H100.
+# fraction: the JAX package's value, measured on TPU v5e, which the JAX
+# rule (ops.routes.JAX_RULE) of CPU devices keeps.  On the H100 no rung of
+# the route ladder runs fastest on the panel kernel (route_ladder's record;
+# NVIDIA H100 80GB HBM3, 700.00 W), so the card's rule (ops.routes.
+# CARD_RULE) takes it nowhere.
 PANEL_OCCUPANCY_THRESHOLD = 0.35
 
 # Below this padded live-subtile fraction, a schedule that the panel
 # kernel cannot take (a narrowed store with several buckets) goes to the
-# worklist kernel.  The JAX package's value (TPU v5e); unmeasured on the H100.
+# worklist kernel: the JAX package's value (TPU v5e), the JAX rule's.  On
+# the H100 the worklist path leads the dense kernel below 0.015 of the
+# live-subtile fraction in f32 and pair mode and below 0.3 with a
+# two-byte store (route_ladder's record), CARD_RULE's bounds.
 SPARSE_OCCUPANCY_THRESHOLD = 0.2
 
 # Panel height in rows before the exact-fit shrink (the JAX package's value,

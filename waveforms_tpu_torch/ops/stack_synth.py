@@ -50,15 +50,25 @@ DEFAULT_MAX_WIDTH = 2048
 
 # route to the stack kernel when the segment-walk kernels would touch at
 # least this many times more samples than the batched path evaluates
-# (the JAX package's value, measured on TPU v5e; unmeasured on the H100)
+# (the JAX package's value, measured on TPU v5e); on the H100 every rung
+# of the route ladder with a stack plan has an advantage of 36.9 or more
+# and the stack kernel wins wherever the card's rule takes it, so the
+# card's rule (ops.routes.CARD_RULE) keeps the value (route_ladder's
+# record; NVIDIA H100 80GB HBM3, 700.00 W)
 DEFAULT_ADVANTAGE = 4.0
 
-# ... and only with at least this many narrow instances (the JAX value)
+# ... and only with at least this many narrow instances (the JAX value;
+# the card's rule keeps it: the short windows with fewer, station and
+# flagship_16k, run fastest elsewhere on the H100)
 STACK_MIN_NARROW = 64
 
 # padded subtile occupancy from which many-pulse schedules try the stack
 # route before the segment walks (the JAX router's value, from its TPU
-# occupancy ladder; unmeasured on the H100)
+# occupancy ladder; the JAX rule's).  On the H100 the stack kernel is the
+# fastest kernel from the 5-pulse rung (0.021) up, but below this floor
+# its plan's 0.1-0.3 s of host time outweighs the 0.01-0.07 ms it saves,
+# so the card's rule keeps the floor, where the routers build the plan
+# anyway (route_ladder's record)
 STACK_OCC_FLOOR = 0.15
 
 # 128-sample rows per chunk of the stack kernels' block lists (the CSR

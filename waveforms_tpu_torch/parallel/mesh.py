@@ -438,56 +438,65 @@ def synthesize_on_mesh(channels, start, stop, sample_rate, mesh: Mesh,
                        out_dtype=None, dac_scale=32767.0):
     """Lower, shard and synthesize in one call -> :class:`ShardedPlane`.
 
-    Routes as the JAX package's ``synthesize_on_mesh``, with its thresholds
-    (the single-device router's pieces, :func:`..engine.padded_occupancy`
-    and :func:`..engine.stack_wins`): below the panel occupancy the sharded
-    panel kernel (K2; the sharded worklist kernel K7 where the panel kernel
-    refuses the output mode); below the worklist threshold K7; a
-    many-narrow-pulse schedule (``not small``, occupancy at least the stack
-    floor, no wide instance) the sharded stacked-table kernel (K6); else
-    the dense kernel (K1).  ``rows_per_tile`` forces the dense route, as in
-    JAX.  The TPU's panel worklist budget does not refuse the panel route
-    here, and a schedule over the TPU's descriptor budget runs on K1 where
-    JAX raises."""
-    from ..engine import padded_occupancy, stack_wins
+    Routes as the JAX package's ``synthesize_on_mesh``, with the thresholds
+    of the mesh's devices' :class:`..ops.routes.RouteRule` (the JAX
+    package's on CPU devices, the H100's on CUDA devices; the
+    single-device router's pieces, :func:`..ops.routes.facts`,
+    :func:`..ops.routes.stack_first`, :func:`..ops.routes.takes_worklist`
+    and :func:`..ops.routes.stack_wins`): a many-narrow-pulse schedule
+    (``stack_first``, no wide instance) the sharded stacked-table kernel
+    (K6); else below the panel occupancy the sharded panel kernel (K2; the
+    sharded worklist kernel K7 where the panel kernel refuses the output
+    mode); below the worklist bound K7; under the JAX rule a winning
+    stack plan K6; else the dense kernel (K1).  ``rows_per_tile`` forces
+    the dense route, as in JAX.  The TPU's panel worklist budget does not
+    refuse the panel route here, and a schedule over the TPU's descriptor
+    budget runs on K1 where JAX raises (on CUDA devices that budget steers
+    nothing)."""
     from ..ops import sparse_synth, stack_seq
     from ..ops.lowering import lower_schedule
-    from ..ops.sparse_synth import (PANEL_OCCUPANCY_THRESHOLD,
-                                    SPARSE_OCCUPANCY_THRESHOLD,
-                                    build_sparse_plan)
-    from ..ops.stack_synth import STACK_OCC_FLOOR, build_stack_plan
+    from ..ops.routes import (facts, rule_for, stack_first, stack_wins,
+                              store_kind, takes_worklist)
+    from ..ops.sparse_synth import build_sparse_plan
+    from ..ops.stack_synth import build_stack_plan
 
+    rule = rule_for(next((d for d in mesh.devices.flat if d is not None),
+                         None))
     low = lower_schedule(channels, start, stop, sample_rate, part=part)
+    budget_ok = low.pallas_ok or not rule.tpu
     prefer_stack = False
     memo = []                       # build_stack_plan is O(instances)
-    if low.pallas_ok and rows_per_tile is None:
+    if budget_ok and rows_per_tile is None:
         try:
             plan = build_sparse_plan(low)
-            occ, small = padded_occupancy(low, plan)
-            if part == 'real' and not small and occ >= STACK_OCC_FLOOR:
+            occ, small, band = facts(low, plan, rule)
+            if part == 'real' and stack_first(occ, small, band):
                 memo.append(build_stack_plan(low))
                 prefer_stack = (memo[0] is not None and memo[0].wide is None
-                                and stack_wins(memo[0]))
-            if not prefer_stack and occ < PANEL_OCCUPANCY_THRESHOLD:
+                                and stack_wins(memo[0], rule))
+            if not prefer_stack and occ < rule.panel_occ:
                 try:
                     return sparse_synth.synthesize_panels_sharded(
                         low, mesh, plan=plan, out_dtype=out_dtype,
                         dac_scale=dac_scale)
                 except UnsupportedFactor:
                     pass               # a narrowed multi-bucket store: K7
-            if not prefer_stack and (occ < SPARSE_OCCUPANCY_THRESHOLD
-                                     or occ < PANEL_OCCUPANCY_THRESHOLD):
+            if not prefer_stack and (
+                    takes_worklist(occ, band, store_kind(out_dtype,
+                                                        part == 'complex'))
+                    or occ < rule.panel_occ):
                 return sparse_synth.synthesize_sparse_sharded(
                     low, mesh, plan=plan, out_dtype=out_dtype,
                     dac_scale=dac_scale)
         except UnsupportedFactor:
             pass
-    if part == 'real' and rows_per_tile is None:
+    if part == 'real' and rows_per_tile is None and (rule.tpu
+                                                     or prefer_stack):
         splan = memo[0] if memo else build_stack_plan(low)
         # the stacked-table launch has no dense-residual arm, so wide
         # instances disqualify up front
         if splan is not None and splan.wide is None and (
-                stack_wins(splan) or not low.pallas_ok):
+                stack_wins(splan, rule) or not budget_ok):
             try:
                 return stack_seq.synthesize_stack_sharded(
                     channels, start, stop, sample_rate, mesh,

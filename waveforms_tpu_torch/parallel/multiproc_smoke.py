@@ -28,11 +28,17 @@ dense stratum for K1):
   the port's mesh in one process; the plane's global :meth:`mean
   <.mesh.ShardedPlane.mean>` (a sum over both processes) within 1e-6 of the
   float64 oracle's;
-- ``panel``: :func:`.mesh.synthesize_on_mesh` (K2 on the flagship; the
+- ``panel``: :func:`..ops.sparse_synth.synthesize_panels_sharded` (K2 on
+  the flagship, which JAX's smoke reaches through ``synthesize_on_mesh``
+  and the card's router sends to K7; the
   plane then assembled on rank 0, :meth:`.mesh.ShardedPlane.gather`, bit
-  for bit against the one-process mesh's; None on rank 1), and
+  for bit against the one-process mesh's; None on rank 1),
   ``sparse``: :func:`..ops.sparse_synth.synthesize_sparse_sharded` (K7),
-  likewise bit for bit, the sparse plane within 2e-6 of the dense one;
+  likewise bit for bit, the sparse plane within 2e-6 of the dense one,
+  and ``routed``: :func:`.mesh.synthesize_on_mesh`, the router each rank
+  runs alone (on the card the flagship's route is K7; on CPU devices the
+  JAX rule's), bit for bit against the one-process mesh's and, at full
+  size, the single-device ``synthesize`` on the same device;
 - ``demod``: :func:`.pipeline.make_step` with two tones and no filter, the
   IQ points summed over the processes, against the oracle's (rtol 2e-4,
   atol 1e-6, JAX's);
@@ -343,13 +349,14 @@ def run_layout(w, layout, backend):
     dense_local = plane
     del whole
 
-    # ---- K2 (the router's route) and K7
-    plane = w.main_path('panel', lambda: synthesize_on_mesh(
-        chans, 0.0, stop, FS, mesh))
-    whole = synthesize(chans, 0.0, stop, FS, device=dev)
+    # ---- K2 (named: on the card the router takes the flagship to K7 and
+    # the small schedule to K1) and K7
+    plane = w.main_path('panel', lambda: sp.synthesize_panels_sharded(
+        low, mesh))
+    whole = synthesize(chans, 0.0, stop, FS, engine='cuda-panel', device=dev)
     if full:
         _blocks_equal(w, 'panel', plane, whole, mesh)
-    one_plane = synthesize_on_mesh(chans, 0.0, stop, FS, one)
+    one_plane = sp.synthesize_panels_sharded(low, one)
     _planes_equal(w, 'panel', plane, one_plane, mesh)
     w.save_blocks('panel', plane, mesh)
     if full:
@@ -378,6 +385,18 @@ def run_layout(w, layout, backend):
     w.save_blocks('sparse', sparse, mesh)
     w.timed('sparse', 'kernel_ms', sp.sparse_shards(low, mesh, Rs=RS).run)
     del sparse, whole_sp
+
+    # ---- the router, each rank deciding alone: on the card the
+    # flagship's route is K7 (the JAX rule's on CPU devices)
+    routed = w.main_path('routed', lambda: synthesize_on_mesh(
+        chans, 0.0, stop, FS, mesh))
+    if full:
+        _blocks_equal(w, 'routed', routed,
+                      synthesize(chans, 0.0, stop, FS, device=dev), mesh)
+    _planes_equal(w, 'routed', routed, synthesize_on_mesh(
+        chans, 0.0, stop, FS, one), mesh)
+    w.save_blocks('routed', routed, mesh)
+    del routed
 
     # the oracle: the float64 host engine, 16 channels at a time
     t = np.arange(N) / FS
