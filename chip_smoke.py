@@ -179,7 +179,20 @@ the host engine, with g++; a failed build ends the run) and runs:
    sizes (one line each), with the launch counts read right after, and on
    the same inputs every variant against its plain version, and K7 on
    P1's worklist and on that worklist padded 4x against its plain version
-   within TOL_PLAIN.
+   within TOL_PLAIN;
+12. the profiling hooks (``profiling``, ``waveforms_tpu_torch.utils.
+   profiling``): ``measure_device`` beside ``probes.cuda_ms`` on K1 over
+   the dense stratum (within PROFILE_TOL, or the run fails), K7 alone on
+   the flagship and each of S1's kernels on the clustered filter over the
+   flagship's f64 rows (recorded), and a trace of one ``synthesize`` call
+   inside ``annotate`` holding the annotation and the call's kernel;
+13. the JAX suite's cross-engine nets (``cross_engine``,
+   ``waveforms_tpu_torch.cross_engine``, a main path): the fuzz seeds of
+   CROSS_CASES and the station through ``engine='auto'`` and every forced
+   kernel (K1, K2, K7, K5) in f32 and int16, pair mode and the double tier
+   (K3), each against its route's plain version and the oracle;
+14. the examples (``examples``): each ``examples/torch_*.py`` on the card,
+   a main path each.
 
 Kernel times are CUDA-event medians with the card's queue pre-filled
 (``probes.cuda_ms``), so they time the device and not the host's launch
@@ -380,7 +393,8 @@ def cuda_ms(fn, reps=REPS, warm_s=0.05):
 def traced_kernels(fn, pattern, reps=10):
     """The CUDA kernels one call of ``fn`` launches whose names match the
     regular expression ``pattern``, from torch.profiler's trace of ``reps``
-    calls after an untraced one: {'kernels': {name: [launches a call,
+    calls after an untraced one (``utils.profiling``'s trace and its reader
+    of the card's kernel events): {'kernels': {name: [launches a call,
     device ms a launch]}, 'calls_traced': n, 'reps': reps}, or None where
     the trace holds no such kernel.  Each call is followed on its stream
     by a one-element add, the trace's only other kernel, which closes the
@@ -389,10 +403,11 @@ def traced_kernels(fn, pattern, reps=10):
     a single kernel's record (one launch in ten on an H100)."""
     import collections
     import statistics
+    import tempfile
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from waveforms_tpu_torch.utils.profiling import device_events, trace
     mark = torch.zeros(1, device='cuda')
 
     def call():
@@ -400,21 +415,20 @@ def traced_kernels(fn, pattern, reps=10):
         mark.add_(1)
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir):
+            for _ in range(reps):
+                call()
+        events = device_events(log_dir)
     windows, now, us = [], collections.Counter(), collections.defaultdict(list)
-    for ev in sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start):
-        m = re.search(pattern, ev.name)
+    for ev in events:
+        m = re.search(pattern, ev['name'])
         if m is None:
             windows.append(now)
             now = collections.Counter()
             continue
         now[m.group(0)] += 1
-        us[m.group(0)].append(ev.time_range.elapsed_us())
+        us[m.group(0)].append(ev['dur'])
     if not us or not windows:
         return None
     return {'kernels': {k: [statistics.mode(w[k] for w in windows),
@@ -1462,20 +1476,23 @@ def host_cpu():
 
 def cuda_activity(fn):
     """The CUDA kernels and memory copies of one call of ``fn`` in
-    torch.profiler's trace (after an untraced call), and their summed
-    device time."""
+    torch.profiler's trace (after an untraced call; ``utils.profiling``'s
+    trace and reader), and their summed device time."""
+    import tempfile
+
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from waveforms_tpu_torch.utils.profiling import (COPIES, KERNELS,
+                                                     device_events, trace)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = [e for e in evs if e.name.startswith(('Memcpy', 'Memset'))]
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir):
+            fn()
+        evs = device_events(log_dir, KERNELS + COPIES)
+    copies = [e for e in evs if e['cat'] in COPIES]
     return {'kernels': len(evs) - len(copies), 'copies': len(copies),
-            'device_ms': sum(e.time_range.elapsed_us() for e in evs) / 1e3}
+            'device_ms': sum(e['dur'] for e in evs) / 1e3}
 
 
 def engine_native(fail):
@@ -3762,6 +3779,223 @@ def brief_multiproc(rec):
     return out
 
 
+PROFILE_TOL = 0.10     # K1's measure_device against probes.cuda_ms
+PROFILE_REPS = 5
+# the five kernels of a full S1 call (signal_flagship's traced_kernels)
+S1_KERNELS = ('iir_chunk_ends_kernel', 'iir_group_ends_kernel',
+              'iir_group_starts_kernel', 'iir_chunk_starts_kernel',
+              'iir_output_kernel')
+
+
+def profiling(fail):
+    """``waveforms_tpu_torch.utils.profiling`` on the card:
+    ``measure_device`` (the median duration of a kernel's events, by name,
+    in torch.profiler's trace) beside ``probes.cuda_ms`` (CUDA events, the
+    card's queue pre-filled) for the same call: K1 on the dense stratum
+    (the phase fails where the two differ by more than PROFILE_TOL: at
+    1.36 ms either clock holds), K7 alone on the flagship's worklist, and
+    each of S1's kernels on the clustered filter over the flagship's f64
+    rows, their sum beside the call's events (K7's and S1's ratios
+    recorded, not failed on); then one ``synthesize`` call traced inside
+    ``annotate``, whose trace must hold the annotation on the host's
+    timeline and, inside its span on the card's, the call's kernel.  Where
+    ``utils.profiling.ATTEMPTS`` traces hold no matching device event the
+    phase fails; ``events_of_launches`` counts one further trace's."""
+    import glob
+    import tempfile
+
+    import torch
+
+    import waveforms_tpu_torch as wt
+    from waveforms_tpu_torch import kernels
+    from waveforms_tpu_torch.ops import iir_cases
+    from waveforms_tpu_torch.ops.lowering import lower_schedule
+    from waveforms_tpu_torch.ops.sparse_synth import (SparseWork,
+                                                      build_sparse_plan)
+    from waveforms_tpu_torch.ops.synth import DeviceSchedule
+    from waveforms_tpu_torch.schedules import FS, STRATA
+    from waveforms_tpu_torch.utils import profiling as prof
+
+    chans = STASH.get('chans', {})        # run_strata's, where it ran
+
+    def stratum(name):
+        return chans[name] if name in chans else STRATA[name][0]()
+    rec = {'phase': 'profiling', 'reps': PROFILE_REPS}
+
+    def both(label, fn, prefix):
+        events_ms = cuda_ms(fn)
+        try:
+            traced_ms = prof.measure_device(fn, prefix,
+                                            reps=PROFILE_REPS) * 1e3
+        except RuntimeError as exc:
+            rec[label] = {'prefix': prefix, 'error': str(exc)}
+            return None
+        with tempfile.TemporaryDirectory() as log_dir:
+            with prof.trace(log_dir):
+                for _ in range(PROFILE_REPS):
+                    fn()
+            found = len(prof.device_event_times(log_dir, prefix))
+        rec[label] = {'prefix': prefix, 'measure_device_ms': traced_ms,
+                      'cuda_ms': events_ms, 'ratio': traced_ms / events_ms,
+                      'events_of_launches': [found, PROFILE_REPS]}
+        return rec[label]['ratio']
+
+    low = lower_schedule(stratum('dense'), 0.0, STRATA['dense'][1], FS)
+    dev = DeviceSchedule(low, 'cuda')
+    out = torch.empty((low.shape[0], low.n_samples), device='cuda')
+    k1 = both('k1_dense', lambda: kernels.synth_dense(dev, out),
+              'synth_dense_kernel')
+    ok = k1 is not None and abs(k1 - 1) <= PROFILE_TOL
+    del dev, out
+
+    flagship, stop = stratum('flagship'), STRATA['flagship'][1]
+    low = lower_schedule(flagship, 0.0, stop, FS)
+    dev = DeviceSchedule(low, 'cuda')
+    plan = build_sparse_plan(low)
+    work = SparseWork.upload(plan, 'cuda')
+    out = torch.zeros((low.shape[0], plan.window_samples), device='cuda')
+    ok &= both('k7_flagship', lambda: kernels.synth_sparse(dev, work, out,
+                                                          None),
+               'synth_sparse_kernel') is not None
+    del dev, work
+
+    x = out.double()
+    del out
+    coef, zi = s1_rows(*iir_cases.filters()['clustered'], x)
+    y, zf = torch.empty_like(x), torch.empty_like(zi)
+
+    def s1():
+        kernels.iir_df2t(x, coef, zi, y, zf)
+    s1_rec = {'filter': 'clustered', 'shape': list(x.shape),
+              'cuda_ms': cuda_ms(s1, reps=5), 'kernels': {}}
+    for name in S1_KERNELS:
+        try:
+            s1_rec['kernels'][name] = prof.measure_device(
+                s1, name, reps=PROFILE_REPS) * 1e3
+        except RuntimeError as exc:
+            s1_rec['kernels'][name] = None
+            s1_rec.setdefault('errors', []).append(str(exc))
+    found = [v for v in s1_rec['kernels'].values() if v is not None]
+    s1_rec['measure_device_sum_ms'] = sum(found)
+    s1_rec['ratio'] = s1_rec['measure_device_sum_ms'] / s1_rec['cuda_ms']
+    rec['s1_clustered'] = s1_rec
+    ok &= len(found) == len(S1_KERNELS)
+    del x, y, zf
+    torch.cuda.empty_cache()
+
+    # a synthesize call inside annotate: the annotation in the trace, and
+    # the call's kernel inside the annotation's span on the card's timeline
+    # (traced again, as measure_device does, where a trace lost them)
+    label = 'chip_smoke.synthesize'
+    for attempt in range(1, prof.ATTEMPTS + 1):
+        with tempfile.TemporaryDirectory() as log_dir:
+            with prof.trace(log_dir):
+                with prof.annotate(label):
+                    wt.synthesize(flagship, 0.0, stop, FS, device='cuda')
+            host = []
+            for path in glob.glob(os.path.join(log_dir, '*.pt.trace.json')):
+                with open(path) as f:
+                    host += [e for e in json.load(f)['traceEvents']
+                             if e.get('cat') == 'user_annotation'
+                             and e.get('name') == label]
+            spans = [e for e in prof.device_events(
+                log_dir, ('gpu_user_annotation',)) if e['name'] == label]
+            inside = [prof.kernel_name(e['name'])[:40]
+                      for e in prof.device_events(log_dir) for a in spans
+                      if a['ts'] <= e['ts']
+                      and e['ts'] + e['dur'] <= a['ts'] + a['dur']]
+        held = bool(host) and any(k.startswith('synth_sparse_kernel')
+                                  for k in inside)
+        if held:
+            break
+    rec['annotate'] = {'label': label, 'host_spans': len(host),
+                       'device_spans': len(spans), 'kernels_inside': inside,
+                       'traces': attempt}
+    ok &= held
+    rec['ok'] = bool(ok)
+    log(rec)
+    if not ok:
+        fail.append('profiling')
+
+
+#: the cross_engine phase's cases: the JAX fuzz file's two Pallas seeds,
+#: a native, a sparse, a stack and a complex seed, and the station
+CROSS_CASES = ('kernel0', 'kernel1', 'native1', 'sparse0', 'stack0',
+               'complex0', 'station')
+CROSS_MUST = ('synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
+              'synth_dense_hi')
+
+
+def cross_engine(fail):
+    """The JAX suite's cross-engine nets on the card (a main path,
+    ``waveforms_tpu_torch.cross_engine``): CROSS_CASES through
+    ``engine='auto'`` on the card's router and each forced kernel (K1, K2,
+    K7, K5) in f32 and int16, pair mode on the complex seed and the double
+    tier (K3), each against its route's plain version on the CPU and the
+    oracle (f32 1e-6 and 2e-6 of each channel's peak, int16 one code,
+    float64 1e-12 and 1e-9); a refusal must be the plain version's too.
+    Fails on a failed check or where one of K1, K2, K7, K5, K3 did not
+    launch."""
+    from waveforms_tpu_torch import cross_engine as ce
+    checks = ce.checks(CROSS_CASES)
+    recs, wall, counts = main_path(
+        'cross_engine', lambda: [ce.check(*c, device='cuda')
+                                 for c in checks],
+        fail, {k: None for k in CROSS_MUST})
+    bad = [r for r in recs if not r['ok']]
+    worst = {}
+    for r in recs:
+        if 'vs_plain' in r:
+            w = worst.setdefault(r['mode'], {'vs_plain': 0, 'vs_oracle': 0})
+            for key in w:
+                w[key] = max(w[key], r[key])
+    rec = {'phase': 'cross_engine', 'cases': list(CROSS_CASES),
+           'checks': len(recs), 'refused': sum('refused' in r for r in recs),
+           'failed': bad, 'worst': worst, 'wall_s': wall,
+           'launches': counts, 'records': recs, 'ok': not bad}
+    log(rec, {k: v for k, v in rec.items() if k != 'records'})
+    if bad:
+        fail.append(f"cross_engine: {len(bad)} checks")
+
+
+EXAMPLES = ('torch_full_pipeline', 'torch_multichip_mesh',
+            'torch_precision_tiers', 'torch_precompensation',
+            'torch_sequence_table')
+
+
+def examples(fail):
+    """Each of ``examples/torch_*.py`` run on the card (``main('cuda')``,
+    a main path each): its seconds, its launches and the last line of its
+    report.  Fails where one raises or launches nothing."""
+    import contextlib
+    import importlib.util
+    import io
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec = {'phase': 'examples', 'runs': {}}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, 'examples', name + '.py'))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        report = io.StringIO()
+        run = {}
+        try:
+            with contextlib.redirect_stdout(report):
+                _, run['seconds'], run['launches'] = main_path(
+                    f'example {name}', lambda: mod.main('cuda'), fail, {})
+            run['ok'] = bool(run['launches'])
+        except Exception as exc:          # an example that raises fails
+            run.update(ok=False, error=f"{type(exc).__name__}: {exc}")
+        lines = report.getvalue().strip().splitlines()
+        run['last_line'] = lines[-1][:160] if lines else ''
+        rec['runs'][name] = run
+        if not run['ok']:
+            fail.append(f"example {name}")
+    rec['ok'] = all(r['ok'] for r in rec['runs'].values())
+    log(rec)
+
+
 def ptxas_entries(lines):
     """{entry function (mangled): [registers, spill store bytes, spill
     load bytes, shared memory bytes]} from nvcc's ``-Xptxas -v`` lines, in
@@ -3942,7 +4176,7 @@ def main():
                       engine_native, engine_torch, run_sequences,
                       signal_flagship, stream_flagship, seq_station_chain,
                       iir_routes, route_ladder, run_mesh, run_multiproc,
-                      run_probes):
+                      run_probes, profiling, cross_engine, examples):
             t0 = time.perf_counter()
             try:
                 if phase in (run_strata, run_sequences, signal_flagship,

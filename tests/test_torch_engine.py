@@ -131,7 +131,9 @@ def test_import_loads_no_jax():
             "waveforms_tpu_torch.native, waveforms_tpu_torch.ops.torch_eval, "
             "waveforms_tpu_torch.ops.torch_basis, waveforms_tpu_torch.dsl, "
             "waveforms_tpu_torch.__main__, waveforms_tpu_torch.version, "
-            "waveforms_tpu_torch.utils.freeze; "
+            "waveforms_tpu_torch.utils.freeze, "
+            "waveforms_tpu_torch.utils.profiling, "
+            "waveforms_tpu_torch.cross_engine; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'waveforms_tpu.')) "
             "or m == 'waveforms_tpu']; print(bad); assert not bad, bad")
