@@ -74,11 +74,15 @@ the host engine, with g++; a failed build ends the run) and runs:
    CPU and the oracle, f32 and int16, with indices past both ends; then
    the full-size main paths, each with its launch counts read right after
    it: ``seq_flagship`` (8 flagship schedules: ``play`` -> K1,
-   ``play_sparse`` -> K7, ``play_many`` of 3 shots -> K1 x 3),
+   ``play_sparse`` -> K7, ``play_many`` of 3 shots -> one launch of K1's
+   shot entry, ``play_many(sparse=True)`` -> one of K7's, each shot
+   bit-equal to a one-shot launch and both timed beside the three one-shot
+   launches they replace; a shot vector drawn on the card played under
+   ``torch.cuda.set_sync_debug_mode('error')``),
    ``seq_flagship_packed`` (8 shots in one K2 launch, f32 and int16),
    ``seq_station`` (16 gate-train schedules of 2 ch x 200,000 samples:
    ``play_packed`` of 50 shots -> K2, ``play_replay`` of 1000 shots -> the
-   K1 palette and a gather), ``stackseq_ladder`` (4 ladder120 schedules,
+   K1 palette, one shot launch, and a gather), ``stackseq_ladder`` (4 ladder120 schedules,
    16 shots, f32 and int16 -> K6, K5 never) and ``stackseq_rb`` (16
    schedules of 30 cosPulses, 1000 shots -> K6), each kernel against its
    plain version, the oracle on a few channels of a few shots, and the
@@ -99,9 +103,12 @@ the host engine, with g++; a failed build ends the run) and runs:
    512 rows (31 K1 windows a pass), f32 equal to one-shot K1 bit for bit,
    filtered (2 S1 calls a chunk) against the port's whole-row ``sosfilt``
    and scipy, int16 codes equal to one-shot K1's; ``seq_station_chain`` --
-   ``run_sequence`` of 1000 shots (K1 and S1 each) with the Z-settle pair
-   and two tones, 8 shots against ``Sequencer.play`` + scipy ``lfilter`` +
-   ``getFTMatrix``; ``iir_routes`` -- at each shape the main paths give a
+   ``run_sequence`` of 1000 shots with the Z-settle pair and two tones,
+   one CUDA graph a shot (K1's shot entry, S1, the products), bit-equal to
+   the host loop, 8 shots against ``Sequencer.play`` + scipy ``lfilter``
+   + ``getFTMatrix``, the shots' kernel executions from torch.profiler's
+   trace, the capture's ms and a shot's host and device time beside the
+   loop's; ``iir_routes`` -- at each shape the main paths give a
    filter, S1's device time beside the doubling scan's, and the route;
 8. the routers' occupancy ladder (``route_ladder``,
    ``waveforms_tpu_torch.route_ladder``, the port of
@@ -248,6 +255,7 @@ RECORDS = []
 MAIN_COUNTS = []      # (path, launch counts) of every main path, read right
                       # after it
 MAIN_WINDOWED = []    # (path, K1's launches with row0 != 0) of the same
+MAIN_SHOTS = []       # (path, K1's and K7's shot-entry launches) of the same
 BUILDS = {}           # key -> the future of a schedule built in a worker
 LADDER_SEEDS = (5, 6, 7, 8)   # stackseq_ladder's four ladder120 schedules
 
@@ -1942,6 +1950,8 @@ def main_path(label, fn, fail, must, absent=()):
     counts = kernels.launch_counts()
     MAIN_COUNTS.append((label, counts))
     MAIN_WINDOWED.append((label, kernels.synth_dense.windowed_launches))
+    MAIN_SHOTS.append((label, {k.name: k.shot_launches for k in (
+        kernels.synth_dense, kernels.synth_sparse)}))
     for k, n in must.items():
         if counts[k] == 0 or (n is not None and counts[k] != n):
             fail.append(f"{label}: {k} launched {counts[k]} times, "
@@ -2000,10 +2010,12 @@ class Oracle:
 
 
 def brief_seq(rec):
-    keys = ('phase', 'method', 'dtype', 'ok', 'launches', 'shots',
-            'vs_plain', 'vs_oracle', 'vs_k5', 'kernel_ms', 'plain_ms',
-            'fill_ms', 'gsps', 'us_per_shot', 'store_share', 'gather_ms',
-            'bound_ms', 'bound_by')
+    keys = ('phase', 'method', 'entry', 'dtype', 'ok', 'launches', 'shots',
+            'vs_plain', 'vs_oracle', 'vs_k5', 'equal_one_shot',
+            'equal_host_ks', 'sparse_equal_host_ks', 'kernel_ms',
+            'one_shot_launches_ms', 'plain_ms', 'fill_ms', 'gsps',
+            'us_per_shot', 'store_share', 'gather_ms', 'bound_ms',
+            'bound_by')
     return {k: rec[k] for k in keys if k in rec}
 
 
@@ -2084,23 +2096,106 @@ def run_sequences(fail, summary):
 
     ks = [int(rng.integers(0, 8)), 99, -1]
     clamped = [seq._clamp(x) for x in ks]
-    out, wall, cnt = main_path('seq_flagship play_many',
-                               lambda: seq.play_many(ks), fail,
-                               {'synth_dense': len(ks)})
-    devs = [seq._schedule(x) for x in clamped]
-    plain = torch.empty_like(out)
-    for i, d in enumerate(devs):
-        kernels.synth_dense.plain(d, plain[i], None)
-    rec = dict(base, method='play_many', dtype='float32', shots=len(ks),
-               launches=cnt, wall_s=wall, vs_plain=shots_err(out, plain),
-               vs_oracle=oracle.err(out, [(1, 7, 0), (2, 0, C - 1)]))
-    del plain
-    timed(rec, lambda: [kernels.synth_dense(d, out[i], None)
-                        for i, d in enumerate(devs)],
-          lambda: [kernels.synth_dense.plain(d, out[i], None)
-                   for i, d in enumerate(devs)], out, len(ks) * C * N)
-    finish(rec, ok_errs(rec) and clamped == [ks[0], 7, 0])
-    del out
+    ks_dev = seq.shot_indices(ks)
+    for sparse in (False, True):
+        name = 'synth_sparse' if sparse else 'synth_dense'
+        kern = getattr(kernels, name)
+        out, wall, cnt = main_path(
+            f"seq_flagship play_many{' sparse' if sparse else ''}",
+            lambda: seq.play_many(ks, sparse=sparse), fail, {name: 1})
+        if sparse:
+            work = seq._stacked_work(32)
+            args = [seq._sparse_args(x, 32) for x in clamped]
+            plain = kern.plain_shots(seq, work, ks_dev, torch.zeros_like(out),
+                                     None)
+
+            # K7 stores every sample of the live subtiles alone: a launch
+            # over its own output again writes the same (timed without the
+            # zero fill, which timed() times apart)
+            def shot_launch():
+                kern.shots(seq, work, ks_dev, out, None)
+
+            def one_shot_launches():
+                for i, a in enumerate(args):
+                    kern(*a, out[i], None)
+
+            def plain_launch():
+                kern.plain_shots(seq, work, ks_dev, out, None)
+        else:
+            args = [(seq._schedule(x),) for x in clamped]
+            plain = kern.plain_shots(seq, ks_dev, torch.empty_like(out), None)
+
+            def shot_launch():
+                kern.shots(seq, ks_dev, out, None)
+
+            def one_shot_launches():
+                for i, a in enumerate(args):
+                    kern(*a, out[i], None)
+
+            def plain_launch():
+                kern.plain_shots(seq, ks_dev, out, None)
+        # each shot bit-identical to a one-shot launch of its schedule
+        equal = []
+        for i, a in enumerate(args):
+            one = kern(*a, torch.zeros_like(out[i]), None)
+            equal.append(bool(torch.equal(out[i], one)))
+            del one
+        rec = dict(base, method='play_many', dtype='float32',
+                   entry=f'{name}.shots', shots=len(ks), launches=cnt,
+                   wall_s=wall, vs_plain=shots_err(out, plain),
+                   vs_oracle=oracle.err(out, [(1, 7, 0), (2, 0, C - 1)]),
+                   equal_one_shot=equal)
+        if sparse:
+            rec['max_abs_err'] = float((out - plain).abs().max())
+        del plain
+        timed(rec, shot_launch, plain_launch, out, len(ks) * C * N)
+        # the path it replaces: one launch a shot, each index read on the
+        # host
+        rec['one_shot_launches_ms'] = cuda_ms(one_shot_launches)
+        summary[name]['shots'] = {
+            k: rec[k] for k in ('entry', 'shots', 'kernel_ms',
+                                'one_shot_launches_ms', 'plain_ms')}
+        finish(rec, ok_errs(rec) and clamped == [ks[0], 7, 0] and all(equal))
+        del out
+
+    # a shot vector drawn on the card plays with no host sync: the shot
+    # entries read it there (sync debug mode 'error' raises on any sync)
+    gen = torch.Generator('cuda').manual_seed(6)
+    ks_card = torch.randint(-2, 10, (3,), device='cuda', generator=gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        dense = seq.play_many(ks_card)
+        sparse = seq.play_many(ks_card, sparse=True)
+        single = seq.play(ks_card[0])
+        err = None
+    except RuntimeError as exc:
+        err = str(exc)[-400:]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    rec = dict(base, method='play_many card ks', dtype='float32',
+               shots=3, sync_debug_mode='error', error=err,
+               launches=counts)
+    if err is None:
+        host = ks_card.cpu().tolist()
+        rec['ks'] = host
+        want = seq.play_many(host)
+        rec['equal_host_ks'] = bool(torch.equal(dense, want)
+                                    and torch.equal(single, want[0]))
+        del want
+        rec['sparse_equal_host_ks'] = bool(torch.equal(
+            sparse, seq.play_many(host, sparse=True)))
+        del dense, sparse, single
+    rec['ok'] = bool(err is None and rec['equal_host_ks']
+                     and rec['sparse_equal_host_ks']
+                     and counts == {'synth_dense': 2, 'synth_sparse': 1})
+    log(rec, brief_seq(rec) | {'error': err})
+    if not rec['ok']:
+        fail.append('seq_flagship play_many card ks')
+    torch.cuda.empty_cache()
 
     # ---- seq_flagship_packed: 8 shots in one panel-kernel launch
     order = np.random.default_rng(8).permutation(8)
@@ -2131,7 +2226,7 @@ def run_sequences(fail, summary):
               raw, len(order) * C * N)
         finish(rec, ok_errs(rec))
         del out, raw
-    del seq, dev, devs, packed, work
+    del seq, dev, packed, work
 
     # ---- seq_station: 16 gate-train schedules (2 ch x 200,000 samples)
     rng = np.random.default_rng(11)
@@ -2164,7 +2259,7 @@ def run_sequences(fail, summary):
     ks = rng.integers(0, 16, 1000)
     out, wall, cnt = main_path('seq_station play_replay',
                                lambda: seq.play_replay(ks), fail,
-                               {'synth_dense': 16})
+                               {'synth_dense': 1})
     pal = seq._palettes[next(iter(seq._palettes))]
     devs = [seq._schedule(x) for x in range(16)]
     plain = torch.empty_like(pal)
@@ -2177,15 +2272,27 @@ def run_sequences(fail, summary):
                gathered_exact=bool(torch.equal(out, pal[ks_dev])),
                vs_oracle=oracle.err(out, [(0, int(ks[0]), 0),
                                           (999, int(ks[999]), 1)]))
-    timed(rec, lambda: [kernels.synth_dense(d, pal[x], None)
-                        for x, d in enumerate(devs)],
-          lambda: [kernels.synth_dense.plain(d, pal[x], None)
-                   for x, d in enumerate(devs)], pal, 16 * C * N)
+    every = seq.shot_indices(range(16))
+    timed(rec, lambda: kernels.synth_dense.shots(seq, every, pal, None),
+          lambda: kernels.synth_dense.plain_shots(seq, every, pal, None),
+          pal, 16 * C * N)
     rec['gather_ms'] = cuda_ms(
         lambda: torch.index_select(pal, 0, ks_dev, out=out))
     rec['us_per_shot'] = rec['gather_ms'] * 1e3 / len(ks)
-    finish(rec, ok_errs(rec) and rec['gathered_exact'])
-    del out, pal, plain, seq, devs
+    # a card-held int32 index past both ends: the gather clamps nothing, so
+    # play_replay clamps it on the card first, with no host sync
+    wild = torch.tensor([-1, 16, 3, 1 << 20, -(1 << 20)], dtype=torch.int32,
+                        device='cuda')
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = seq.play_replay(wild)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rec['card_index_clamped'] = bool(torch.equal(got, pal[[0, 15, 3, 15, 0]]))
+    finish(rec, ok_errs(rec) and rec['gathered_exact']
+           and rec['card_index_clamped'])
+    del out, pal, plain, seq, devs, got
 
     # ---- stackseq_ladder: 4 ladder120 schedules, 16 shots on K6
     host = {}
@@ -3014,14 +3121,49 @@ def stream_flagship(fail, summary):
         fail.append('stream_flagship')
 
 
+def graph_executions(fn, names):
+    """Kernel executions on the card of one call of ``fn`` (``utils.
+    profiling``'s trace and reader of the card's kernel events and copies,
+    which count a graph's kernels as they run): ({prefix: executions} of
+    the kernels whose names start with one of ``names``, {kernel or copy:
+    [executions, device seconds]} of every event, by its name up to the
+    template arguments)."""
+    import collections
+    import tempfile
+
+    import torch
+
+    from waveforms_tpu_torch.utils.profiling import (COPIES, KERNELS,
+                                                     device_events,
+                                                     kernel_name, trace)
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir):
+            fn()
+            torch.cuda.synchronize()
+        events = device_events(log_dir, KERNELS + COPIES)
+    every = collections.defaultdict(lambda: [0, 0.0])
+    for ev in events:
+        name = re.split(r'[<(]', kernel_name(ev.get('name', '')))[0]
+        every[name][0] += 1
+        every[name][1] += ev['dur'] / 1e6
+    return ({n: sum(c for k, (c, _) in every.items() if k.startswith(n))
+             for n in names}, dict(every))
+
+
 def seq_station_chain(fail, summary):
     """``run_sequence`` on the seq_station table (16 schedules, 2 ch x
-    200,000 samples), 1000 shots in the replay's seeded order, with the
-    Z-settle pre-compensation and the two readout tones -> (1000, 2, 2);
-    8 shots' IQ points against ``Sequencer.play`` plus scipy's lfilter
-    (from lfiltic's zero history) plus ``getFTMatrix`` on the host.  Each
-    shot one K1 launch and one S1 call; its time a shot on the host's
-    clock (the main path's wall) and on the card's (CUDA events)."""
+    200,000 samples), 1000 shots in the replay's seeded order given as a
+    CUDA tensor, with the Z-settle pre-compensation and the two readout
+    tones -> (1000, 2, 2): one CUDA graph a shot (K1's shot entry, S1's
+    kernels, the demodulation), captured once a call and replayed once a
+    shot.  Its IQ points bit-equal to the plain version (the host loop,
+    ``run_sequence_loop``) and 8 shots' against ``Sequencer.play`` plus
+    scipy's lfilter (from lfiltic's zero history) plus ``getFTMatrix`` on
+    the host.  The Python counters see the eager first shot and the
+    capture; the shots' kernel executions come from torch.profiler's trace
+    of one replayed run.  The time a shot on the host's clock (the main
+    path's wall, and a second run's replays alone) and on the card's (CUDA
+    events), the capture's, and the loop's beside them."""
     import numpy as np
     import scipy.signal as sps
     import torch
@@ -3030,7 +3172,8 @@ def seq_station_chain(fail, summary):
                                                 exp_decay_filter)
     from waveforms_tpu_torch.ops import Sequencer
     from waveforms_tpu_torch.ops.lowering import lower_schedule
-    from waveforms_tpu_torch.parallel import run_sequence
+    from waveforms_tpu_torch.parallel import (SequenceGraph, run_sequence,
+                                              run_sequence_loop)
     from waveforms_tpu_torch.schedules import FS, station_channels
     from waveforms_tpu_torch.utils.signal import getFTMatrix
 
@@ -3041,12 +3184,16 @@ def seq_station_chain(fail, summary):
     seq = Sequencer([lower_schedule(ch, 0.0, 1e-4, FS) for ch in chans],
                     device='cuda')
     ba = [exp_decay_filter(a, t, FS, inv=True) for a, t in zip(*Z_SETTLE)]
+    ks_dev = torch.as_tensor(ks, device='cuda')
+    kw = {'ba_filters': ba, 'demod_freqs': TONES}
 
-    def run():
-        return run_sequence(seq, ks, ba_filters=ba, demod_freqs=TONES)
-
-    iq, wall, cnt = main_path('seq_station_chain', run, fail,
-                              {'synth_dense': len(ks), 'iir_df2t': len(ks)})
+    iq, wall, cnt = main_path('seq_station_chain',
+                              lambda: run_sequence(seq, ks_dev, **kw), fail,
+                              {'synth_dense': 2, 'iir_df2t': 2})
+    t0 = time.perf_counter()
+    loop = run_sequence_loop(seq, ks, **kw)
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
     b, a = combine_filters(ba)
     zi = sps.lfiltic(b, a, np.zeros(len(a) - 1), np.zeros(len(b) - 1))
     ft = getFTMatrix(TONES, seq.n_samples, sampleRate=FS)
@@ -3057,16 +3204,59 @@ def seq_station_chain(fail, summary):
         got = iq[i].cpu().numpy()
         errs.append(float(np.abs(got - ref).max() / np.abs(ref).max()))
     rec = {'phase': 'seq_station_chain', 'table': seq.describe(),
+           'route': 'SequenceGraph: one CUDA graph a shot',
            'shots': len(ks), 'shape': list(iq.shape),
            'dtype': str(iq.dtype)[6:], 'launches': cnt, 'wall_s': wall,
            'us_per_shot_wall': wall * 1e6 / len(ks),
-           'vs_host': max(errs), 'tol': TOL_DEMOD}
-    rec['device_ms'] = cuda_ms(run, reps=1)
+           'equal_loop': bool(torch.equal(iq, loop)),
+           'vs_host': max(errs), 'tol': TOL_DEMOD,
+           'loop_wall_s': loop_wall,
+           'loop_us_per_shot_wall': loop_wall * 1e6 / len(ks)}
+    del loop
+    # the capture, then a run of replays alone, on the host's clock
+    t0 = time.perf_counter()
+    graph = SequenceGraph(seq, ks_dev, **kw)
+    torch.cuda.synchronize()
+    rec['build_s'] = time.perf_counter() - t0     # shot 0 eager + capture
+    rec['capture_ms'] = graph.capture_s * 1e3
+    t0 = time.perf_counter()
+    graph.run()
+    torch.cuda.synchronize()
+    rec['first_run_us_per_shot_wall'] = (time.perf_counter() - t0) * 1e6 / (
+        len(ks) - 1)
+    t0 = time.perf_counter()
+    again = graph.run()
+    torch.cuda.synchronize()
+    rec['replay_us_per_shot_wall'] = (time.perf_counter() - t0) * 1e6 / len(
+        ks)
+    rec['equal_rerun'] = bool(torch.equal(again, iq))
+    rec['device_ms'] = cuda_ms(graph.run, reps=3)
     rec['us_per_shot'] = rec['device_ms'] * 1e3 / len(ks)
-    rec['ok'] = bool(rec['vs_host'] <= TOL_DEMOD
+    rec['loop_device_ms'] = cuda_ms(
+        lambda: run_sequence_loop(seq, ks, **kw), reps=1)
+    rec['loop_us_per_shot'] = rec['loop_device_ms'] * 1e3 / len(ks)
+    # kernel executions of one run (all 1000 shots replayed) by the trace
+    names = ('synth_dense_shots_kernel', 'iir_')
+    execs, every = graph_executions(graph.run, names)
+    rec['executions'] = execs
+    rec['executions_expected'] = {'synth_dense_shots_kernel': len(ks),
+                                  'iir_': 5 * len(ks)}
+    # where a shot's device time goes: each kernel and copy of the run,
+    # its executions and device microseconds a shot
+    rec['traced_a_shot'] = {n: [c / len(ks), t * 1e6 / len(ks)]
+                            for n, (c, t) in every.items()}
+    summary['synth_dense']['graph_executions'] = execs[names[0]]
+    summary['iir_df2t']['graph_executions'] = execs['iir_']
+    # a trace may lose a kernel's record (utils/profiling.trace): fewer
+    # executions than shots by up to 1% stand, more fail
+    rec['executions_ok'] = all(
+        0.99 * rec['executions_expected'][n] <= v
+        <= rec['executions_expected'][n] for n, v in execs.items())
+    rec['ok'] = bool(rec['vs_host'] <= TOL_DEMOD and rec['equal_loop']
+                     and rec['equal_rerun'] and rec['executions_ok']
                      and tuple(iq.shape) == (len(ks), 2, 2)
                      and bool(torch.isfinite(torch.view_as_real(iq)).all()))
-    del iq, seq
+    del iq, again, graph, seq
     torch.cuda.empty_cache()
     log(rec)
     if not rec['ok']:
@@ -4211,6 +4401,8 @@ def main():
             entry['launches'] = entry['probe_launches']
         if name == 'synth_dense':     # of them, the windowed (row0 != 0)
             entry['windowed_launches'] = sum(n for _, n in MAIN_WINDOWED)
+        if name in ('synth_dense', 'synth_sparse'):   # and the shot entry's
+            entry['shot_launches'] = sum(c[name] for _, c in MAIN_SHOTS)
         if entry['launches'] == 0:
             fail.append(f"{name} never launched on the main paths")
         if None in (entry['ms'], entry['plain_ms'], entry['bound_ms'],
@@ -4227,7 +4419,8 @@ def main():
         print(json.dumps({'ok': False, 'failures': fail}), flush=True)
         return 1
     keys = ('name', 'route', 'source', 'replaces', 'launches',
-            'probe_launches', 'windowed_launches', 'state_launches',
+            'probe_launches', 'windowed_launches', 'shot_launches',
+            'graph_executions', 'shots', 'state_launches',
             'cuda_launches_a_call',
             'max_abs_err', 'max_abs_err_vs_model',
             'state_only_max_abs_err_vs_full_call',

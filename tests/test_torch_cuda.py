@@ -32,7 +32,13 @@ bit for bit to the plain model of its arithmetic (``df2t_blocked``) and,
 over each row's first chunk, to its sequential plain version, in f64 and
 f32 (neither contracts a multiply-add), and no farther from a long-double
 answer than the sequential version; an f32 demodulation to itself with
-TF32 on.
+TF32 on.  K1's and K7's shot entries (one launch for a shot vector over a
+sequence table, the index read on the card) are held shot by shot to
+one-shot launches bit for bit and to their plain versions as above; a shot
+vector drawn on the card plays under ``torch.cuda.set_sync_debug_mode(
+'error')``, and ``play_replay`` clamps a card index there; ``run_sequence``'s
+CUDA graph (a single shot: its eager shot, uncaptured) equals its host loop
+bit for bit.
 """
 
 import dataclasses
@@ -500,6 +506,189 @@ def test_sequencer_on_card_matches_plain(card, method, dtype):
         assert rel(got.cpu(), plain) <= TOL
     else:
         assert (got.cpu().int() - plain.int()).abs().max() <= 1
+
+
+def _shot_table(mode):
+    """A table for the shot entries: _seq_table's pulse trains, a pair-mode
+    table of two schedules, or ('wide') two occupancy-1 schedules of 128
+    channels x 131,072 samples, a grid wide enough for K1's layout of 8
+    samples a thread."""
+    if mode == 'complex64':
+        rng = np.random.default_rng(3)
+        lows = []
+        for _ in range(2):
+            chans = []
+            for c in range(4):
+                x = wt.zero()
+                for _ in range(6):
+                    x += ((0.3 + 0.4j) * wt.gaussian(3e-8)
+                          * wt.cos(2 * np.pi * (5e7 + 1e6 * c))
+                          >> float(rng.uniform(1e-7, 8e-6)))
+                chans.append(x)
+            lows.append(lower_schedule(chans, 0.0, 8.192e-6, 2e9,
+                                       part='complex', bucket_samples=None))
+        return lows
+    if mode == 'wide':
+        return [lower_schedule(build_dense_schedule(128, d), 0.0, 65.536e-6,
+                               2e9, bucket_samples=None)
+                for d in (65.536e-6, 32.768e-6)]
+    return _seq_table()
+
+
+@pytest.mark.parametrize('mode', ['float32', 'int16', 'bfloat16', 'float16',
+                                  'complex64', 'wide', 'sparse'])
+def test_shot_entries_match_one_shot_launches_and_plain(card, mode):
+    """K1's shot entry (K7's with 'sparse') plays the shot vector KS, with
+    indices past both ends, in one launch; each shot is bit-identical to a
+    one-shot launch of its clamped schedule, and the whole is held to the
+    shot entry's plain version on the same tensors: f32 and complex64
+    within TOL, int16 within one code, bf16 and f16 equal to the kernel's
+    own f32 output rounded once."""
+    from waveforms_tpu_torch.ops import Sequencer
+    seq = Sequencer(_shot_table(mode), device=card)
+    C, N = seq.shape[0], seq.n_samples
+    dt = {'int16': torch.int16, 'bfloat16': torch.bfloat16,
+          'float16': torch.float16,
+          'complex64': torch.complex64}.get(mode, torch.float32)
+    scale = (torch.full((C,), 30000.0, device=card) if mode == 'int16'
+             else None)
+    kern = kernels.synth_sparse if mode == 'sparse' else kernels.synth_dense
+    n = (kern.launches, kern.shot_launches)
+    if mode == 'sparse':
+        got = seq.play_many(KS, sparse=True, Rs=8)
+    elif dt in (torch.float32, torch.complex64):
+        got = seq.play_many(KS)
+    else:
+        got = seq.play_many(KS, out_dtype=dt, dac_scale=30000.0)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.shot_launches) == (n[0] + 1, n[1] + 1)
+    assert got.dtype == dt and tuple(got.shape) == (len(KS), C, N)
+    for s, k in enumerate(KS):
+        k = seq._clamp(k)
+        if mode == 'sparse':
+            one = kernels.synth_sparse(*seq._sparse_args(k, 8),
+                                       torch.zeros_like(got[s]), None)
+        else:
+            one = kernels.synth_dense(seq._schedule(k),
+                                      torch.empty_like(got[s]), scale)
+        assert torch.equal(got[s], one), (s, k)
+    ks = seq.shot_indices(KS)
+    if mode == 'sparse':
+        plain = kernels.synth_sparse.plain_shots(
+            seq, seq._stacked_work(8), ks, torch.zeros_like(got), None)
+    else:
+        plain = kernels.synth_dense.plain_shots(seq, ks,
+                                                torch.empty_like(got), scale)
+    if dt in (torch.bfloat16, torch.float16):
+        assert torch.equal(got, seq.play_many(KS).to(dt))
+    elif dt == torch.int16:
+        assert (got.int() - plain.int()).abs().max() <= 1
+    else:
+        a, b = got.cpu().numpy(), plain.cpu().numpy()
+        if dt == torch.complex64:
+            a, b = np.abs(a - b), np.abs(b)
+            assert float((a.max(-1) / np.maximum(b.max(-1), 1e-30)).max()) \
+                <= TOL
+        else:
+            assert rel(a, b) <= TOL
+
+
+def test_card_computed_shot_vector_plays_with_no_host_sync(card):
+    """A shot vector drawn on the card (int64 and int32, indices past both
+    ends) plays through K1's and K7's shot entries under
+    ``torch.cuda.set_sync_debug_mode('error')``: no host sync, the index
+    never read on the host; the shots equal a play of the same indices
+    read back afterwards."""
+    from waveforms_tpu_torch.ops import Sequencer
+    seq = Sequencer(_seq_table(), device=card)
+    seq.play_many([0], sparse=True, Rs=8)     # builds the worklists
+    gen = torch.Generator(card).manual_seed(5)
+    ks = torch.randint(-2, 6, (7,), device=card, generator=gen)
+    ks32 = ks.to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        dense = seq.play_many(ks)
+        dense32 = seq.play_many(ks32)
+        narrow = seq.play_many(ks32, out_dtype=torch.bfloat16)
+        sparse = seq.play_many(ks, sparse=True, Rs=8)
+        one = seq.play(ks[3])
+        one_sparse = seq.play_sparse(ks32[3], Rs=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = ks.cpu().tolist()
+    want = seq.play_many(host)
+    assert torch.equal(dense, want) and torch.equal(dense32, want)
+    assert torch.equal(narrow, want.to(torch.bfloat16))
+    assert torch.equal(sparse, seq.play_many(host, sparse=True, Rs=8))
+    assert torch.equal(one, want[3]) and torch.equal(one_sparse, sparse[3])
+
+
+@pytest.mark.parametrize('dtype', [torch.int32, torch.int64])
+def test_play_replay_clamps_a_card_index(card, dtype):
+    """``play_replay`` gathers its palette rows with ``index_select``,
+    which clamps nothing: a card-held index past both ends of the table
+    (int32 as the shot entries take it, and int64) is clamped on the card
+    without a host sync and gives the rows of the same call with host
+    indices."""
+    from waveforms_tpu_torch.ops import Sequencer
+    seq = Sequencer(_seq_table(), device=card)
+    host = [-1, 3, 2, 1 << 20, 0, -(1 << 20)]
+    want = seq.play_replay(host)              # builds the palette
+    ks = torch.tensor(host, dtype=dtype, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = seq.play_replay(ks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert torch.equal(want, seq.play_many([0, 2, 2, 2, 0, 0]))
+
+
+@pytest.mark.parametrize('chain', ['signals', 'filtered', 'iq'])
+def test_run_sequence_graph_equals_the_host_loop(card, chain):
+    """``run_sequence`` on the card (one captured graph a shot, the order a
+    CUDA tensor) against its plain version, the host loop, bit for bit; the
+    Python counters see the eager shot 0 and the capture, and a second run
+    of one SequenceGraph replays every shot again to the same bits."""
+    from waveforms_tpu_torch.distortion import exp_decay_filter
+    from waveforms_tpu_torch.ops import Sequencer
+    from waveforms_tpu_torch.parallel import (SequenceGraph, run_sequence,
+                                              run_sequence_loop)
+    seq = Sequencer(_seq_table(n_schedules=4), device=card)
+    kw = {}
+    if chain != 'signals':
+        kw['ba_filters'] = [exp_decay_filter(a, t, 2e9, inv=True)
+                            for a, t in ((0.02, 3e-6), (0.005, 20e-6))]
+    if chain == 'iq':
+        kw['demod_freqs'] = [-121.64e6, -67.52e6]
+    order = torch.tensor([3, 0, 9, -1, 2, 1, 1], device=card)
+    n = (kernels.synth_dense.launches, kernels.iir_df2t.launches)
+    got = run_sequence(seq, order, **kw)
+    torch.cuda.synchronize()
+    assert (kernels.synth_dense.launches - n[0],
+            kernels.iir_df2t.launches - n[1]) == (
+        2, 0 if chain == 'signals' else 2)
+    want = run_sequence_loop(seq, order.cpu().tolist(), **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    graph = SequenceGraph(seq, order, **kw)
+    assert torch.equal(graph.run().clone(), want)
+    assert torch.equal(graph.run(), want)
+
+
+def test_run_sequence_of_one_shot_is_not_captured(card):
+    """A single shot is ``SequenceGraph``'s eager shot 0: nothing is
+    captured, and the result equals the host loop's, on every run."""
+    from waveforms_tpu_torch.ops import Sequencer
+    from waveforms_tpu_torch.parallel import SequenceGraph, run_sequence_loop
+    seq = Sequencer(_seq_table(n_schedules=4), device=card)
+    kw = {'demod_freqs': [-121.64e6, -67.52e6]}
+    order = torch.tensor([7], device=card)
+    graph = SequenceGraph(seq, order, **kw)
+    assert graph.graph is None and graph.capture_s == 0.0
+    want = run_sequence_loop(seq, [3], **kw)
+    assert torch.equal(graph.run(), want) and torch.equal(graph.run(), want)
 
 
 def test_probe_health_kernel_doubles(card):

@@ -146,7 +146,8 @@ probe_walker_kernel(const int* __restrict__ wc, const float* __restrict__ ftab,
 // zeros.
 __global__ void __launch_bounds__(ITEM_THREADS, ITEM_MIN_BLOCKS)
 probe_sparse_compact_kernel(Desc d, Worklist w, int Rs, float* out) {
-  walk_item<false, true>(d, w, Rs, 0, 0, out, OUT_F32, nullptr);
+  walk_item<false, true>(d, w, blockIdx.x, 0, 0, Rs, 0, 0, out, OUT_F32,
+                         nullptr);
 }
 
 template <int N>

@@ -74,6 +74,21 @@
 // the card (a short table's schedule, a few hundred thousand samples) is
 // bound by its slowest block's chain instead: it runs with 4 samples per
 // thread on smaller tiles (launch_dense).
+//
+// The shot entry (wf_synth_dense_shots): one launch for a shot vector ks
+// over a sequence table of K schedules (ops/sequencer.Sequencer), as the
+// TPU ran jax.vmap of play over the schedule index (one batched launch).
+// The descriptors are the table's (K, C, NB, S, ...) tensors, read as one
+// table of K * C channels: schedule j's channel c is channel j * C + c.
+// The shot axis is folded into the grid's x axis, shot-major (gridDim.y is
+// the channel, and neither y nor z holds 8 flagship shots' 2,000 tiles, let
+// alone a long shot vector): block x = shot * n_tiles + tile.  Each block
+// reads ks[shot] from device memory and clamps it to [0, K - 1] itself (the
+// JAX gather's mode='clip'), so the host never reads the index, and stores
+// into out[shot] of a (n_shots, C, N) output.  The layout (samples a
+// thread, tile) is the one a one-shot launch of C channels picks, and each
+// tile walks as there, so each shot is bit-identical to a one-shot launch
+// of its schedule.
 #include "synth_span.cuh"
 
 namespace wfsynth {
@@ -92,38 +107,50 @@ constexpr int DENSE_TILE = DENSE_N * DENSE_THREADS * DENSE_SUBS;
 static_assert(DENSE_N <= 32 && DENSE_N_SMALL <= 32, "mask is 32 bits");
 static_assert(DENSE_THREADS % 32 == 0, "whole warps");
 
-template <bool PAIR, int N, bool WIN>
-__global__ void __launch_bounds__(DENSE_THREADS)
-synth_dense_kernel(Desc d, long long row0_arg, long long bucket0,
-                   long long n_out, int tile, int sub, void* out, int out_kind,
-                   const float* scale) {
-  const long long row0 = WIN ? row0_arg : 0;
-  constexpr int SUB = N * DENSE_THREADS;  // samples per pass
-  __shared__ float sx[SUB + SUB / 32];
-  __shared__ float sy[PAIR ? SUB + SUB / 32 : 1];
-  __shared__ int range[DENSE_SUBS][2];
-  const int c = blockIdx.y;
-  const long long base = (long long)blockIdx.x * tile;  // in the window
-  const long long gbase = row0 + base;                   // in the schedule
+// One block's tile, walked one pass after another: every pass's segment
+// range at once (one warp a pass), then each pass walked into the staging,
+// or zero-filled where no segment meets it, and stored.  row0 is the
+// window's first sample in the schedule and bucket0 the shard's first
+// bucket (WIN); the descriptors' channel dc(), the tile's first sample in
+// the window base() and the output row's first element orow() are
+// accessors: synth_dense_kernel derives them from blockIdx, the shot
+// entry's kernel reads them from shared memory.  A value live across the
+// walk (the multi-tone DRAG bodies' out-of-line call) beyond the few
+// registers the call preserves is spilled around it.  With RELOAD the
+// pass's first sample, end and output row are read from the accessors
+// again after the walk's barrier, so none of them is live across it (the
+// shot entry's layout); without, they are kept from before the walk (the
+// one-shot kernel's, whose accessors cost nothing but at 4 samples a
+// thread spill 36 bytes when re-derived).  Each layout is the one for which
+// ptxas -v reports no spill (sm_90a, nvcc 12.9).
+template <bool PAIR, int N, bool WIN, bool RELOAD, class DescC, class Base,
+          class Row>
+__device__ __forceinline__ void dense_tile_passes(
+    const Desc& d, long long row0, long long bucket0, long long n_out,
+    int tile, int sub, void* out, int out_kind, const float* scale, int c,
+    DescC dc, Base base, Row orow, float* sx, float* sy, int (*range)[2]) {
   int b = 0;
   if (d.NB > 1) {        // one bucket: no 64-bit division in the prologue
-    long long gb = gbase / d.bucket_samples;  // the global bucket
+    long long gb = (row0 + base()) / d.bucket_samples;  // the global bucket
     if (WIN) gb = max(gb - bucket0, 0LL);      // the shard's local one
     b = (int)min(gb, (long long)(d.NB - 1));
   }
-  const long long row = ((long long)c * d.NB + b) * d.S;
-  // every pass's slots at once, one warp per pass
-  const int n_sub = tile / sub, n_warps = (blockDim.x + 31) >> 5;
-  for (int k = threadIdx.x >> 5; k < n_sub; k += n_warps)
-    segment_range(d.seg_hmax + row, d.seg_lo + row, d.S, gbase + k * sub,
-                  gbase + (k + 1) * sub, range[k]);
+  {
+    const long long gbase = row0 + base();                 // in the schedule
+    const long long row = ((long long)(dc()) * d.NB + b) * d.S;
+    const int n_sub = tile / sub, n_warps = (blockDim.x + 31) >> 5;
+    for (int k = threadIdx.x >> 5; k < n_sub; k += n_warps)
+      segment_range(d.seg_hmax + row, d.seg_lo + row, d.S, gbase + k * sub,
+                    gbase + (k + 1) * sub, range[k]);
+  }
   __syncthreads();
   const float sc = out_kind == OUT_I16 ? scale[c] : 1.0f;
+  const int n_sub = tile / sub;
   for (int k = 0; k < n_sub; ++k) {
-    const long long sb = base + (long long)k * sub;
+    const long long sb = (base()) + (long long)k * sub;
     if (sb >= n_out) break;
     const long long end = min(sb + sub, n_out);
-    const long long row_out = (long long)c * n_out + sb;
+    const long long row_out = (orow()) + sb;
     if (range[k][0] >= range[k][1]) {    // no segment meets the pass: zeros
       for (int i = threadIdx.x; sb + i < end; i += blockDim.x)
         store_walk<PAIR>(out, row_out + i, make_float2(0.0f, 0.0f),
@@ -133,7 +160,7 @@ synth_dense_kernel(Desc d, long long row0_arg, long long bucket0,
     const int i0 = threadIdx.x * N;
     if (sb + i0 < end) {
       float acc[N], acc_im[N];
-      walk_tile<PAIR, N>(d, c, b, range[k][0], range[k][1], row0 + sb + i0,
+      walk_tile<PAIR, N>(d, dc(), b, range[k][0], range[k][1], row0 + sb + i0,
                          acc, acc_im);
 #pragma unroll
       for (int j = 0; j < N; ++j) {
@@ -142,11 +169,87 @@ synth_dense_kernel(Desc d, long long row0_arg, long long bucket0,
       }
     }
     __syncthreads();
-    for (int i = threadIdx.x; sb + i < end; i += blockDim.x)
-      store_walk<PAIR>(out, row_out + i,
-                       make_float2(sx[staged(i)], PAIR ? sy[staged(i)] : 0.0f),
-                       out_kind, sc);
+    {
+      const long long sb2 = RELOAD ? (base()) + (long long)k * sub : sb;
+      const long long end2 = RELOAD ? min(sb2 + sub, n_out) : end;
+      const long long row2 = RELOAD ? (orow()) + sb2 : row_out;
+      for (int i = threadIdx.x; sb2 + i < end2; i += blockDim.x)
+        store_walk<PAIR>(out, row2 + i,
+                         make_float2(sx[staged(i)],
+                                     PAIR ? sy[staged(i)] : 0.0f),
+                         out_kind, sc);
+    }
     __syncthreads();                       // the staging is reused
+  }
+}
+
+template <bool PAIR, int N, bool WIN>
+__global__ void __launch_bounds__(DENSE_THREADS)
+synth_dense_kernel(Desc d, long long row0_arg, long long bucket0,
+                   long long n_out, int tile, int sub, void* out, int out_kind,
+                   const float* scale) {
+  constexpr int SUB = N * DENSE_THREADS;  // samples per pass
+  __shared__ float sx[SUB + SUB / 32];
+  __shared__ float sy[PAIR ? SUB + SUB / 32 : 1];
+  __shared__ int range[DENSE_SUBS][2];
+  const int c = blockIdx.y;
+  dense_tile_passes<PAIR, N, WIN, false>(
+      d, WIN ? row0_arg : 0, bucket0, n_out, tile, sub, out, out_kind, scale,
+      c, [=] { return c; }, [=] { return (long long)blockIdx.x * tile; },
+      [=] { return (long long)c * n_out; }, sx, sy, range);
+}
+
+// The shot entry's index: ks (n_shots,) int32 on the device over a table of
+// K schedules, and the tiles of one shot
+struct Shots {
+  const int* ks;
+  int K;
+  int n_tiles;
+};
+
+// The shot entry's kernel (wf_synth_dense_shots): block x = shot * n_tiles +
+// tile, y = channel.  Thread 0 reads ks[shot], clamps it, and puts the
+// descriptors' channel, the tile's first sample and the output row's first
+// element in shared memory, and the walk reads them back from there after
+// each barrier (RELOAD), so that none is live across the walk.  In pair
+// mode at DENSE_N samples a thread that spills instead, and the tile's
+// first sample and the output row stay in registers (HOLD): each
+// instantiation takes the layout for which ptxas -v reports no spill
+// (sm_90a, nvcc 12.9).
+template <bool PAIR, int N>
+__global__ void __launch_bounds__(DENSE_THREADS)
+synth_dense_shots_kernel(Desc d, long long n_out, int tile, int sub,
+                         void* out, int out_kind, const float* scale,
+                         Shots shots) {
+  constexpr bool HOLD = PAIR && N == DENSE_N;
+  constexpr int SUB = N * DENSE_THREADS;  // samples per pass
+  __shared__ float sx[SUB + SUB / 32];
+  __shared__ float sy[PAIR ? SUB + SUB / 32 : 1];
+  __shared__ int range[DENSE_SUBS][2];
+  __shared__ long long shot_at[2];
+  __shared__ int shot_dc;
+  const int c = blockIdx.y;
+  if (threadIdx.x == 0) {
+    const int shot = blockIdx.x / shots.n_tiles;
+    int sched = shots.ks[shot];
+    sched = sched < 0 ? 0 : (sched >= shots.K ? shots.K - 1 : sched);
+    shot_dc = sched * d.C + c;
+    shot_at[0] = (long long)(blockIdx.x - shot * shots.n_tiles) * tile;
+    shot_at[1] = ((long long)shot * d.C + c) * n_out;
+  }
+  __syncthreads();
+  const auto dc = [&] { return shot_dc; };
+  if constexpr (HOLD) {
+    const long long base = shot_at[0];
+    const long long orow = shot_at[1];
+    dense_tile_passes<PAIR, N, false, true>(
+        d, 0, 0, n_out, tile, sub, out, out_kind, scale, c, dc,
+        [=] { return base; }, [=] { return orow; }, sx, sy, range);
+  } else {
+    dense_tile_passes<PAIR, N, false, true>(
+        d, 0, 0, n_out, tile, sub, out, out_kind, scale, c, dc,
+        [&] { return shot_at[0]; }, [&] { return shot_at[1]; }, sx, sy,
+        range);
   }
 }
 
@@ -154,30 +257,42 @@ synth_dense_kernel(Desc d, long long row0_arg, long long bucket0,
 // of a schedule whose bucket axis starts at bucket0: `tile` (a power of two
 // of at least 128 that divides bucket_samples and row0) bounded by N's
 // tile, and halved while the grid is too small to fill the card, down to
-// two warps' samples.
+// two warps' samples.  With shots.ks, the whole of each of n_shots
+// schedules of a table (row0 = bucket0 = 0), each laid out as that launch.
 template <int N>
 static int launch_dense(const Desc& d, long long row0, long long bucket0,
                         long long n_out, int tile, void* out, int out_kind,
-                        const float* scale, cudaStream_t st) {
+                        const float* scale, cudaStream_t st,
+                        Shots shots = Shots{nullptr, 0, 0}, int n_shots = 1) {
   tile = min(tile, N * DENSE_THREADS * DENSE_SUBS);
   while (tile > 64 * N && (n_out + tile - 1) / tile * d.C < MIN_DENSE_BLOCKS)
     tile /= 2;
   const int sub = min(tile, N * DENSE_THREADS);
   const long long n_tiles = (n_out + tile - 1) / tile;
-  if (n_tiles > 0 && d.C > 0) {
-    dim3 grid((unsigned)n_tiles, (unsigned)d.C);
+  if (n_tiles * n_shots > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (n_tiles > 0 && d.C > 0 && n_shots > 0) {
+    dim3 grid((unsigned)(n_tiles * n_shots), (unsigned)d.C);
     const bool win = row0 || bucket0;
-    if (out_kind == OUT_C64 && win)
-      synth_dense_kernel<true, N, true><<<grid, sub / N, 0, st>>>(
+    const int threads = sub / N;
+    if (shots.ks) {
+      shots.n_tiles = (int)n_tiles;
+      if (out_kind == OUT_C64)
+        synth_dense_shots_kernel<true, N><<<grid, threads, 0, st>>>(
+            d, n_out, tile, sub, out, out_kind, scale, shots);
+      else
+        synth_dense_shots_kernel<false, N><<<grid, threads, 0, st>>>(
+            d, n_out, tile, sub, out, out_kind, scale, shots);
+    } else if (out_kind == OUT_C64 && win)
+      synth_dense_kernel<true, N, true><<<grid, threads, 0, st>>>(
           d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
     else if (out_kind == OUT_C64)
-      synth_dense_kernel<true, N, false><<<grid, sub / N, 0, st>>>(
+      synth_dense_kernel<true, N, false><<<grid, threads, 0, st>>>(
           d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
     else if (win)
-      synth_dense_kernel<false, N, true><<<grid, sub / N, 0, st>>>(
+      synth_dense_kernel<false, N, true><<<grid, threads, 0, st>>>(
           d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
     else
-      synth_dense_kernel<false, N, false><<<grid, sub / N, 0, st>>>(
+      synth_dense_kernel<false, N, false><<<grid, threads, 0, st>>>(
           d, row0, bucket0, n_out, tile, sub, out, out_kind, scale);
   }
   return (int)cudaGetLastError();
@@ -238,6 +353,38 @@ int wf_synth_dense(const int* seg_lo, const int* seg_hi, const int* seg_hmax,
                               power, shift_hi, q32, args, ext, clip, amp_im,
                               C, NB, S, T, F, n_samples, bucket_samples, row0,
                               n_out, 0, tile, out, out_kind, scale, stream);
+}
+
+// The shot entry: out (n_shots, C, n_samples) holds schedule clamp(ks[s],
+// 0, K - 1) of a table of K schedules at shot s.  The descriptors are the
+// table's (K, C, NB, S, ...) tensors (C channels a schedule), ks (n_shots,)
+// int32 on the device.  `tile` as wf_synth_dense_shard's.  Launch on
+// `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a tile, table or grid the kernel does not take.
+int wf_synth_dense_shots(const int* seg_lo, const int* seg_hi,
+                         const int* seg_hmax, const int* nterm,
+                         const int* nfac, const float* amp, const int* op,
+                         const int* power, const int* shift_hi,
+                         const int* q32, const float* args, const float* ext,
+                         const float* clip, const float* amp_im, int C,
+                         int NB, int S, int T, int F, long long n_samples,
+                         long long bucket_samples, const int* ks, int K,
+                         int n_shots, int tile, void* out, int out_kind,
+                         const float* scale, void* stream) {
+  wfsynth::Desc d{seg_lo, seg_hi, seg_hmax, nterm, nfac, amp, op, power,
+                  shift_hi, q32, args, ext, clip, amp_im, C, NB, S, T, F,
+                  n_samples, bucket_samples};
+  if (tile < 128 || (tile & (tile - 1)) || K < 1 || n_shots < 0 ||
+      (n_shots > 0 && ks == nullptr) || (long long)K * C > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  tile = min(tile, wfsynth::DENSE_TILE);
+  cudaStream_t st = (cudaStream_t)stream;
+  const wfsynth::Shots shots{ks, K, 0};
+  if ((n_samples + tile - 1) / tile * C < wfsynth::MIN_DENSE_BLOCKS)
+    return wfsynth::launch_dense<wfsynth::DENSE_N_SMALL>(
+        d, 0, 0, n_samples, tile, out, out_kind, scale, st, shots, n_shots);
+  return wfsynth::launch_dense<wfsynth::DENSE_N>(
+      d, 0, 0, n_samples, tile, out, out_kind, scale, st, shots, n_shots);
 }
 
 const char* wf_error_string(int code) {

@@ -71,12 +71,13 @@ __device__ __forceinline__ int item_samples(const int* item, int Rs,
 // staged in sx (and sy in pair mode)
 template <bool PAIR, bool COMPACT>
 __device__ __forceinline__ void walk_pass(const Desc& d, const int* item,
-                                          int Rs, long long window, int p0,
-                                          float* sx, float* sy) {
+                                          int dc, int Rs, long long window,
+                                          int p0, float* sx, float* sy) {
   const int i0 = threadIdx.x * ITEM_N;
   if (p0 + i0 >= item_samples<COMPACT>(item, Rs, window)) return;
   float acc[ITEM_N], acc_im[ITEM_N];
-  walk_tile<PAIR, ITEM_N>(d, item[I_C], item[I_B], item[I_S0], item[I_S1],
+  walk_tile<PAIR, ITEM_N>(d, dc + item[I_C], item[I_B], item[I_S0],
+                          item[I_S1],
                           (long long)item[I_T] * Rs * 128 + p0 + i0, acc,
                           acc_im);
 #pragma unroll
@@ -87,17 +88,18 @@ __device__ __forceinline__ void walk_pass(const Desc& d, const int* item,
 }
 
 // One pass's stores from the staging: consecutive threads at consecutive
-// samples, masked at the item's (and the window's) end
+// samples, masked at the item's (and the window's) end; out0 is the first
+// element of the item's shot in the output
 template <bool PAIR, bool COMPACT>
 __device__ __forceinline__ void store_pass(const int* item, int Rs,
                                            long long window, int p0,
-                                           void* out, int out_kind,
-                                           const float* scale,
+                                           void* out, long long out0,
+                                           int out_kind, const float* scale,
                                            const float* sx, const float* sy) {
   const long long tile = (long long)Rs * 128;
   const long long pos = COMPACT
       ? (long long)blockIdx.x * tile
-      : (long long)item[I_C] * window + (long long)item[I_O] * tile;
+      : out0 + (long long)item[I_C] * window + (long long)item[I_O] * tile;
   const int n = item_samples<COMPACT>(item, Rs, window);
   const float sc = out_kind == OUT_I16 ? scale[item[I_C]] : 1.0f;
   for (int i = threadIdx.x; i < ITEM_PASS && p0 + i < n; i += ITEM_THREADS)
@@ -106,22 +108,25 @@ __device__ __forceinline__ void store_pass(const int* item, int Rs,
                      out_kind, sc);
 }
 
-// Pass blockIdx.y of item blockIdx.x.  COMPACT (P1): item k's subtile
+// Pass blockIdx.y of worklist item k.  COMPACT (P1): item k's subtile
 // at out[k * tile, (k + 1) * tile), f32, padding items (an empty segment
 // range) included, as zeros.  Otherwise (K7): item k's subtile at
-// out[c * window + o * tile], masked at the window's end, and a padding item
-// (o >= n_tiles) returns at once.  The item's scalars are read from shared
-// memory again after each barrier, so that none of them is live across the
-// walk.
+// out[out0 + c * window + o * tile], masked at the window's end, and a
+// padding item (o >= n_tiles) returns at once.  The descriptors are read at
+// channel dc + c: a table of several schedules stacked along the channel
+// axis (K7's shot entry) holds schedule j's channels from dc = j * C.  Only
+// thread 0 reads the worklist, before the first barrier.  The
+// item's scalars are read from shared memory again after each barrier, so
+// that none of them is live across the walk.
 template <bool PAIR, bool COMPACT>
 __device__ __forceinline__ void walk_item(const Desc& d, const Worklist& w,
+                                          int k, int dc, long long out0,
                                           int Rs, int n_tiles,
                                           long long window, void* out,
                                           int out_kind, const float* scale) {
   __shared__ int item[I_WORDS];
   __shared__ float sx[STAGED_PASS];
   __shared__ float sy[PAIR ? STAGED_PASS : 1];
-  const int k = blockIdx.x;
   if (threadIdx.x == 0) {
     item[I_C] = w.c[k];
     item[I_B] = w.b[k];
@@ -134,10 +139,10 @@ __device__ __forceinline__ void walk_item(const Desc& d, const Worklist& w,
   if (!COMPACT && item[I_O] >= n_tiles) return;        // padding item
   const int p0 = blockIdx.y * ITEM_PASS;
   if (p0 >= item_samples<COMPACT>(item, Rs, window)) return;
-  walk_pass<PAIR, COMPACT>(d, item, Rs, window, p0, sx, sy);
+  walk_pass<PAIR, COMPACT>(d, item, dc, Rs, window, p0, sx, sy);
   __syncthreads();
-  store_pass<PAIR, COMPACT>(item, Rs, window, p0, out, out_kind, scale, sx,
-                            sy);
+  store_pass<PAIR, COMPACT>(item, Rs, window, p0, out, out0, out_kind, scale,
+                            sx, sy);
 }
 
 }  // namespace wfsynth

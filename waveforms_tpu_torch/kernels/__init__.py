@@ -28,7 +28,11 @@ kernel's plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`,
 tensors it launches the kernel, checks the launch's ``cudaGetLastError()``
 and raises on any failure -- it never falls back.  Each wrapper counts its
 kernel launches in ``launches``; K1's counts those with a window that starts
-after sample 0 again in ``windowed_launches``.
+after sample 0 again in ``windowed_launches``.  K1 and K7 also have a shot
+entry, ``synth_dense.shots`` and ``synth_sparse.shots``: one launch for a
+shot vector over a sequence table, whose kernel reads each shot's schedule
+index on the device (counted in ``launches`` and again in
+``shot_launches``).
 
 Output kinds: f32; int16 DAC codes with a per-channel f32 scale; bf16 and
 f16, the f32 sum rounded once to nearest even; and, for the three
@@ -56,8 +60,9 @@ __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'probe_health', 'probe_grid', 'probe_walker',
            'probe_sparse_compact', 'iir_df2t', 'iir_df2t_smem_bytes',
            'iir_df2t_chunk',
-           'launch_dense',
-           'launch_dense_hi', 'launch_sparse', 'launch_probe_sparse_compact',
+           'launch_dense', 'launch_dense_shots',
+           'launch_dense_hi', 'launch_sparse', 'launch_sparse_shots',
+           'launch_probe_sparse_compact',
            'launch_stack',
            'launch_stack_seq',
            'dense_tile', 'load_library', 'library_path',
@@ -160,12 +165,17 @@ def load_library():
         lib.wf_synth_dense_shard.argtypes = ([P] * 14 + [I] * 5
                                              + [L, L, L, L, L, I]
                                              + [P, I, P, P])
+        lib.wf_synth_dense_shots.argtypes = ([P] * 14 + [I] * 5 + [L, L]
+                                             + [P, I, I, I, P, I, P, P])
         lib.wf_synth_panel.argtypes = ([P] * 13 + [I] * 5 + [L, L]
                                        + [P] * 5 + [I, I, I, L]
                                        + [P, I, P, P])
         lib.wf_synth_sparse.argtypes = ([P] * 13 + [I] * 5 + [L, L]
                                         + [P] * 6 + [I, I, I, L]
                                         + [P, I, P, P])
+        lib.wf_synth_sparse_shots.argtypes = ([P] * 13 + [I] * 5 + [L, L]
+                                              + [P] * 6 + [I, P, I, I, I, I,
+                                                           L, P, I, P, P])
         lib.wf_synth_stack.argtypes = ([P] * 12 + [I] * 4 + [L]
                                        + [P, I, P, P])
         lib.wf_synth_stack_seq.argtypes = ([P] * 13 + [I] * 5 + [L, I]
@@ -191,8 +201,9 @@ def load_library():
         lib.wf_iir_df2t_work_doubles.argtypes = [I, L, I]
         lib.wf_iir_df2t_work_doubles.restype = L
         for fn in (lib.wf_synth_dense, lib.wf_synth_dense_shard,
-                   lib.wf_synth_panel,
-                   lib.wf_synth_sparse, lib.wf_synth_stack,
+                   lib.wf_synth_dense_shots, lib.wf_synth_panel,
+                   lib.wf_synth_sparse, lib.wf_synth_sparse_shots,
+                   lib.wf_synth_stack,
                    lib.wf_synth_stack_seq, lib.wf_synth_stack_seq_window,
                    lib.wf_synth_dense_hi,
                    lib.wf_synth_panel_hi, lib.wf_probe_health,
@@ -294,7 +305,32 @@ class _Kernel:
         return out
 
 
-class _DenseKernel(_Kernel):
+class _ShotKernel(_Kernel):
+    """A wrapper with a shot entry, :meth:`shots`: one launch of the
+    kernel's shot variant ``launch_shots`` for a shot vector over a
+    sequence table (plain version ``plain_shots``), counted in
+    ``launches`` and again in ``shot_launches``."""
+
+    def __init__(self, *args, plain_shots, launch_shots, **kw):
+        super().__init__(*args, **kw)
+        self.plain_shots = plain_shots
+        self._launch_shots = launch_shots
+        self.shot_launches = 0
+
+    def shots(self, *args):
+        out = args[-2]
+        if out.device.type == 'cpu':
+            return self.plain_shots(*args)
+        if out.device.type != 'cuda':
+            raise ValueError(f"{self.name}: unsupported device {out.device}")
+        if out.shape[0]:
+            self._launch_shots(*args)
+            self.launches += 1
+            self.shot_launches += 1
+        return out
+
+
+class _DenseKernel(_ShotKernel):
     """K1's wrapper: of its launches, those whose window starts after
     sample 0 (``row0 != 0``) are counted again in ``windowed_launches``."""
 
@@ -380,6 +416,46 @@ def launch_dense(d, out, scale=None, row0=0, n_out=None, bucket0=0,
     _raise_on(code, 'synth_dense')
 
 
+def _shot_vector(t, ks):
+    """(K, n_shots) of a shot launch over the sequence table ``t``;
+    raises unless ``ks`` is a 1-D int32 tensor."""
+    if ks.dim() != 1 or ks.dtype != torch.int32:
+        raise ValueError("ks must be a 1-D int32 tensor")
+    K, C = t.seg_lo.shape[0], t.shape[0]
+    if C > 65535:
+        raise ValueError("at most 65535 channels per launch")
+    if K * C > 2 ** 31 - 1:
+        raise ValueError("the table holds more than 2**31 - 1 channels")
+    return K, ks.shape[0]
+
+
+def launch_dense_shots(t, ks, out, scale=None):
+    """Launch K1's shot entry on CUDA tensors, uncounted
+    (``synth_dense.shots`` counts): ``out`` (n_shots, C, N) holds, at shot
+    s, schedule ``clamp(ks[s], 0, K - 1)`` of the sequence table ``t``
+    (the (K, ...) descriptor tensors of a :class:`..ops.Sequencer`);
+    ``ks`` (n_shots,) int32 stays on the device, where each block reads
+    and clamps its shot's index."""
+    C, NB, S, T, F = t.shape
+    K, n_shots = _shot_vector(t, ks)
+    kind = _out_kind(out, scale, (n_shots, C, t.n_samples),
+                     t.amp_im is not None)
+    desc = _descriptors(t, True)
+    tensors = dict(desc, out=out, ks=ks)
+    if kind == 1:
+        tensors['scale'] = scale
+    if t.amp_im is not None:
+        tensors['amp_im'] = t.amp_im
+    _check_cuda(tensors, out.device)
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_synth_dense_shots(
+            *(v.data_ptr() for v in desc.values()), _ptr(t.amp_im), C, NB, S,
+            T, F, t.n_samples, t.bucket_samples, ks.data_ptr(), K, n_shots,
+            dense_tile(t), out.data_ptr(), kind, _ptr(scale), _stream(out))
+    _raise_on(code, 'synth_dense shots')
+
+
 def _launch_panel(d, work, out, scale):
     C, NB, S, T, F = d.shape
     plan = {n: getattr(work, n) for n in
@@ -422,6 +498,45 @@ def launch_sparse(d, work, out, scale=None, lib=None):
             work.Rs, work.n_tiles, out.shape[1], out.data_ptr(), kind,
             _ptr(scale), _stream(out))
     _raise_on(code, 'synth_sparse')
+
+
+def launch_sparse_shots(t, work, ks, out, scale=None):
+    """Launch K7's shot entry on CUDA tensors, uncounted
+    (``synth_sparse.shots`` counts): ``out`` (n_shots, C, window), zeroed,
+    receives at shot s the live subtiles of schedule ``k = clamp(ks[s], 0,
+    K - 1)`` of the sequence table ``t`` (as :func:`launch_dense_shots`'s)
+    from row k of the stacked worklists ``work`` (a SparseWork whose
+    ``work_*`` are (K, Kw) int32; padding items, ``work_o == n_tiles``,
+    write nothing).  ``ks`` stays on the device."""
+    C, NB, S, T, F = t.shape
+    K, n_shots = _shot_vector(t, ks)
+    plan = {n: getattr(work, n) for n in
+            ('work_c', 'work_b', 'work_t', 'work_o', 'work_s0', 'work_s1')}
+    Kw = work.work_c.shape[-1]
+    if any(tuple(v.shape) != (K, Kw) or v.dtype != torch.int32
+           for v in plan.values()):
+        raise ValueError(f"the worklists are ({K}, Kw) int32 tensors")
+    kind = _out_kind(out, scale, (n_shots, C, out.shape[-1]),
+                     t.amp_im is not None)
+    desc = _descriptors(t, False)
+    tensors = dict(desc, out=out, ks=ks, **plan)
+    if kind == 1:
+        tensors['scale'] = scale
+    if t.amp_im is not None:
+        tensors['amp_im'] = t.amp_im
+    _check_cuda(tensors, out.device)
+    if NB > 1 and t.bucket_samples % (work.Rs * 128):
+        raise ValueError("buckets must be whole subtiles, so that no output "
+                         "subtile has two worklist items")
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_synth_sparse_shots(
+            *(v.data_ptr() for v in desc.values()), _ptr(t.amp_im), C, NB, S,
+            T, F, t.n_samples, t.bucket_samples,
+            *(v.data_ptr() for v in plan.values()), Kw, ks.data_ptr(), K,
+            n_shots, work.Rs, work.n_tiles, out.shape[2], out.data_ptr(),
+            kind, _ptr(scale), _stream(out))
+    _raise_on(code, 'synth_sparse shots')
 
 
 _STACK_TABLES = ('inst', 'amp', 'term_nfac', 'op', 'power', 'shift_hi', 'q32',
@@ -708,11 +823,14 @@ def iir_df2t_chunk() -> int:
 
 #: K1:``synth_dense(dev, out, scale, row0=0, n_out=None, bucket0=0)`` fills
 #: out (C, n_out) with samples [row0, row0 + n_out) (default: all
-#: n_samples) of a schedule whose bucket axis starts at bucket ``bucket0``
+#: n_samples) of a schedule whose bucket axis starts at bucket ``bucket0``;
+#: ``synth_dense.shots(table, ks, out, scale)`` fills out (n_shots, C, N)
+#: with schedule clamp(ks[s]) of a sequence table at shot s, in one launch
 synth_dense = _DenseKernel(
     'synth_dense', 'waveforms_tpu_torch/csrc/synth_dense.cu',
     'waveforms_tpu/ops/pallas_synth.py:583', reference.dense_walk,
-    launch_dense, out_at=1)
+    launch_dense, out_at=1, plain_shots=reference.dense_walk_shots,
+    launch_shots=launch_dense_shots)
 
 #: K2: ``synth_panel(dev, work, out, scale)`` fills out (C, window_samples)
 synth_panel = _Kernel(
@@ -721,11 +839,15 @@ synth_panel = _Kernel(
     _launch_panel)
 
 #: K7: ``synth_sparse(dev, work, out, scale)`` stores the live subtiles of
-#: a SparseWork into a zeroed out (C, window_samples)
-synth_sparse = _Kernel(
+#: a SparseWork into a zeroed out (C, window_samples);
+#: ``synth_sparse.shots(table, work, ks, out, scale)`` those of schedule
+#: clamp(ks[s]) of a sequence table into out[s] (n_shots, C, window), in one
+#: launch over the table's (K, Kw) worklists
+synth_sparse = _ShotKernel(
     'synth_sparse', 'waveforms_tpu_torch/csrc/synth_sparse.cu',
     'waveforms_tpu/ops/sparse_synth.py:199', reference.sparse_walk,
-    launch_sparse)
+    launch_sparse, plain_shots=reference.sparse_walk_shots,
+    launch_shots=launch_sparse_shots)
 
 #: K5: ``synth_stack(tables, out, scale)`` fills out (C, n_samples) from
 #: StackTables
@@ -804,6 +926,8 @@ def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
     synth_dense.windowed_launches = 0
+    synth_dense.shot_launches = 0
+    synth_sparse.shot_launches = 0
     iir_df2t.state_launches = 0
 
 

@@ -225,20 +225,23 @@ def filter_zpk(z, p, k, x, device='cuda') -> torch.Tensor:
 
 
 def _sequential_filter(bb: np.ndarray, aa: np.ndarray, x: torch.Tensor,
-                       zi0: torch.Tensor, state_only: bool = False):
+                       zi0: torch.Tensor, state_only: bool = False,
+                       coef: torch.Tensor | None = None):
     """Direct form II transposed, exact scipy semantics including zi/zf:
     the recurrence kernel S1 over the rows of ``x`` (JAX: a ``lax.scan``;
     on the card a blocked scan, on CPU tensors the sequential plain
     version), with the coefficients ``bb``, ``aa`` (float64) in ``x``'s
     dtype.  The route of every real section on the card; on CPU tensors,
     as in JAX, where the doubling scan is numerically unstable.
-    ``state_only``: S1's state-only call, (None, zf)."""
+    ``state_only``: S1's state-only call, (None, zf).  ``coef``: b then
+    a, already in ``x``'s dtype on its device (by default made here)."""
     from .. import kernels
     d = len(bb) - 1
     lead, n = x.shape[:-1], x.shape[-1]
     rows = x.reshape(-1, n).contiguous()
     zi = zi0.expand(lead + (d,)).reshape(-1, d).contiguous()
-    coef = _like(np.concatenate([bb, aa]), x)
+    if coef is None:
+        coef = _like(np.concatenate([bb, aa]), x)
     y = None if state_only else torch.empty_like(rows)
     zf = torch.empty_like(zi)
     kernels.iir_df2t(rows, coef, zi, y, zf)
@@ -372,6 +375,30 @@ def _state_space(bb, aa, d):
     return M, bb[1:] - aa[1:] * bb[0]
 
 
+def _lfilter_apply(b, a, zi, n, like):
+    """``x -> (y, zf)`` of :func:`lfilter` with ``zi`` (None: a zero
+    state) over signals of ``like``'s dtype on its device whose rows have
+    ``n`` samples (the length that decides the route, :func:`_route`),
+    with the coefficients and the state put there once: a call copies
+    nothing from the host and reads nothing back, so a CUDA graph can
+    capture it (:func:`..parallel.run_sequence`)."""
+    bb, aa, d = _normalised(b, a)
+    zi0 = like.new_zeros((d,)) if zi is None else _like(zi, like)
+    if d == 0:
+        return lambda x: (bb[0] * x, zi0)
+    if _route(like.device, aa, n) == 'S1':
+        # the card's route; on CPU tensors, clustered near-unit poles,
+        # where doubling diverges numerically and no factored realization
+        # reproduces (b, a) semantics either, so the exact direct form
+        # runs sequentially (callers who hold the factored form should use
+        # filter_zpk)
+        coef = _like(np.concatenate([bb, aa]), like)
+        return lambda x: _sequential_filter(bb, aa, x, zi0, False, coef)
+    M, k = _state_space(bb, aa, d)
+    M, k, b0 = _like(M, like), _like(k, like), float(bb[0])
+    return lambda x: _doubling_df2t(M, k, b0, x, zi0)
+
+
 def lfilter(b, a, x, zi=None, device='cuda', route_n=None):
     """General (b, a) IIR over the last axis of ``x``: direct form II
     transposed with state dimension ``max(len(a), len(b)) - 1``, by the
@@ -382,27 +409,8 @@ def lfilter(b, a, x, zi=None, device='cuda', route_n=None):
     a longer row passes the row's, and takes the row's route.
     """
     x = _as_signal(x, device)
-    bb, aa, d = _normalised(b, a)
-
-    return_zf = zi is not None
-    zi0 = x.new_zeros((d,)) if zi is None else _like(zi, x)
-
-    if d == 0:
-        y = bb[0] * x
-        return (y, zi0) if return_zf else y
-
-    if _route(x.device, aa, route_n or x.shape[-1]) == 'S1':
-        # the card's route; on CPU tensors, clustered near-unit poles,
-        # where doubling diverges numerically and no factored realization
-        # reproduces (b, a) semantics either, so the exact direct form
-        # runs sequentially (callers who hold the factored form should use
-        # filter_zpk)
-        y, zf = _sequential_filter(bb, aa, x, zi0)
-    else:
-        M, k = _state_space(bb, aa, d)
-        y, zf = _doubling_df2t(_like(M, x), _like(k, x), float(bb[0]), x,
-                               zi0)
-    return (y, zf) if return_zf else y
+    y, zf = _lfilter_apply(b, a, zi, route_n or x.shape[-1], x)(x)
+    return (y, zf) if zi is not None else y
 
 
 def lfilter_zf(b, a, x, route_n=None, zi=None) -> torch.Tensor:

@@ -20,6 +20,8 @@ kernels against them there) and at test size on the CPU.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -31,7 +33,8 @@ from .lowering import (DRAG_SIN_NC, DRAG_SINX_MAXQ, OP_COS, OP_COSH, OP_DRAG,
 
 __all__ = ['op_builders', 'dense_window', 'dense_walk', 'panel_walk',
            'sparse_walk', 'stack_eval', 'stack_seq_eval', 'wrap32',
-           'dense_bucket0', 'stack_window']
+           'dense_bucket0', 'stack_window', 'dense_walk_shots',
+           'sparse_walk_shots']
 
 _F32 = torch.float32
 # f32 constants, exactly as the JAX kernel spells them (np.float32 values)
@@ -589,6 +592,41 @@ def sparse_walk(d, work, out, scale=None):
     pos = pos[(obase[:, None] + torch.arange(tile, device=dev)) < window]
     out.view(-1)[pos] = _stored([a.view(-1)[pos] for a in accs], out.dtype,
                                 None if scale is None else scale[pos // window])
+    return out
+
+
+def _clamped(ks, K: int) -> list:
+    return ks.to(torch.int64).clamp(0, K - 1).tolist()
+
+
+def dense_walk_shots(t, ks, out, scale=None):
+    """Plain version of the dense kernel's shot entry: ``out`` (n_shots,
+    C, N) holds, at shot s, :func:`dense_walk` of schedule ``clamp(ks[s],
+    0, K - 1)`` of the sequence table ``t`` (a :class:`..ops.Sequencer`,
+    whose ``_schedule(k)`` is schedule k), f32, bf16, f16, int16
+    (``scale`` per channel) or, in pair mode, complex64.  ``ks`` is a 1-D
+    integer tensor."""
+    K, C = t.seg_lo.shape[0], t.shape[0]
+    if out.dim() != 3 or tuple(out.shape[1:]) != (C, t.n_samples):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected "
+                         f"(n_shots, {C}, {t.n_samples})")
+    for s, k in enumerate(_clamped(ks, K)):
+        dense_walk(t._schedule(k), out[s], scale)
+    return out
+
+
+def sparse_walk_shots(t, work, ks, out, scale=None):
+    """Plain version of the worklist kernel's shot entry: ``out`` (n_shots,
+    C, window), zeroed, receives at shot s :func:`sparse_walk` of schedule
+    ``k = clamp(ks[s], 0, K - 1)`` of the sequence table ``t`` (as
+    :func:`dense_walk_shots`') over row k of the stacked worklists ``work`` (a
+    :class:`..ops.sparse_synth.SparseWork` whose ``work_*`` are (K, Kw))."""
+    K = t.seg_lo.shape[0]
+    names = ('work_c', 'work_b', 'work_t', 'work_o', 'work_s0', 'work_s1')
+    for s, k in enumerate(_clamped(ks, K)):
+        row = SimpleNamespace(Rs=work.Rs, n_tiles=work.n_tiles,
+                              **{n: getattr(work, n)[k] for n in names})
+        sparse_walk(t._schedule(k), row, out[s], scale)
     return out
 
 

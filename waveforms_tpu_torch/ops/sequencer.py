@@ -8,27 +8,33 @@ is that table for the segment-walk kernels, as the JAX package's
 descriptor arrays pad to one ``(C, NB, Sb, T, F)`` and stack along a
 leading schedule axis on the device, and
 
-* :meth:`Sequencer.play` runs the dense kernel (K1, ``csrc/synth_dense.cu``)
-  on slice ``k``; :meth:`~Sequencer.play_many` runs it once per shot into
-  one ``(n_shots, C, N)`` output;
+* :meth:`~Sequencer.play_many` runs the dense kernel (K1,
+  ``csrc/synth_dense.cu``) ONCE for a whole shot vector through its shot
+  entry, into one ``(n_shots, C, N)`` output, as JAX's ``vmap`` over the
+  index makes one batched launch; :meth:`Sequencer.play` is one shot of
+  it;
 * :meth:`~Sequencer.play_sparse` (and ``play_many(sparse=True)``) runs the
-  worklist kernel (K7, ``csrc/synth_sparse.cu``) on a per-schedule
-  live-subtile worklist;
+  worklist kernel (K7, ``csrc/synth_sparse.cu``) the same way, over the
+  table's stacked per-schedule live-subtile worklists;
 * :meth:`~Sequencer.play_packed` runs the panel kernel (K2,
   ``csrc/synth_panel.cu``) ONCE for a whole shot vector, over the tables
   concatenated along the segment axis, with the per-shot segment ranges
-  gathered on the device from ``ks`` (so ``ks`` may come from a measurement
-  on the card with no host sync);
+  gathered on the device from ``ks``;
 * :meth:`~Sequencer.play_replay` synthesizes the K schedules once into a
   ``(K, C, N)`` palette and gathers its rows (``index_select``).
 
-Each slice or concatenation reaches the kernels as a
-:class:`.synth.DeviceSchedule` built by ``from_tensors``: no copy through
-the host.  Opcodes stay the lowering's own numbers (the kernels switch on
-them); the JAX table's compact opcode remap is kept only as the
-``ops_present`` attribute.  Indices clamp to the table's ends, as JAX's
-``mode='clip'`` gathers do: ``k = 99`` plays the last schedule, ``k = -3``
-schedule 0 (never Python's wrap-around).
+The shot entries of K1 and K7 take the table's stacked tensors as they
+are and read each shot's index on the device, and play_packed and
+play_replay gather on the device: a shot index or vector may be an int, a
+list, a numpy array or a tensor, and one that is a CUDA tensor (a shot
+order computed from a measurement on the card) is never read on the host,
+so it plays with no host sync.  A slice or concatenation reaches the
+kernels as a :class:`.synth.DeviceSchedule` built by ``from_tensors``: no
+copy through the host.  Opcodes stay the lowering's own numbers (the
+kernels switch on them); the JAX table's compact opcode remap is kept only
+as the ``ops_present`` attribute.  Indices clamp to the table's ends, as
+JAX's ``mode='clip'`` gathers do: ``k = 99`` plays the last schedule,
+``k = -3`` schedule 0 (never Python's wrap-around).
 
 The TPU budgets are not carried over -- GPU descriptors, worklists and ext
 buffers live in global memory: ``PALLAS_SMEM_BUDGET`` on the concatenated
@@ -196,18 +202,34 @@ class Sequencer:
     def _clamp(self, k) -> int:
         return min(max(int(k), 0), self.n_schedules - 1)
 
-    def _host_ks(self, ks) -> list:
-        return [self._clamp(k) for k in np.asarray(
-            ks.cpu() if isinstance(ks, torch.Tensor) else ks).reshape(-1)]
-
-    def _device_ks(self, ks) -> torch.Tensor:
-        ks = torch.as_tensor(ks, device=self.device)
-        if ks.dim() != 1:
-            raise ValueError("ks must be a 1-D vector of schedule indices")
-        return ks.to(torch.int64)
+    def shot_indices(self, ks, dim: int = 1) -> torch.Tensor:
+        """Schedule indices as the shot entries take them: an int32
+        (n_shots,) tensor on the table's device, from one index (``dim``
+        0) or a vector (1), clamped to ``[0, K - 1]``.  A tensor on the
+        card is clamped there (one elementwise launch; the kernels clamp
+        again as a guard, but ``index_select`` and the packed plan's gather
+        take these indices as they are) and is never read on the host;
+        host indices are clamped on the host and reach the card through
+        pinned memory, without a wait."""
+        if isinstance(ks, torch.Tensor) and ks.device.type != 'cpu':
+            if ks.dim() != dim:
+                raise ValueError(f"expected a {dim}-D index, got "
+                                 f"{ks.dim()}-D")
+            return ks.reshape(-1).to(self.device).clamp(
+                0, self.n_schedules - 1).to(torch.int32)
+        a = np.asarray(ks.numpy() if isinstance(ks, torch.Tensor) else ks)
+        if a.ndim != dim:
+            raise ValueError(f"expected a {dim}-D index, got {a.ndim}-D")
+        a = np.clip(a.reshape(-1).astype(np.int64), 0, self.n_schedules - 1)
+        host = torch.from_numpy(a.astype(np.int32))
+        if self.device.type == 'cuda':
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host
 
     def _schedule(self, k: int) -> DeviceSchedule:
-        """Slice ``k`` of the table as a DeviceSchedule (views, no copy)."""
+        """Slice ``k`` of the table as a DeviceSchedule (views, no copy):
+        what a one-shot launch, and the shot entries' plain versions,
+        take."""
         names = ('seg_lo', 'seg_hi', 'seg_hmax', 'nterm', 'nfac', 'amp', 'op',
                  'power', 'shift_hi', 'q32', 'args', 'clip')
         return DeviceSchedule.from_tensors(
@@ -228,44 +250,45 @@ class Sequencer:
 
     def play(self, k, rows_per_tile: int | None = None, out_dtype=None,
              dac_scale=32767.0) -> torch.Tensor:
-        """Synthesize schedule ``k`` -> (C, N) through the dense kernel.
+        """Synthesize schedule ``k`` (an int or a 0-d tensor) -> (C, N):
+        one shot of :meth:`play_many`.
 
         ``out_dtype=torch.int16`` emits DAC codes scaled by a scalar or
         per-channel ``dac_scale``, ``torch.bfloat16`` / ``torch.float16``
         the f32 sum rounded once; pair-mode tables give complex64 and need
         f32."""
-        return self.play_many([k], rows_per_tile, out_dtype=out_dtype,
-                              dac_scale=dac_scale)[0]
+        return self.play_many(self.shot_indices(k, 0), rows_per_tile,
+                              out_dtype=out_dtype, dac_scale=dac_scale)[0]
 
     def play_many(self, ks, rows_per_tile: int | None = None,
                   sparse: bool = False, Rs: int = 32, out_dtype=None,
                   dac_scale=32767.0) -> torch.Tensor:
-        """Synthesize the shot sequence ``ks`` -> (len(ks), C, N): one
-        dense-kernel launch per shot (worklist kernel with ``sparse``),
-        each writing its slice of one output tensor.  ``ks`` is read on the
-        host; :meth:`play_packed` keeps it on the device."""
+        """Synthesize the shot sequence ``ks`` (a list, an array or a 1-D
+        tensor) -> (len(ks), C, N) in ONE launch: the dense kernel's shot
+        entry (the worklist kernel's with ``sparse``), which reads each
+        shot's index on the device and clamps it there.  A CUDA ``ks`` is
+        never read on the host; with ``sparse`` the first play at an
+        ``Rs`` builds the table's worklists on the host."""
         from .. import kernels
         C = self.shape[0]
-        ks = self._host_ks(ks)
         if sparse:
             if out_dtype is not None:
                 raise NotImplementedError(
                     "play_many(sparse=True) is f32-only (play_sparse has "
                     "no narrowed store); use sparse=False for out_dtype")
             self._check_sparse()
-            out = torch.zeros((len(ks), C, self.n_samples),
+            ks = self.shot_indices(ks, 1)
+            out = torch.zeros((ks.shape[0], C, self.n_samples),
                               dtype=torch.float32, device=self.device)
-            for i, k in enumerate(ks):
-                self._sparse_into(k, Rs, out[i])
-            return out
+            return kernels.synth_sparse.shots(self, self._stacked_work(Rs),
+                                              ks, out, None)
         self._check_rows(rows_per_tile)
         dt, scale = validate_out_mode(out_dtype, C, dac_scale, self.device,
                                       pair=self.pair)
-        out = torch.empty((len(ks), C, self.n_samples), dtype=dt,
+        ks = self.shot_indices(ks, 1)
+        out = torch.empty((ks.shape[0], C, self.n_samples), dtype=dt,
                           device=self.device)
-        for i, k in enumerate(ks):
-            kernels.synth_dense(self._schedule(k), out[i], scale)
-        return out
+        return kernels.synth_dense.shots(self, ks, out, scale)
 
     # -- the worklist kernel (K7) ----------------------------------------
 
@@ -294,26 +317,30 @@ class Sequencer:
         if self.shape[1] != 1:
             raise UnsupportedFactor("sparse sequence play is single-bucket")
 
-    def _sparse_args(self, k: int, Rs: int):
-        """(schedule k, its SparseWork): the worklist kernel's inputs."""
+    def _sparse_tables(self, Rs: int):
+        """:meth:`_sparse_table` at ``Rs``, built once."""
         if Rs not in self._sparse_work:
             self._sparse_work[Rs] = self._sparse_table(Rs)
-        fields, n_tiles, n_live = self._sparse_work[Rs]
+        return self._sparse_work[Rs]
+
+    def _stacked_work(self, Rs: int) -> SimpleNamespace:
+        """The (K, Kw) worklists of every schedule, as the worklist
+        kernel's shot entry takes them."""
+        fields, n_tiles, _ = self._sparse_tables(Rs)
+        return SimpleNamespace(Rs=Rs, n_tiles=n_tiles, **fields)
+
+    def _sparse_args(self, k: int, Rs: int):
+        """(schedule k, its SparseWork): a one-shot launch's inputs."""
+        fields, n_tiles, n_live = self._sparse_tables(Rs)
         return self._schedule(k), SparseWork(
             Rs=Rs, n_tiles=n_tiles, n_live=n_live[k],
             **{n: f[k] for n, f in fields.items()})
 
-    def _sparse_into(self, k: int, Rs: int, out: torch.Tensor):
-        from .. import kernels
-        return kernels.synth_sparse(*self._sparse_args(k, Rs), out, None)
-
     def play_sparse(self, k, Rs: int = 32) -> torch.Tensor:
-        """Schedule ``k`` -> (C, N) f32 through the worklist kernel, over
-        a zeroed output.  Real single-bucket tables only."""
-        self._check_sparse()
-        out = torch.zeros((self.shape[0], self.n_samples),
-                          dtype=torch.float32, device=self.device)
-        return self._sparse_into(self._clamp(k), Rs, out)
+        """Schedule ``k`` (an int or a 0-d tensor) -> (C, N) f32 through
+        the worklist kernel, over a zeroed output: one shot of
+        ``play_many(sparse=True)``.  Real single-bucket tables only."""
+        return self.play_many(self.shot_indices(k, 0), sparse=True, Rs=Rs)[0]
 
     # -- shot-packed playback: one panel-kernel launch (K2) ---------------
 
@@ -423,10 +450,9 @@ class Sequencer:
 
         Real single-bucket tables with uniform clip rails only.  ``ks``
         stays on the device: each item's segment range is gathered there
-        from ``clamp(ks, 0, K-1)``, so a shot vector computed on the card
-        needs no host sync.  The result is a (shot, channel, sample) view
-        of the launch's (C, n_shots * rows * 128) output, whose rows of a
-        shot past its ``n_samples`` are trimmed."""
+        from ``clamp(ks, 0, K-1)``.  The result is a (shot, channel,
+        sample) view of the launch's (C, n_shots * rows * 128) output,
+        whose rows of a shot past its ``n_samples`` are trimmed."""
         from .. import kernels
         if self.pair:
             raise UnsupportedFactor("packed sequence play is real-only")
@@ -437,7 +463,7 @@ class Sequencer:
             raise UnsupportedFactor(
                 "packed sequence play needs uniform clip rails")
         dt, scale = validate_out_mode(out_dtype, C, dac_scale, self.device)
-        ks = self._device_ks(ks)
+        ks = self.shot_indices(ks).long()
         n_shots = ks.shape[0]
         plan, work = self._packed_work(ks, Rs)
         out = torch.empty((C, plan.total_rows * 128), dtype=dt,
@@ -471,5 +497,4 @@ class Sequencer:
             self._palettes[key] = self.play_many(
                 range(self.n_schedules), out_dtype=out_dtype,
                 dac_scale=dac_scale)
-        ks = self._device_ks(ks).clamp(0, self.n_schedules - 1)
-        return self._palettes[key].index_select(0, ks)
+        return self._palettes[key].index_select(0, self.shot_indices(ks))

@@ -9,16 +9,22 @@ from each time shard to the next, and readout demodulation against a tone
 comb (:func:`..ops.demod.demodulate`) with the time shards' partial sums
 added on one device, JAX's psum.  :func:`run_step` lowers and runs one such step.
 :func:`run_sequence` plays a shot table through a
-:class:`~waveforms_tpu_torch.ops.Sequencer` (K1 for each shot) on one
-device through the same filter and demodulation.
+:class:`~waveforms_tpu_torch.ops.Sequencer` (K1's shot entry for each shot)
+on one device through the same filter and demodulation: on the card as one
+CUDA graph a shot (:class:`SequenceGraph`), JAX's ``jit`` of a
+``lax.scan``; its plain version, the host loop, is
+:func:`run_sequence_loop`.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-__all__ = ['make_step', 'run_step', 'run_sequence']
+__all__ = ['make_step', 'run_step', 'run_sequence', 'run_sequence_loop',
+           'SequenceGraph']
 
 
 def _postfilter_coeffs(ba_filters):
@@ -33,10 +39,11 @@ def _postfilter_coeffs(ba_filters):
     return b, a, lfiltic(b, a, np.zeros(len(a) - 1), np.zeros(len(b) - 1))
 
 
-def _make_postfilter(ba_filters, device):
-    """Shared (b, a)-cascade pre-compensation closure (or None): the
-    lfiltic zero-history initial state and the device lfilter over every
-    row, in float64.
+def _make_postfilter(ba_filters, device, n):
+    """Shared (b, a)-cascade pre-compensation closure (or None) over
+    signals of ``n`` samples a row: the lfiltic zero-history initial state
+    and the device lfilter over every row, in float64, its constants put on
+    ``device`` once (:func:`..ops.iir._lfilter_apply`).
 
     The JAX package runs this filter in the synthesized signal's f32, with
     a float64 result.  For a combined cascade with near-unit poles that is
@@ -47,12 +54,12 @@ def _make_postfilter(ba_filters, device):
     coeffs = _postfilter_coeffs(ba_filters)
     if coeffs is None:
         return None
-    from ..ops.iir import lfilter
-    b, a, zi = coeffs
-    zi = torch.as_tensor(zi, device=device)
+    from ..ops.iir import _lfilter_apply
+    filt = _lfilter_apply(*coeffs, n, torch.empty(
+        (), dtype=torch.float64, device=device))
 
     def apply(sig):
-        return lfilter(b, a, sig.double(), zi=zi)[0]
+        return filt(sig.double())[0]
 
     return apply
 
@@ -247,40 +254,144 @@ def run_step(channels, start, stop, sample_rate, mesh, ba_filters=None,
                      demod_freqs=demod_freqs, **kw)()
 
 
-def run_sequence(seq, indices, ba_filters=None, demod_freqs=None,
-                 rows_per_tile: int | None = None) -> torch.Tensor:
-    """Run a shot table through a
-    :class:`~waveforms_tpu_torch.ops.Sequencer`, on its device.
-
-    ``indices`` is the per-shot schedule-index array (length = number of
-    shots; e.g. a randomized-benchmarking order, clamped to the table as
-    ``Sequencer.play`` clamps it).  Each shot synthesizes via ``seq.play``
-    (K1), applies the optional pre-compensation IIR in float64 and
-    demodulates against the tone comb; the loop over shots keeps only
-    each shot's IQ points, so memory stays bounded at one shot's signal
-    regardless of shot count.
-
-    Returns ``iq`` of shape (n_shots, C, n_tones) complex64 when
-    ``demod_freqs`` is given, otherwise the stacked signals
-    (n_shots, C, N): f32, or float64 when filtered.
-    """
-    filt = _make_postfilter(ba_filters, seq.device)
+def _shot_body(seq, ba_filters, demod_freqs, rows_per_tile):
+    """One shot of :func:`run_sequence`: ``one(k)`` plays schedule ``k``
+    (an int or a 0-d tensor) through K1's shot entry, the optional
+    pre-compensation IIR in float64 and the demodulation, with every
+    constant already on the table's device."""
+    filt = _make_postfilter(ba_filters, seq.device, seq.n_samples)
     demod = None
     if demod_freqs is not None:
         from ..ops.demod import demod_matrix, demodulate
         demod = demod_matrix(demod_freqs, seq.n_samples, seq.sample_rate,
                              device=seq.device)
+
+    def one(k):
+        sig = seq.play(k, rows_per_tile=rows_per_tile)
+        if filt is not None:
+            sig = filt(sig)
+        return demodulate(sig, demod) if demod is not None else sig
+
+    return one
+
+
+def run_sequence(seq, indices, ba_filters=None, demod_freqs=None,
+                 rows_per_tile: int | None = None) -> torch.Tensor:
+    """Run a shot table through a
+    :class:`~waveforms_tpu_torch.ops.Sequencer`, on its device.
+
+    ``indices`` is the per-shot schedule-index vector (a list, an array or
+    a 1-D tensor; length = number of shots; e.g. a randomized-benchmarking
+    order, clamped to the table as ``Sequencer.play`` clamps it).  Each
+    shot synthesizes via ``seq.play`` (K1's shot entry), applies the
+    optional pre-compensation IIR in float64 and demodulates against the
+    tone comb; only each shot's result is kept, so memory stays bounded at
+    one shot's signal regardless of shot count.
+
+    On a CUDA device the shot is one captured program, as JAX's ``jit`` of
+    a ``lax.scan`` is: a :class:`SequenceGraph`, captured once a call and
+    replayed once a shot, which reads the shot's index on the card (a CUDA
+    ``indices`` is never read on the host).  A capture that fails raises.
+    On the CPU, and as the graph's plain version, the host loop
+    :func:`run_sequence_loop`; both give the same bits.
+
+    Returns ``iq`` of shape (n_shots, C, n_tones) complex64 when
+    ``demod_freqs`` is given, otherwise the stacked signals
+    (n_shots, C, N): f32, or float64 when filtered.
+    """
+    if seq.device.type != 'cuda':
+        return run_sequence_loop(seq, indices, ba_filters, demod_freqs,
+                                 rows_per_tile)
+    return SequenceGraph(seq, indices, ba_filters, demod_freqs,
+                         rows_per_tile).run()
+
+
+def run_sequence_loop(seq, indices, ba_filters=None, demod_freqs=None,
+                      rows_per_tile: int | None = None) -> torch.Tensor:
+    """:func:`run_sequence` as a loop on the host: each shot's index read
+    there, and its launches made one after another.  What a CPU device
+    runs, and the plain version that :class:`SequenceGraph` is held to."""
+    one = _shot_body(seq, ba_filters, demod_freqs, rows_per_tile)
     ks = np.asarray(indices.cpu() if isinstance(indices, torch.Tensor)
                     else indices).reshape(-1)
     outs = None
     for i, k in enumerate(ks):
-        sig = seq.play(int(k), rows_per_tile=rows_per_tile)
-        if filt is not None:
-            sig = filt(sig)
-        out = demodulate(sig, demod) if demod is not None else sig
+        out = one(int(k))
         if outs is None:
             outs = out.new_empty((len(ks),) + tuple(out.shape))
         outs[i] = out
     if outs is None:
         raise ValueError("run_sequence needs at least one shot")
     return outs
+
+
+class SequenceGraph:
+    """:func:`run_sequence`'s shot on a CUDA device as one CUDA graph.
+
+    The shot body -- the shot's index gathered from the device vector of
+    indices at a device shot counter (``index_select``), K1's shot entry on
+    it, the float64 cast, S1's kernels, the demodulation's products,
+    ``outs.index_copy_`` at the counter and ``counter += 1`` -- runs once
+    eagerly on a side stream as shot 0 (which builds the kernels and
+    creates the BLAS handle before the capture).  With more shots it is
+    then captured once on that stream (``torch.cuda.graph``; ``capture_s``:
+    the host's seconds from the first captured call to the instantiated
+    graph) into a graph with its own memory pool, which holds one shot's
+    intermediates; a single shot is not captured (``graph`` None).
+    :meth:`run` replays the graph once a shot on the current stream: no
+    host read of an index, no host-side launch of a kernel, and the Python
+    kernel counters see the eager shot and the capture, not the replays.
+    The object holds every tensor the graph reads that was made before the
+    capture (the table, the indices, the counter, the filter's and the
+    demodulation's constants in the shot body's closure): freed, their
+    memory would be handed out again while the graph still reads it.
+    """
+
+    def __init__(self, seq, indices, ba_filters=None, demod_freqs=None,
+                 rows_per_tile: int | None = None):
+        self.seq = seq
+        self._one = one = _shot_body(seq, ba_filters, demod_freqs,
+                                     rows_per_tile)
+        dev = seq.device
+        self.ks = seq.shot_indices(indices)
+        self.n_shots = self.ks.shape[0]
+        if not self.n_shots:
+            raise ValueError("run_sequence needs at least one shot")
+        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def shot():
+            return one(self.ks.index_select(0, self.counter).reshape(()))
+
+        def keep(out):
+            self.outs.index_copy_(0, self.counter, out[None])
+            self.counter.add_(1)
+
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            first = shot()
+            self.outs = first.new_empty((self.n_shots,) + first.shape)
+            keep(first)
+        del first
+        self.graph, self.capture_s = None, 0.0
+        if self.n_shots > 1:
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                t0 = time.perf_counter()
+                keep(shot())
+            self.capture_s = time.perf_counter() - t0
+        stream.wait_stream(side)
+        self._next = 1                  # shot 0 ran eagerly
+
+    def run(self) -> torch.Tensor:
+        """Replay the graph for every shot not yet played (all of them
+        again after the first run) on the current stream -> ``outs``
+        (n_shots, ...), which the next run overwrites."""
+        if self.graph is not None:
+            if self._next == 0:
+                self.counter.zero_()
+            for _ in range(self._next, self.n_shots):
+                self.graph.replay()
+        self._next = 0
+        return self.outs
