@@ -63,11 +63,16 @@ the host engine, with g++; a failed build ends the run) and runs:
    (``synthesize(flagship, engine='native')`` on the card's host, its wall
    and engine seconds, against the oracle on four seeded channels within
    TOL_NATIVE and against K2's f32 plane within TOL_ORACLE) and
-   ``engine_torch`` (``engine='torch'`` on the flagship and the dense
-   stratum: wall time, device time of the evaluation, the CUDA launches of
-   one call in torch.profiler's trace, peak memory; against the oracle on
+   ``engine_torch`` (``engine='torch'`` -- one launch of the trace
+   evaluator T1 a call, nothing else -- on the flagship, the dense stratum
+   and the flagship with ``part='complex'``: wall time, the CUDA launches
+   and copies of one call in torch.profiler's trace, peak memory, T1's
+   device time beside its bound and its plain version's on the same tape;
+   T1 against its plain version within TOL_PLAIN_HI, against the oracle on
    four seeded channels and K3 within TOL_ORACLE_HI; then ``sample()``
-   with an SOS filter on one channel against scipy within TOL_SOS);
+   with an SOS filter on one channel against scipy within TOL_SOS,
+   ``sample_waveform`` on a float32 grid and the CLI's default ``sample``
+   path, one T1 launch each);
 6. the sequence tables: at small size (tests/test_torch_sequencer.py's and
    test_torch_stack_seq.py's tables) every ``Sequencer`` method and
    ``StackSequencer.play_packed`` on the card against the same call on the
@@ -521,6 +526,70 @@ def bound(nbytes, ops, peak='fp32'):
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
             'bound_bytes': int(nbytes), 'bound_ops': int(ops),
             'library_ms': None}
+
+
+# Operations per evaluation of each basis in T1 (FP64, by csrc/trace_eval.cu
+# counted by hand, exp, sin, cos, log, erf, cosh, sinh and pow at 8 each
+# and a division at 4, as OP_COST counts them; 0 an external slot's load).
+# Multi-tone DRAG and the polynomial bases add their table's size, interp
+# its search, a complex argument thrice the real cost.
+TRACE_BASIS_COST = {0: 1, 1: 0, 2: 15, 3: 13, 4: 9, 5: 14, 6: 9, 7: 20,
+                    8: 25, 9: 28, 10: 26, 11: 9, 12: 9, 13: 40, 14: 30,
+                    15: 25, 16: 60, 17: 70}
+
+
+def trace_factor_ops(code, p, cplx):
+    """T1's operations for one evaluation of a factor: basis ``code`` on
+    pool slice ``p`` (complex where ``cplx``), its shift included."""
+    import numpy as np
+    cost = TRACE_BASIS_COST.get(code, 0)
+    if code in (14, 15):                      # the polynomial's Horner steps
+        cost += 2 * int(p[3 if code == 14 else 2])
+    elif code == 7:
+        cost += 2 * int(np.log2(max(int(np.real(p[0])), 2)))
+    elif code in (16, 17):
+        m, nb = int(p[5]), int(p[6])
+        cost += (nb + 1) * (m + 1) * 11 + 4 * (nb + 1)
+    return 1 + (3 * cost if cplx and code else cost)
+
+
+def trace_operations(tape, grid):
+    """Operations that T1 needs on ``grid`` (an ndarray) for ``tape``: each
+    sample of each live segment its terms' factors
+    (``trace_factor_ops``), powers, products and sums, and each sample of
+    each waveform its search over the bounds.  What this grid's data
+    needs, not the most it could."""
+    import numpy as np
+
+    from waveforms_tpu_torch.ops.trace_tape import Records
+    r = Records(tape.prog, tape.pool)
+    D = r.D
+    grid = np.asarray(grid, dtype=np.float64)
+    total = 0
+    for c in range(r.n_ch):
+        w0, nw, coff, _ = r.rec('ch', c)
+        tt = grid - D[coff + 2]
+        for w in range(w0, w0 + nw):
+            s0, ns, boff, clip = r.rec('wv', w)
+            seg = np.searchsorted(D[boff:boff + ns], tt, side='right')
+            counts = np.bincount(seg, minlength=ns + 1)
+            total += 2 * int(np.ceil(np.log2(ns + 1))) * len(grid)
+            for s in range(ns):
+                t0, nt = r.rec('sg', s0 + s)
+                if not nt:
+                    continue
+                ops = 2 * clip + 2
+                for k in range(t0, t0 + nt):
+                    f0, nf = r.rec('tm', k)[:2]
+                    ops += 6
+                    for j in range(f0, f0 + nf):
+                        uf, kind = r.rec('tf', j)[:2]
+                        code, _, p = r.args(uf)
+                        cplx = r.rec('uf', uf)[3]
+                        ops += trace_factor_ops(code, p, cplx) + (
+                            0 if kind == 1 else 8 if kind == 8 else 2) + 6
+                total += ops * int(counts[s])
+    return int(total)
 
 
 def brief_checks(rec):
@@ -1560,58 +1629,94 @@ def engine_native(fail):
         fail.append('engine_native')
 
 
-def engine_torch(fail):
-    """``synthesize(..., engine='torch', device='cuda')``, the trace
-    evaluator, on the flagship and the dense stratum at full size (each a
-    main path, counts read after it): host wall time, device time of the
-    evaluation over the uploaded grid, CUDA launches of one call in
-    torch.profiler's trace, peak memory; against the oracle on four seeded
-    channels and against the double tier's kernel (K4, K3) on the whole
-    plane.  Then ``sample()`` with an SOS filter on one flagship channel
-    against scipy, each of the filter's sections one S1 call."""
+TORCH_CELLS = (('flagship', 'real'), ('dense', 'real'),
+               ('flagship', 'complex'))
+
+
+def engine_torch(fail, summary):
+    """``synthesize(..., engine='torch', device='cuda')`` -- one launch of
+    the trace evaluator T1 a call -- on the flagship, the dense stratum and
+    the flagship with ``part='complex'`` at full size (each a main path,
+    counts read after it; T1 must launch once and nothing else): host wall
+    time, the call's CUDA launches and copies in torch.profiler's trace
+    (the eager evaluator made 15,361 on the flagship), peak memory, T1's
+    device time beside its bound (the plane's bytes, and the operations the
+    tape needs on this grid at the FP64 peak) and its plain version's (the
+    same tape evaluated segment by segment in torch ops, as the eager
+    evaluator did, on the same inputs); T1 against its plain version over
+    the whole plane (TOL_PLAIN_HI), against the oracle on four seeded
+    channels and against K3 on the whole plane (the real part;
+    TOL_ORACLE_HI).  Then ``sample()`` with an SOS filter on one flagship
+    channel against scipy (T1 once, each of the filter's sections one S1
+    call), ``sample_waveform`` on a float32 grid (T1 in float32, against its
+    plain version within TOL_PLAIN) and the CLI's default path (``sample``,
+    engine 'torch', against the oracle), one T1 launch each."""
     import numpy as np
     import scipy.signal as sps
     import torch
 
     import waveforms_tpu_torch as wt
     from waveforms_tpu_torch import kernels
-    from waveforms_tpu_torch.ops.torch_eval import evaluate
+    from waveforms_tpu_torch.ops import trace_tape
+    from waveforms_tpu_torch.ops.torch_eval import sample_waveform
     from waveforms_tpu_torch.schedules import FS, STRATA
 
-    ok = True
-    for stratum in ('flagship', 'dense'):
+    others = [k.name for k in kernels.KERNELS if k.name != 'trace_eval']
+    ok, cells = True, {}
+    for stratum, part in TORCH_CELLS:
         build, stop = STRATA[stratum]
         chans = build()
+        label = f'engine_torch_{stratum}' + (
+            '_complex' if part == 'complex' else '')
+
+        def call():
+            return wt.synthesize(chans, 0.0, stop, FS, engine='torch',
+                                 part=part, device='cuda')
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = wt.synthesize(chans, 0.0, stop, FS, engine='torch',
-                            device='cuda')
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        MAIN_COUNTS.append((f'engine_torch_{stratum}', counts))
+        n_fail = len(fail)
+        out, wall, counts = main_path(label, call, fail,
+                                      {'trace_eval': 1}, absent=others)
         C, n = out.shape
-        rec = {'phase': 'engine_torch', 'stratum': stratum,
+        rec = {'phase': 'engine_torch', 'stratum': stratum, 'part': part,
                'samples': [C, n], 'dtype': str(out.dtype)[6:],
-               'wall_s': wall,
+               'wall_s': wall, 'launches': counts,
                'peak_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
                'out_gb': out.numel() * out.element_size() / 1e9,
                'finite': bool(torch.isfinite(out).all())}
-        grid = torch.from_numpy(np.arange(0.0, stop, 1 / FS)).to('cuda')
-        rec['device_ms'] = cuda_ms(
-            lambda: torch.stack([evaluate(ch, grid) for ch in chans]),
-            reps=5)
-        rec['gsps'] = C * n / rec['device_ms'] / 1e6
-        rec['trace'] = cuda_activity(lambda: wt.synthesize(
-            chans, 0.0, stop, FS, engine='torch', device='cuda'))
+        grid_np = np.arange(0.0, stop, 1 / FS)
+        grid = torch.from_numpy(grid_np).to('cuda')
+        t0 = time.perf_counter()
+        tape = trace_tape.tape_of(tuple(trace_tape.channel_key(c)
+                                        for c in chans))
+        rec['tape_s'] = time.perf_counter() - t0
+        prog, pool = tape.tensors('cuda')
+        prog_h, pool_h = tape.tensors('cpu')
+        mode = trace_tape.MODES[part]
+        rec['tape_words'] = [int(prog.numel()), int(pool.numel())]
+        k_out = torch.empty_like(out)
+        rec['t1_ms'] = cuda_ms(lambda: kernels._launch_trace_eval(
+            prog, pool, grid, None, None, k_out, mode))
+        plain = torch.empty_like(out)
+        rec['plain_ms'] = cuda_ms(lambda: kernels.trace_eval.plain(
+            prog_h, pool_h, grid, None, None, plain, mode), reps=3,
+            warm_s=0.0)
+        rec['bit_equal_timed'] = bool(torch.equal(k_out, out))
+        rec['vs_plain'] = rel_err_t(out, plain)
+        rec['max_abs_err'] = float((out - plain).abs().max())
+        del k_out, plain
+        nbytes = (out.numel() * out.element_size() + grid.numel() * 8
+                  + prog.numel() * 4 + pool.numel() * 8)
+        rec.update(bound(nbytes, trace_operations(tape, grid_np),
+                         peak='fp64'))
+        rec['gsps'] = C * n / rec['t1_ms'] / 1e6
+        rec['trace'] = cuda_activity(call)
         del grid
         picks = seeded_rows(C, 4, 13)
         ora = wt.synthesize([chans[c] for c in picks], 0.0, stop, FS,
-                            engine='numpy')
+                            engine='numpy', part=part)
         rec['oracle_channels'] = picks
         rec['vs_oracle'] = rel_err(out[picks].cpu().numpy(), ora)
         kernels.reset_launch_counts()
@@ -1619,42 +1724,151 @@ def engine_torch(fail):
                            device='cuda')
         rec['hi_kernel'] = [k for k, v in kernels.launch_counts().items()
                             if v]
-        rec['vs_hi'] = rel_err_t(out, hi)
+        rec['vs_hi'] = rel_err_t(out.real if out.is_complex() else out, hi)
         del out, hi
         torch.cuda.empty_cache()
-        rec['ok'] = bool(rec['finite'] and rec['dtype'] == 'float64'
+        rec['ok'] = bool(len(fail) == n_fail and rec['finite']
+                         and rec['dtype'] == ('complex128' if part ==
+                                              'complex' else 'float64')
                          and [C, n] == [128, 2000000]
+                         and rec['vs_plain'] <= TOL_PLAIN_HI
                          and rec['vs_oracle'] <= TOL_ORACLE_HI
                          and rec['vs_hi'] <= TOL_ORACLE_HI)
         ok = ok and rec['ok']
-        log(rec)
+        cells[label[len('engine_torch_'):]] = rec
+        log(rec, {k: rec[k] for k in (
+            'phase', 'stratum', 'part', 'ok', 'wall_s', 'launches', 't1_ms',
+            'plain_ms', 'bound_ms', 'bound_by', 'vs_plain', 'vs_oracle',
+            'vs_hi', 'peak_gb', 'trace')})
+
+    flag = cells['flagship']
+    summary['trace_eval'].update(
+        ms=flag['t1_ms'], plain_ms=flag['plain_ms'],
+        bound_ms=flag['bound_ms'], bound_by=flag['bound_by'],
+        library_ms=None,
+        max_abs_err=max(c['max_abs_err'] for c in cells.values()),
+        cuda_launches_a_call=flag['trace']['kernels'],
+        cells={k: {f: c[f] for f in ('t1_ms', 'plain_ms', 'bound_ms',
+                                     'bound_by', 'vs_plain', 'wall_s')}
+               for k, c in cells.items()})
 
     build, stop = STRATA['flagship']
     wav = build()[0]
     sos = sps.tf2sos(*sps.butter(3, 0.02))
     wav.start, wav.stop, wav.sample_rate = 0.0, stop, FS
     wav.filters = (sos, 0.0)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    got = wt.sample(wav, engine='torch', device='cuda')
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    MAIN_COUNTS.append(('engine_torch_sample', counts))
+    n_fail = len(fail)
+    got, wall, counts = main_path(
+        'engine_torch_sample', lambda: wt.sample(wav, engine='torch',
+                                                 device='cuda'),
+        fail, {'trace_eval': 1, 'iir_df2t': sos.shape[0]})
     got = got.cpu().numpy()
     want = wav.sample()
     rtol, atol = TOL_SOS
     rec = {'phase': 'engine_torch_sample', 'stratum': 'flagship',
            'channel': 0, 'sos': 'butter(3, 0.02)', 'wall_s': wall,
-           'launches': {k: v for k, v in counts.items() if v},
+           'launches': counts,
            'vs_scipy': float(np.abs(got - want).max()
                              / np.abs(want).max()),
            'within_rtol_atol': bool(np.all(
                np.abs(got - want) <= atol + rtol * np.abs(want)))}
-    # each of the filter's sections one S1 call
-    rec['ok'] = bool(got.dtype == np.float64 and got.shape == want.shape
-                     and rec['within_rtol_atol']
-                     and counts['iir_df2t'] == sos.shape[0])
+    rec['ok'] = bool(len(fail) == n_fail and got.dtype == np.float64
+                     and got.shape == want.shape and rec['within_rtol_atol'])
+    log(rec)
+    ok = ok and rec['ok']
+
+    # sample_waveform on a float32 grid: T1 in float32
+    wav.filters = None
+    n_fail = len(fail)
+    got, wall, counts = main_path(
+        'engine_torch_f32', lambda: sample_waveform(wav, dtype=np.float32,
+                                                    device='cuda'),
+        fail, {'trace_eval': 1}, absent=others)
+    grid = torch.from_numpy(np.arange(0.0, stop, 1 / FS).astype(
+        np.float32)).to('cuda')
+    tape = trace_tape.tape_of((trace_tape.channel_key(wav),))
+    plain = torch.empty((1, grid.shape[0]), dtype=torch.float32,
+                        device='cuda')
+    kernels.trace_eval.plain(*tape.tensors('cpu'), grid, None, None, plain, 0)
+    rec = {'phase': 'engine_torch_f32', 'stratum': 'flagship',
+           'channel': 0, 'dtype': str(got.dtype)[6:], 'wall_s': wall,
+           'launches': counts, 'vs_plain': rel_err_t(got[None], plain),
+           'finite': bool(torch.isfinite(got).all())}
+    rec['ok'] = bool(len(fail) == n_fail and rec['dtype'] == 'float32'
+                     and rec['finite'] and rec['vs_plain'] <= TOL_PLAIN)
+    log(rec)
+    ok = ok and rec['ok']
+    del got, grid, plain
+
+    # built-ins with complex arguments stay on the card: T1 evaluates exp,
+    # cos, cosh, sinh, sinc, gaussian and interp's points complex, and a
+    # chirp with a complex phase is an external slot filled on the card --
+    # one launch each, run under set_sync_debug_mode('error') (a copy to
+    # the host raises), against the plain version on the CPU and the oracle
+    from waveforms_tpu_torch.ops import trace_cases
+    for name in ('complex-args', 'interp-complex'):
+        chans, grid_np, (rtol, atol) = trace_cases.cases(wt)[name]
+        tape = trace_tape.tape_of(tuple(trace_tape.channel_key(c)
+                                        for c in chans))
+        grid = torch.from_numpy(grid_np).to('cuda')
+        tape.tensors('cuda')
+        torch.cuda.synchronize()
+        n = kernels.trace_eval.launches
+        err = None
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = trace_tape.run(tape, grid, 'complex')
+        except RuntimeError as e:
+            err, got = str(e)[:300], None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rec = {'phase': 'engine_torch_complex_args', 'case': name,
+               'channels': len(chans), 'samples': len(grid_np),
+               'ext_slots': len(tape.ext), 'sync_debug_mode': 'error',
+               'error': err,
+               'launches': kernels.trace_eval.launches - n}
+        if got is not None:
+            plain = trace_tape.run(tape, grid.cpu(), 'complex')
+            order = np.argsort(grid_np, kind='stable')
+            ora = np.stack([np.asarray(c(grid_np[order])) for c in chans])
+            got = got.cpu()
+            rec['vs_plain'] = rel_err_t(got, plain)
+            rec['within_oracle'] = bool(np.allclose(
+                got.numpy()[:, order], ora, rtol=rtol, atol=atol))
+        rec['ok'] = bool(got is not None and rec['launches'] == 1
+                         and rec['vs_plain'] <= TOL_PLAIN_HI
+                         and rec['within_oracle'])
+        log(rec)
+        ok = ok and rec['ok']
+        del grid, got
+
+    # the CLI's default path: `sample` with engine 'torch' on the card (the
+    # JAX CLI's integer options kept: 2,000,000 samples at 1 MS/s over
+    # [-1, 1) s)
+    import tempfile
+
+    from click.testing import CliRunner
+
+    from waveforms_tpu_torch.__main__ import main as cli
+    expr = 'cosPulse(0.5) + 0.2*gaussian(0.3)'
+    args = ['sample', '-S', '1000000', '-a', '-1', '-b', '1', expr]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'out.npy')
+        n_fail = len(fail)
+        res, wall, counts = main_path(
+            'engine_torch_cli', lambda: CliRunner().invoke(cli, args + [path]),
+            fail, {'trace_eval': 1}, absent=others)
+        got = np.load(path) if res.exit_code == 0 else None
+    want = wt.wave_eval(expr)(np.arange(-1, 1, 1 / 1000000))
+    rec = {'phase': 'engine_torch_cli', 'args': args[1:], 'wall_s': wall,
+           'exit_code': res.exit_code, 'launches': counts,
+           'output': res.output[-400:],
+           'samples': None if got is None else list(got.shape)}
+    rec['within_rtol_atol'] = bool(
+        got is not None and got.shape == want.shape
+        and np.all(np.abs(got - want) <= 1e-12 + 1e-9 * np.abs(want)))
+    rec['ok'] = bool(len(fail) == n_fail and rec['exit_code'] == 0
+                     and rec['within_rtol_atol'])
     log(rec)
     if not (ok and rec['ok']):
         fail.append('engine_torch')
@@ -4359,6 +4573,9 @@ def main():
                         **ptxas_resources(rec['entries'], k.name)}
                for k in kernels.KERNELS}
     summary['iir_df2t'].update(s1_entry(rec['entries']))
+    summary['trace_eval']['spill_bytes'] = max(
+        (v[1] for k, v in rec['entries'].items()
+         if 'trace_eval_kernel' in k), default=None)
     pool = start_builds()
     try:
         for phase in (check_small, check_small_hi, check_small_seq,
@@ -4369,9 +4586,9 @@ def main():
                       run_probes, profiling, cross_engine, examples):
             t0 = time.perf_counter()
             try:
-                if phase in (run_strata, run_sequences, signal_flagship,
-                             stream_flagship, seq_station_chain,
-                             run_multiproc, run_probes):
+                if phase in (run_strata, engine_torch, run_sequences,
+                             signal_flagship, stream_flagship,
+                             seq_station_chain, run_multiproc, run_probes):
                     phase(fail, summary)
                 else:
                     phase(fail)
@@ -4426,7 +4643,7 @@ def main():
             'state_only_max_abs_err_vs_full_call',
             'state_only_max_abs_err_vs_model', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms', 'registers', 'smem_bytes',
-            'dynamic_smem_bytes', 's1_kernels')
+            'dynamic_smem_bytes', 's1_kernels', 'spill_bytes', 'cells')
     print(smi, flush=True)
     print(json.dumps({'kernels': [
         {k: e[k] for k in keys + ('launch_floor_ms',) if k in e}

@@ -38,7 +38,12 @@ one-shot launches bit for bit and to their plain versions as above; a shot
 vector drawn on the card plays under ``torch.cuda.set_sync_debug_mode(
 'error')``, and ``play_replay`` clamps a card index there; ``run_sequence``'s
 CUDA graph (a single shot: its eager shot, uncaptured) equals its host loop
-bit for bit.
+bit for bit.  The trace evaluator's kernel T1 is held to its plain
+version on the CPU (the same tape) within 1e-12 of each channel's peak in
+float64 (1e-6 on a float32 grid), and to the float64 oracle at the JAX
+suite's bounds, on every case of ``ops.trace_cases``; ``synthesize(engine=
+'torch')``, ``sample_waveform`` and the CLI's default path each launch it
+once a call and nothing else.
 """
 
 import dataclasses
@@ -49,7 +54,7 @@ import torch
 
 import waveforms_tpu_torch as wt
 from waveforms_tpu_torch import kernels, probes
-from waveforms_tpu_torch.ops import iir_cases
+from waveforms_tpu_torch.ops import iir_cases, torch_eval, trace_cases
 from waveforms_tpu_torch.ops.hi_synth import (HiSchedule, synthesize_hi,
                                               synthesize_hi_panels)
 from waveforms_tpu_torch.ops.lowering import (OP_EXPCHIRP, OP_HYPCHIRP,
@@ -182,7 +187,11 @@ def test_slice_goes_through_the_kernels(card):
     got = wt.synthesize(chans, start, stop, fs, device='cuda')
     dense = wt.synthesize(chans, start, stop, fs, device='cuda',
                           engine='cuda-dense')
-    assert kernels.launch_counts() == {'synth_dense': 1, 'synth_panel': 1,
+    panel = wt.synthesize(chans, start, stop, fs, device='cuda',
+                          engine='cuda-panel')
+    # the card's rule (ops.routes.CARD_RULE) takes K1 for this schedule;
+    # engine 'cuda-panel' takes K2
+    assert kernels.launch_counts() == {'synth_dense': 2, 'synth_panel': 1,
                                        'synth_sparse': 0, 'synth_stack': 0,
                                        'synth_stack_seq': 0,
                                        'synth_dense_hi': 0,
@@ -190,10 +199,11 @@ def test_slice_goes_through_the_kernels(card):
                                        'probe_health': 0, 'probe_grid': 0,
                                        'probe_walker': 0,
                                        'probe_sparse_compact': 0,
-                                       'iir_df2t': 0}
+                                       'iir_df2t': 0, 'trace_eval': 0}
     plain = wt.synthesize(chans, start, stop, fs, device='cpu')
     assert rel(got.cpu(), plain) <= TOL
     assert rel(dense.cpu(), plain) <= TOL
+    assert rel(panel.cpu(), plain) <= TOL
 
 
 def test_wrapper_refuses_mixed_devices(card):
@@ -420,14 +430,21 @@ def test_double_slice_goes_through_the_hi_kernels(card):
                         device='cuda')
     dense = wt.synthesize(chans, start, stop, 2e9, precision='double',
                           engine='cuda-dense', device='cuda')
+    # no engine of synthesize takes K4 on the card: its panels directly
+    low = _hi_lowered('pulses')
+    panel = synthesize_hi_panels(HiSchedule(low, card),
+                                 plan=build_panel_plan(low))
     counts = kernels.launch_counts()
-    assert counts['synth_panel_hi'] == 1 and counts['synth_dense_hi'] == 1
-    assert sum(counts.values()) == 2
-    assert got.dtype == dense.dtype == torch.float64
+    # the card's rule (ops.routes.CARD_RULE) takes K3 for the double tier
+    assert counts['synth_panel_hi'] == 1 and counts['synth_dense_hi'] == 2
+    assert sum(counts.values()) == 3
+    assert got.dtype == dense.dtype == panel.dtype == torch.float64
     plain = wt.synthesize(chans, start, stop, 2e9, precision='double',
                           device='cpu')
     assert rel(got.cpu(), plain) <= TOL_HI
     assert rel(dense.cpu(), plain) <= TOL_HI
+    assert rel(panel.cpu(), synthesize_hi_panels(
+        HiSchedule(low, 'cpu'), plan=build_panel_plan(low))) <= TOL_HI
 
 
 def _seq_table(n_schedules=3, n_channels=2, seed=13):
@@ -1817,3 +1834,132 @@ def test_iir_kernel_equals_the_model_through_underflow(card):
     assert 0 < float(zb.abs().max()) < 2.0 ** -1022     # subnormal
     assert torch.equal(y.cpu(), yb)
     assert torch.equal(zf.cpu(), zb) and torch.equal(zs.cpu(), zb)
+
+
+# -- T1, the trace evaluator ---------------------------------------------------
+
+TOL_TRACE = 1e-12     # T1 vs its plain version in float64, of the peak
+
+
+def rel_c(a, b):
+    """rel, complex values by modulus."""
+    a = np.asarray(a).astype(np.complex128)
+    b = np.asarray(b).astype(np.complex128)
+    peak = np.maximum(np.abs(b).max(axis=-1), 1e-30)
+    return float((np.abs(a - b).max(axis=-1) / peak).max())
+
+
+def _parts(chans, part):
+    return [c.simplify() if part != 'real' and isinstance(c, wt.WaveVStack)
+            else c for c in chans]
+
+
+@pytest.mark.parametrize('name', list(trace_cases.CASES))
+def test_trace_eval_matches_plain_and_oracle(card, name):
+    """Each case's channels in one T1 launch a part, against the plain
+    version on the CPU; each channel's ``evaluate`` on the card against
+    the oracle."""
+    chans, grid, (rtol, atol) = trace_cases.cases(wt)[name]
+    g = torch.from_numpy(grid)
+    for part in ('real', 'imag', 'complex'):
+        chs = _parts(chans, part)
+        n = kernels.trace_eval.launches
+        got = torch_eval.evaluate_channels(chs, g.to(card), part)
+        assert kernels.trace_eval.launches == n + 1
+        plain = torch_eval.evaluate_channels(chs, g, part)
+        assert got.dtype == plain.dtype and got.shape == plain.shape
+        assert rel_c(got.cpu(), plain) <= TOL_TRACE, part
+    if rtol is None:
+        return
+    order = np.argsort(grid, kind='stable')
+    for ch in chans:
+        got = torch_eval.evaluate(ch, g.to(card)).cpu().numpy()[order]
+        np.testing.assert_allclose(got, np.asarray(ch(grid[order])),
+                                   rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize('name', ['gaussian', 'cos', 'drag', 'mollifier',
+                                  'multi-channel', 'vstack', 'drag-sinx'])
+def test_trace_eval_float32_grid(card, name):
+    chans, grid, _ = trace_cases.cases(wt)[name]
+    g = torch.from_numpy(grid.astype(np.float32))
+    for part in ('real', 'complex'):
+        chs = _parts(chans, part)
+        got = torch_eval.evaluate_channels(chs, g.to(card), part)
+        assert got.dtype == (torch.float32 if part == 'real'
+                             else torch.complex64)
+        plain = torch_eval.evaluate_channels(chs, g, part)
+        got = got.cpu()
+        # float32 overflows where the plain version's does (drag_sinx's
+        # blend polynomials at ns scale): the same samples, NaN in both
+        nan = torch.isnan(plain)
+        assert torch.equal(torch.isnan(got), nan)
+        assert rel_c(got.masked_fill(nan, 0), plain.masked_fill(nan, 0)) \
+            <= TOL
+
+
+def test_engine_torch_is_one_trace_launch(card):
+    """synthesize(engine='torch') on the card: one T1 launch and no other
+    kernel, each part equal to the CPU's plain version; int16 codes
+    quantized from it; sample_waveform (f32 grid) and the CLI's default
+    path one launch each."""
+    from waveforms_tpu_torch.__main__ import _synthesize
+    chans = trace_cases.cases(wt)['multi-channel'][0]
+    for part in ('real', 'imag', 'complex'):
+        kernels.reset_launch_counts()
+        got = wt.synthesize(chans, 0.0, 2.56e-7, 2e9, engine='torch',
+                            part=part, device='cuda')
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        assert counts == {'trace_eval': 1}
+        plain = wt.synthesize(chans, 0.0, 2.56e-7, 2e9, engine='torch',
+                              part=part, device='cpu')
+        assert rel_c(got.cpu(), plain) <= TOL_TRACE
+    codes = wt.synthesize(chans, 0.0, 2.56e-7, 2e9, engine='torch',
+                          device='cuda', out_dtype=torch.int16,
+                          dac_scale=1000.0)
+    plain = wt.synthesize(chans, 0.0, 2.56e-7, 2e9, engine='torch',
+                          device='cpu', out_dtype=torch.int16,
+                          dac_scale=1000.0)
+    assert int((codes.cpu().int() - plain.int()).abs().max()) <= 1
+    wav = wt.gaussian(4e-9) * wt.cos(2 * np.pi * 0.3e9)
+    wav.start, wav.stop, wav.sample_rate = -5e-9, 5e-9, 2e10
+    n = kernels.trace_eval.launches
+    f32 = torch_eval.sample_waveform(wav, dtype=np.float32, device='cuda')
+    cli = _synthesize(wav, 'torch', 'cuda')
+    assert kernels.trace_eval.launches == n + 2
+    assert f32.dtype == torch.float32 and cli.dtype == np.float64
+    assert rel(f32.cpu(), torch_eval.sample_waveform(
+        wav, dtype=np.float32, device='cpu')) <= TOL
+    np.testing.assert_allclose(cli, wav.sample(), rtol=1e-9, atol=1e-12)
+
+
+def test_trace_eval_complex_args_stay_on_the_card(card):
+    """Built-ins with complex arguments run on the card: T1 evaluates exp,
+    cos, cosh, sinh, sinc, gaussian and interp's points complex, and a
+    chirp with a complex phase is an external slot filled on the card --
+    one launch under set_sync_debug_mode('error'), where a copy to the
+    host raises; against the plain version on the CPU and the oracle (the
+    CPU tests hold the plain version to JAX)."""
+    from waveforms_tpu_torch.ops import trace_tape
+    for name in ('complex-args', 'interp-complex'):
+        chans, grid, (rtol, atol) = trace_cases.cases(wt)[name]
+        tape = trace_tape.tape_of(tuple(trace_tape.channel_key(c)
+                                        for c in chans))
+        g = torch.from_numpy(grid).to(card)
+        tape.tensors(card)
+        torch.cuda.synchronize()
+        n = kernels.trace_eval.launches
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = trace_tape.run(tape, g, 'complex')
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert kernels.trace_eval.launches == n + 1
+        plain = trace_tape.run(tape, g.cpu(), 'complex')
+        assert got.dtype == plain.dtype == torch.complex128
+        assert rel_c(got.cpu(), plain) <= TOL_TRACE
+        order = np.argsort(grid, kind='stable')
+        for row, ch in zip(got.cpu().numpy(), chans):
+            np.testing.assert_allclose(row[order],
+                                       np.asarray(ch(grid[order])),
+                                       rtol=rtol, atol=atol)

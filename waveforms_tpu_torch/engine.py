@@ -15,8 +15,9 @@ Engines:
   package's ``'native'``): lowers once and runs the descriptor program on
   the CPU cores; returns an ndarray.
 * ``'torch'`` -- the trace evaluator (:mod:`.ops.torch_eval`, the JAX
-  package's ``'xla'``): the IR in plain torch float64 (complex128 where it
-  is complex) on ``device``; returns a tensor there.
+  package's ``'xla'``): every channel's IR in float64 (complex128 where it
+  is complex) in one launch of kernel T1 on ``device`` (on a CPU device
+  T1's plain version); returns a tensor there.
 * ``'numpy'`` -- the host float64 oracle (``Waveform.__call__``), kept for
   tests.
 
@@ -199,24 +200,16 @@ def _synthesize_numpy(channels, start, stop, sample_rate, part):
 
 def _synthesize_torch(channels, start, stop, sample_rate, part, dt,
                       dac_scale, device):
-    """The trace engine: each channel evaluated over the float64 grid on
-    ``device`` (JAX: engine ``'xla'``)."""
+    """The trace engine: every channel over the float64 grid on ``device``
+    in one launch of T1 (JAX: engine ``'xla'``), quantized there."""
     from .core import WaveVStack
-    from .ops.torch_eval import evaluate
+    from .ops.torch_eval import evaluate_channels
     device = resolve_device(device)
     # the grid as the oracle and JAX make it: numpy's arange, uploaded
     t = torch.from_numpy(np.arange(start, stop, 1 / sample_rate)).to(device)
-    vals = [evaluate(ch.simplify() if part != 'real'
-                     and isinstance(ch, WaveVStack) else ch, t)
-            for ch in channels]
-    if part == 'real':
-        vals = [v.real for v in vals]
-    elif part == 'imag':
-        vals = [v.imag if v.is_complex() else torch.zeros_like(v)
-                for v in vals]
-    else:
-        vals = [v.to(torch.complex128) for v in vals]
-    return _quantize_host(torch.stack(vals), dt, dac_scale)
+    chans = [ch.simplify() if part != 'real' and isinstance(ch, WaveVStack)
+             else ch for ch in channels]
+    return _quantize_host(evaluate_channels(chans, t, part), dt, dac_scale)
 
 
 def _synthesize_double(channels, start, stop, sample_rate, engine,

@@ -19,12 +19,16 @@ twin :data:`synth_stack_seq` (K6, one launch for a shot vector over stacked
 tables), the double tier's :data:`synth_dense_hi` (K3) and
 :data:`synth_panel_hi` (K4), the signal chain's IIR recurrence
 :data:`iir_df2t` (S1, a port kernel with no Pallas counterpart, a blocked
-scan of five kernels a call), and the
+scan of five kernels a call), the trace evaluator
+:data:`trace_eval` (T1, a port kernel: the IR's tape, ``ops/trace_tape.py``,
+evaluated in one launch, the counterpart of the XLA program that JAX's
+``jax_eval.compile_waveform`` jits), and the
 measurement probes of ``csrc/probes.cu`` (:data:`probe_health`,
 :data:`probe_grid`, :data:`probe_walker`, :data:`probe_sparse_compact`;
 run by :mod:`..probes`).  A wrapper given tensors on the CPU runs the
 kernel's plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`,
-:mod:`..ops.reference_iir`, :mod:`..ops.reference_probes`); given CUDA
+:mod:`..ops.reference_iir`, :mod:`..ops.reference_probes`,
+:mod:`..ops.reference_trace`); given CUDA
 tensors it launches the kernel, checks the launch's ``cudaGetLastError()``
 and raises on any failure -- it never falls back.  Each wrapper counts its
 kernel launches in ``launches``; K1's counts those with a window that starts
@@ -53,13 +57,14 @@ from pathlib import Path
 
 import torch
 
-from ..ops import reference, reference_hi, reference_iir, reference_probes
+from ..ops import (reference, reference_hi, reference_iir,
+                   reference_probes, reference_trace)
 
 __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
            'probe_health', 'probe_grid', 'probe_walker',
            'probe_sparse_compact', 'iir_df2t', 'iir_df2t_smem_bytes',
-           'iir_df2t_chunk',
+           'iir_df2t_chunk', 'trace_eval',
            'launch_dense', 'launch_dense_shots',
            'launch_dense_hi', 'launch_sparse', 'launch_sparse_shots',
            'launch_probe_sparse_compact',
@@ -72,13 +77,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 SOURCES = ('synth_dense.cu', 'synth_panel.cu', 'synth_sparse.cu',
            'synth_stack.cu', 'synth_stack_seq.cu', 'synth_dense_hi.cu',
-           'synth_panel_hi.cu', 'probes.cu', 'iir_df2t.cu')
+           'synth_panel_hi.cu', 'probes.cu', 'iir_df2t.cu', 'trace_eval.cu')
 HEADERS = ('synth_common.cuh', 'synth_span.cuh', 'synth_item.cuh',
            'synth_stack_common.cuh', 'synth_hi_common.cuh')
 BUILD_DIR = _PKG.parent / 'build' / 'waveforms_tpu_torch'
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xptxas', '-v',
                            '-Xcompiler', '-fPIC')
+# a source's own flags: T1 rounds every product and sum as the plain
+# version's torch operations do, one at a time (no contracted multiply-add)
+SOURCE_FLAGS = {'trace_eval.cu': ('-fmad=false',)}
 
 # largest dense-kernel tile (samples per thread block); K1 and K3 each take
 # the smaller of it and their own (synth_dense.cu DENSE_TILE,
@@ -97,6 +105,7 @@ def _source_hash() -> str:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -125,7 +134,8 @@ def _build(path: Path) -> str:
     log = []
     try:
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(CSRC / src)],
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), '-c', '-o',
+             str(obj), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(SOURCES, objs)]
         failed = []
@@ -200,6 +210,7 @@ def load_library():
         lib.wf_iir_df2t_chunk.restype = I
         lib.wf_iir_df2t_work_doubles.argtypes = [I, L, I]
         lib.wf_iir_df2t_work_doubles.restype = L
+        lib.wf_trace_eval.argtypes = [P, P, P, L, P, P, P, I, I, I, P]
         for fn in (lib.wf_synth_dense, lib.wf_synth_dense_shard,
                    lib.wf_synth_dense_shots, lib.wf_synth_panel,
                    lib.wf_synth_sparse, lib.wf_synth_sparse_shots,
@@ -208,7 +219,8 @@ def load_library():
                    lib.wf_synth_dense_hi,
                    lib.wf_synth_panel_hi, lib.wf_probe_health,
                    lib.wf_probe_grid, lib.wf_probe_walker,
-                   lib.wf_probe_sparse_compact, lib.wf_iir_df2t):
+                   lib.wf_probe_sparse_compact, lib.wf_iir_df2t,
+                   lib.wf_trace_eval):
             fn.restype = I
         lib.wf_error_string.argtypes = [I]
         lib.wf_error_string.restype = ctypes.c_char_p
@@ -808,6 +820,47 @@ def _launch_iir_df2t(x, coef, zi, y, zf):
     _raise_on(code, 'iir_df2t')
 
 
+# csrc/trace_eval.cu's grid types
+_TRACE_DTYPES = {torch.float64: 0, torch.float32: 1}
+
+
+def _launch_trace_eval(prog, pool, grid, ext_re, ext_im, out, mode):
+    """Launch T1 on CUDA tensors: the tape (``prog`` int32, ``pool``
+    float64) over ``grid`` (N,) float64 or float32 into ``out`` (C, N) --
+    the grid's type for ``mode`` 0 (real part) and 1 (imaginary part), its
+    complex type for 2 -- with the external slots' planes ``ext_re``
+    (n_ext, N) and ``ext_im`` (None where no slot is complex)."""
+    if grid.dim() != 1 or grid.dtype not in _TRACE_DTYPES:
+        raise ValueError("the grid is a 1-D float64 or float32 tensor")
+    if prog.dtype != torch.int32 or pool.dtype != torch.float64:
+        raise ValueError("the tape is an int32 prog and a float64 pool")
+    n = grid.shape[0]
+    want = (grid.dtype if mode in (0, 1) else
+            torch.complex128 if grid.dtype == torch.float64
+            else torch.complex64)
+    if mode not in (0, 1, 2) or out.dtype != want or out.dim() != 2 or (
+            out.shape[1] != n):
+        raise ValueError(f"out must be (C, {n}) {want} for mode {mode}")
+    n_ch = out.shape[0]
+    given = {'prog': prog, 'pool': pool, 'grid': grid, 'out': out}
+    if ext_re is None and ext_im is not None:
+        raise ValueError("an imaginary plane needs its real plane")
+    for name, t in (('ext_re', ext_re), ('ext_im', ext_im)):
+        if t is not None:
+            if t.dtype != grid.dtype or t.dim() != 2 or t.shape[1] != n or (
+                    t.shape != ext_re.shape):
+                raise ValueError(f"{name} must be (n_ext, {n}) {grid.dtype}")
+            given[name] = t
+    _check_cuda(given, out.device)
+    lib = load_library()
+    with torch.cuda.device(out.device):
+        code = lib.wf_trace_eval(prog.data_ptr(), pool.data_ptr(),
+                                 grid.data_ptr(), n, _ptr(ext_re),
+                                 _ptr(ext_im), out.data_ptr(), n_ch,
+                                 _TRACE_DTYPES[grid.dtype], mode, _stream(out))
+    _raise_on(code, 'trace_eval')
+
+
 def iir_df2t_smem_bytes(dtype) -> int:
     """The dynamic shared memory S1's staged kernels (the chunk pass and the
     output pass) take per thread block for a signal of ``dtype``
@@ -917,9 +970,21 @@ iir_df2t = _IirKernel(
     'waveforms_tpu/ops/iir.py:171', reference_iir.df2t,
     _launch_iir_df2t, out_at=3)
 
+#: T1: ``trace_eval(prog, pool, grid, ext_re, ext_im, out, mode)``: every
+#: channel of a trace tape (``ops.trace_tape``) over a float64 or float32
+#: grid in one launch; a port kernel with no Pallas counterpart (it replaces
+#: the XLA program that the JAX package's ``jax_eval.compile_waveform``
+#: jits, engine ``'xla'``)
+trace_eval = _Kernel(
+    'trace_eval', 'waveforms_tpu_torch/csrc/trace_eval.cu',
+    'waveforms_tpu/ops/jax_eval.py:79', reference_trace.trace_eval,
+    _launch_trace_eval)
+
+
 KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack,
            synth_stack_seq, synth_dense_hi, synth_panel_hi, probe_health,
-           probe_grid, probe_walker, probe_sparse_compact, iir_df2t)
+           probe_grid, probe_walker, probe_sparse_compact, iir_df2t,
+           trace_eval)
 
 
 def reset_launch_counts():

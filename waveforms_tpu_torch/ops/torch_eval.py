@@ -1,20 +1,24 @@
-"""The trace evaluator: the IR evaluated in plain torch float64 on a device.
+"""The trace evaluator: the IR evaluated in float64 on a device by kernel T1.
 
 The port of the JAX package's ``ops/jax_eval.py`` (its engine ``'xla'``,
-here ``synthesize(..., engine='torch')``).  ``compile_waveform`` walks the
-(hashable) IR once and returns a function of the sample grid: every segment
-becomes a mask-select over the whole grid, every term a multiply-add, every
-factor a call into the tensor lowerings of :mod:`.torch_basis`.  It runs
-eagerly, one torch operation after another (JAX fuses the same program into
-one XLA pass): there is no hand-written kernel here, and no
-``torch.compile``.
+here ``synthesize(..., engine='torch')``).  JAX traces each waveform
+structure once and jits it into one elementwise XLA program; here the IR
+is flattened once into a trace tape (:mod:`.trace_tape`, cached by the IR
+tuples and uploaded once per device) and every channel of a call is
+evaluated in one launch of the hand-written kernel T1
+(``csrc/trace_eval.cu``, :data:`..kernels.trace_eval`): per sample, a
+binary search for the segment, that segment's terms and factors -- the
+formulas of :mod:`.torch_basis` --, the clip.  On a CPU tensor the launch
+is T1's plain version (:mod:`.reference_trace`), the same tape evaluated
+segment by segment through ``torch_basis``'s lowerings; a CUDA tensor
+always takes the kernel (a failed build or launch raises).
 
-The cache is keyed on the IR tuples themselves (nested tuples, hence
-hashable); structurally equal waveforms share one evaluator.  The grid is a
-float64 tensor (complex128 results where the IR is complex) on any device;
-it does not need to be sorted: segment membership is evaluated per point
-(``bounds[i-1] <= t < bounds[i]``), which on sorted grids coincides with the
-oracle's searchsorted semantics.
+``compile_waveform`` and ``compile_expr`` return functions of the grid
+that run their tape; structurally equal waveforms share one.  The grid is
+a float64 (or float32) tensor on any device, complex results complex128
+(complex64); it does not need to be sorted: segment membership is found
+per point (``bounds[i-1] <= t < bounds[i]``), which on sorted grids
+coincides with the oracle's searchsorted semantics.
 """
 
 from __future__ import annotations
@@ -25,131 +29,93 @@ import numpy as np
 import torch
 
 from ..core import Waveform, WaveVStack
-from ..ir.algebra import ZERO
 from .synth import resolve_device
-from .torch_basis import get_traceable
+from .trace_tape import channel_key, run, tape_of
 
-__all__ = ['compile_waveform', 'sample_waveform', 'evaluate', 'compile_expr']
-
-
-def _complex_of(dtype):
-    return torch.complex128 if dtype == torch.float64 else torch.complex64
+__all__ = ['compile_waveform', 'sample_waveform', 'evaluate',
+           'evaluate_channels', 'compile_expr']
 
 
-def _expr_is_complex(expr) -> bool:
-    return any(isinstance(v, complex) for v in expr[1])
+def _grid(t) -> torch.Tensor:
+    """The grid as a flat float tensor (an integer grid as float64)."""
+    t = torch.as_tensor(t)
+    if not t.is_floating_point():
+        t = t.to(torch.float64)
+    return t.reshape(-1)
 
 
-def _eval_expr(expr, t, memo):
-    """Evaluate one IR expression over the grid *t* (factor-dedup memoized)."""
-
-    def factor_values(factor):
-        hit = memo.get(factor)
-        if hit is None:
-            fun_id, *args, shift = factor
-            hit = get_traceable(fun_id)(t - shift, *args)
-            memo[factor] = hit
-        return hit
-
-    acc = None
-    for (factors, powers), v in zip(*expr):
-        prod = None
-        for factor, n in zip(factors, powers):
-            vals = factor_values(factor)
-            vals = vals if n == 1 else vals ** n
-            prod = vals if prod is None else prod * vals
-        term = (v if prod is None else
-                (prod * v if v != 1.0 else prod))
-        acc = term if acc is None else acc + term
-    if acc is None:
-        return torch.zeros_like(t)
-    if not isinstance(acc, torch.Tensor) or acc.shape != t.shape:
-        dtype = (_complex_of(t.dtype) if torch.is_tensor(acc)
-                 and acc.is_complex() or isinstance(acc, complex)
-                 else t.dtype)
-        acc = torch.as_tensor(acc, dtype=dtype,
-                              device=t.device).expand(t.shape)
-    return acc
+def _run_one(key, t) -> torch.Tensor:
+    """One channel over the grid ``t`` (any shape), complex where the
+    evaluator returns it complex."""
+    t = torch.as_tensor(t)
+    tape = tape_of((key,))
+    out = run(tape, _grid(t), 'complex' if tape.complex[0] else 'real')
+    return out[0].reshape(t.shape)
 
 
-@lru_cache(maxsize=4096)
 def compile_expr(expr):
-    """Evaluator for a single segment expression (unbounded support)."""
+    """Evaluator for a single segment expression (unbounded support); its
+    tape is ``tape_of``'s, cached there."""
+    key = ('w', (np.inf,), (expr,), -np.inf, np.inf)
 
-    def run(t):
-        return _eval_expr(expr, t, {})
+    def run_expr(t):
+        return _run_one(key, t)
 
-    return run
+    return run_expr
 
 
 @lru_cache(maxsize=1024)
 def compile_waveform(bounds, seq, vmin=-np.inf, vmax=np.inf):
-    """Evaluator ``f(t) -> values`` for a piecewise waveform IR.
+    """Evaluator ``f(t) -> values`` for a piecewise waveform IR; structurally
+    equal IR returns the same function, as JAX's does.
 
     Zero segments contribute nothing (no work is done for them); the
-    remaining segments evaluate under their membership mask and clip to
+    remaining segments evaluate where the sample falls in them and clip to
     [vmin, vmax], matching the oracle's per-part ``np.clip``.
     """
-    is_complex = any(_expr_is_complex(s) for s in seq if s != ZERO)
-    lowers = (-np.inf,) + bounds[:-1]
+    key = ('w', bounds, seq, vmin, vmax)
 
     def evaluate_fn(t):
-        memo: dict = {}
-        out = None
-        for lo, hi, expr in zip(lowers, bounds, seq):
-            if expr == ZERO:
-                continue
-            vals = _eval_expr(expr, t, memo)
-            if vmin != -np.inf or vmax != np.inf:
-                vals = torch.clamp(vals, vmin, vmax)
-            if lo == -np.inf and hi == np.inf:
-                seg = vals
-            else:
-                mask = torch.ones(t.shape, dtype=torch.bool, device=t.device)
-                if lo != -np.inf:
-                    mask = mask & (t >= lo)
-                if hi != np.inf:
-                    mask = mask & (t < hi)
-                seg = torch.where(mask, vals, 0)
-            out = seg if out is None else out + seg
-        if out is None:
-            return torch.zeros(t.shape, dtype=t.dtype, device=t.device)
-        if is_complex and not out.is_complex():
-            out = out.to(_complex_of(t.dtype))
-        return out
+        return _run_one(key, t)
 
     return evaluate_fn
 
 
+def _check_function_lib(wav):
+    if wav.function_lib is not None:
+        # the evaluator resolves basis IDs against the GLOBAL registry;
+        # a stack shipped from another process carries its own
+        # function_lib, and a missing ID here would otherwise KeyError
+        # (or, worse, collide with a local registration)
+        from ..ir import registry as _reg
+        missing = sorted(
+            fid for fid in wav.function_lib
+            if fid not in _reg.baseFunc)
+        if missing:
+            raise ValueError(
+                f"stack carries user basis IDs {missing} not in this "
+                "process's registry -- ship it with registry."
+                "packBaseFunc()/updateBaseFunc() first (the trace "
+                "engine resolves IDs globally)")
+
+
 def evaluate(wav: Waveform, t) -> torch.Tensor:
-    """Evaluate a Waveform (or WaveVStack) on the grid *t* (a tensor, or an
-    array, which stays on the CPU)."""
-    t = torch.as_tensor(t)
+    """Evaluate a Waveform (or WaveVStack, its real part) on the grid *t*
+    (a tensor, or an array, which stays on the CPU): one T1 launch."""
     if isinstance(wav, WaveVStack):
-        if wav.function_lib is not None:
-            # the evaluator resolves basis IDs against the GLOBAL registry;
-            # a stack shipped from another process carries its own
-            # function_lib, and a missing ID here would otherwise KeyError
-            # (or, worse, collide with a local registration)
-            from ..ir import registry as _reg
-            missing = sorted(
-                fid for fid in wav.function_lib
-                if fid not in _reg.baseFunc)
-            if missing:
-                raise ValueError(
-                    f"stack carries user basis IDs {missing} not in this "
-                    "process's registry -- ship it with registry."
-                    "packBaseFunc()/updateBaseFunc() first (the trace "
-                    "engine resolves IDs globally)")
-        out = torch.zeros(t.shape, dtype=_complex_of(t.dtype),
-                          device=t.device) + wav.offset
-        tt = t - wav.shift if wav.shift != 0 else t
-        for bounds, seq in wav.wlist:
-            # min/max passed explicitly: lru_cache keys omitted defaults
-            # differently and would build identical evaluators twice
-            out = out + compile_waveform(bounds, seq, -np.inf, np.inf)(tt)
-        return out.real
-    return compile_waveform(wav.bounds, wav.seq, wav.min, wav.max)(t)
+        _check_function_lib(wav)
+    return _run_one(channel_key(wav), t)
+
+
+def evaluate_channels(channels, t, part='real') -> torch.Tensor:
+    """Every channel over the 1-D grid ``t`` in one T1 launch -> (C, N):
+    ``part`` 'real' or 'imag' in the grid's type (a real channel's
+    imaginary part 0), 'complex' in its complex type."""
+    for ch in channels:
+        if isinstance(ch, WaveVStack):
+            _check_function_lib(ch)
+    tape = tape_of(tuple(channel_key(ch) for ch in channels))
+    return run(tape, _grid(t), part)
 
 
 def sample_waveform(wav: Waveform, sample_rate=None, dtype=None,
