@@ -67,9 +67,13 @@ the host engine, with g++; a failed build ends the run) and runs:
    evaluator T1 a call, nothing else -- on the flagship, the dense stratum
    and the flagship with ``part='complex'``: wall time, the CUDA launches
    and copies of one call in torch.profiler's trace, peak memory, T1's
-   device time beside its bound and its plain version's on the same tape;
-   T1 against its plain version within TOL_PLAIN_HI, against the oracle on
-   four seeded channels and K3 within TOL_ORACLE_HI; then ``sample()``
+   device time beside its bound and its plain version's on the same tape,
+   the share of T1's tiles stored as constants; T1 against its plain
+   version within TOL_PLAIN_HI, against the oracle on four seeded channels
+   and K3 within TOL_ORACLE_HI; the flagship again over a seeded
+   permutation of its grid through ``evaluate_channels`` (every tile
+   unsorted), held to the same bounds and, bit for bit, to the sorted
+   grid's output permuted; then ``sample()``
    with an SOS filter on one channel against scipy within TOL_SOS,
    ``sample_waveform`` on a float32 grid and the CLI's default ``sample``
    path, one T1 launch each);
@@ -590,6 +594,58 @@ def trace_operations(tape, grid):
                             0 if kind == 1 else 8 if kind == 8 else 2) + 6
                 total += ops * int(counts[s])
     return int(total)
+
+
+# T1's tile (csrc/trace_eval.cu TRACE_TILE): the samples a block stages
+TRACE_TILE = 2048
+
+
+def trace_zero_tiles(tape, grid):
+    """A host model of T1's tile classification, not a count of what the
+    kernel did: the share of (channel, tile) pairs of ``tape`` over
+    ``grid`` (an ndarray, float64; the real part or pairs) that T1's rules
+    (``seg_range``, ``seg_zero``) store as constants without evaluating a
+    sample.  A channel's tile is such where each of its waveforms (a
+    WaveVStack's members on t - shift) lies in one ZERO segment or past
+    its last bound over the tile: found from the first and last samples of
+    a sorted tile (a WaveVStack's only where its shift is finite), and
+    over every segment for an unsorted one, except a waveform of one
+    unbounded segment, which is that segment whatever the tile."""
+    import numpy as np
+
+    from waveforms_tpu_torch.ops.trace_tape import Records
+    r = Records(tape.prog, tape.pool)
+    D = r.D
+    grid = np.asarray(grid, dtype=np.float64)
+    starts = np.arange(0, len(grid), TRACE_TILE)
+    ends = np.minimum(starts + TRACE_TILE, len(grid)) - 1
+    up = grid[:-1] <= grid[1:]
+    sorted_ = np.array([up[a:b].all() and grid[a] == grid[a]
+                        for a, b in zip(starts, ends)])
+    zero = 0
+    for c in range(r.n_ch):
+        w0, nw, coff, kind = r.rec('ch', c)
+        shift = D[coff + 2] if kind else 0.0
+        srt = sorted_ & bool(np.isfinite(shift))
+        tile_zero = np.ones(len(starts), dtype=bool)
+        for w in range(w0, w0 + nw):
+            s0, ns, boff, _ = r.rec('wv', w)
+            bounds = D[boff:boff + ns]
+            if ns == 1 and bounds[0] == np.inf:
+                lo = hi = np.zeros(len(starts), dtype=int)
+            else:
+                with np.errstate(invalid='ignore'):
+                    first = grid[starts] - shift
+                    last = grid[ends] - shift
+                lo = np.where(srt, np.searchsorted(bounds, first, 'right'),
+                              0)
+                hi = np.where(srt, np.searchsorted(bounds, last, 'right'),
+                              ns)
+            nterm = np.array([r.rec('sg', s0 + s)[1] for s in range(ns)]
+                             + [0])
+            tile_zero &= (lo == hi) & (nterm[np.minimum(lo, ns)] == 0)
+        zero += int(tile_zero.sum())
+    return zero / (r.n_ch * len(starts))
 
 
 def brief_checks(rec):
@@ -1643,14 +1699,20 @@ def engine_torch(fail, summary):
     device time beside its bound (the plane's bytes, and the operations the
     tape needs on this grid at the FP64 peak) and its plain version's (the
     same tape evaluated segment by segment in torch ops, as the eager
-    evaluator did, on the same inputs); T1 against its plain version over
+    evaluator did, on the same inputs), the share of T1's tiles stored as
+    constants by a host model of its rules (``trace_zero_tiles``, in the
+    records only); T1 against its plain version over
     the whole plane (TOL_PLAIN_HI), against the oracle on four seeded
     channels and against K3 on the whole plane (the real part;
-    TOL_ORACLE_HI).  Then ``sample()`` with an SOS filter on one flagship
-    channel against scipy (T1 once, each of the filter's sections one S1
-    call), ``sample_waveform`` on a float32 grid (T1 in float32, against its
-    plain version within TOL_PLAIN) and the CLI's default path (``sample``,
-    engine 'torch', against the oracle), one T1 launch each."""
+    TOL_ORACLE_HI).  The flagship over a permuted grid
+    (``np.random.default_rng(0).permutation``, through
+    ``evaluate_channels``, a main path): the same, and bit for bit the
+    sorted grid's T1 output permuted.  Then ``sample()`` with an SOS
+    filter on one flagship channel against scipy (T1 once, each of the
+    filter's sections one S1 call), ``sample_waveform`` on a float32 grid
+    (T1 in float32, against its plain version within TOL_PLAIN) and the
+    CLI's default path (``sample``, engine 'torch', against the oracle),
+    one T1 launch each."""
     import numpy as np
     import scipy.signal as sps
     import torch
@@ -1697,12 +1759,14 @@ def engine_torch(fail, summary):
         mode = trace_tape.MODES[part]
         rec['tape_words'] = [int(prog.numel()), int(pool.numel())]
         k_out = torch.empty_like(out)
+        rec['real_tape'] = tape.real
+        rec['zero_tile_share_host'] = trace_zero_tiles(tape, grid_np)
         rec['t1_ms'] = cuda_ms(lambda: kernels._launch_trace_eval(
-            prog, pool, grid, None, None, k_out, mode))
+            prog, pool, grid, None, None, k_out, mode, tape.real))
         plain = torch.empty_like(out)
         rec['plain_ms'] = cuda_ms(lambda: kernels.trace_eval.plain(
-            prog_h, pool_h, grid, None, None, plain, mode), reps=3,
-            warm_s=0.0)
+            prog_h, pool_h, grid, None, None, plain, mode, tape.real),
+            reps=3, warm_s=0.0)
         rec['bit_equal_timed'] = bool(torch.equal(k_out, out))
         rec['vs_plain'] = rel_err_t(out, plain)
         rec['max_abs_err'] = float((out - plain).abs().max())
@@ -1738,8 +1802,77 @@ def engine_torch(fail, summary):
         cells[label[len('engine_torch_'):]] = rec
         log(rec, {k: rec[k] for k in (
             'phase', 'stratum', 'part', 'ok', 'wall_s', 'launches', 't1_ms',
-            'plain_ms', 'bound_ms', 'bound_by', 'vs_plain', 'vs_oracle',
-            'vs_hi', 'peak_gb', 'trace')})
+            'plain_ms', 'bound_ms', 'bound_by', 'zero_tile_share_host',
+            'vs_plain', 'vs_oracle', 'vs_hi', 'peak_gb', 'trace')})
+
+    # the flagship over a permuted grid (every tile unsorted: each sample
+    # searches its segment), through evaluate_channels; held to the plain
+    # version, to the sorted grid's T1 output permuted (bit for bit), and,
+    # unpermuted, to the oracle and K3
+    from waveforms_tpu_torch.ops.torch_eval import evaluate_channels
+    build, stop = STRATA['flagship']
+    chans = build()
+    grid_np = np.arange(0.0, stop, 1 / FS)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        len(grid_np))).to('cuda')
+    grid = torch.from_numpy(grid_np).to('cuda')
+    pgrid = grid[perm]
+    n_fail = len(fail)
+    out, wall, counts = main_path(
+        'engine_torch_permuted', lambda: evaluate_channels(chans, pgrid),
+        fail, {'trace_eval': 1}, absent=others)
+    tape = trace_tape.tape_of(tuple(trace_tape.channel_key(c)
+                                    for c in chans))
+    prog, pool = tape.tensors('cuda')
+    prog_h, pool_h = tape.tensors('cpu')
+    pgrid_np = pgrid.cpu().numpy()
+    rec = {'phase': 'engine_torch', 'stratum': 'flagship', 'part': 'real',
+           'grid': 'permuted (np.random.default_rng(0).permutation)',
+           'samples': list(out.shape), 'wall_s': wall, 'launches': counts,
+           'real_tape': tape.real,
+           'zero_tile_share_host': trace_zero_tiles(tape, pgrid_np),
+           'finite': bool(torch.isfinite(out).all())}
+    k_out = torch.empty_like(out)
+    rec['t1_ms'] = cuda_ms(lambda: kernels._launch_trace_eval(
+        prog, pool, pgrid, None, None, k_out, 0, tape.real))
+    plain = torch.empty_like(out)
+    rec['plain_ms'] = cuda_ms(lambda: kernels.trace_eval.plain(
+        prog_h, pool_h, pgrid, None, None, plain, 0, tape.real), reps=3,
+        warm_s=0.0)
+    rec['bit_equal_timed'] = bool(torch.equal(k_out, out))
+    rec['vs_plain'] = rel_err_t(out, plain)
+    rec['max_abs_err'] = float((out - plain).abs().max())
+    del k_out, plain
+    rec['sorted_grid_permuted_bit_equal'] = bool(torch.equal(
+        out, evaluate_channels(chans, grid)[:, perm]))
+    nbytes = (out.numel() * out.element_size() + pgrid.numel() * 8
+              + prog.numel() * 4 + pool.numel() * 8)
+    rec.update(bound(nbytes, trace_operations(tape, pgrid_np), peak='fp64'))
+    unperm = torch.empty_like(out)
+    unperm[:, perm] = out
+    del out
+    picks = seeded_rows(len(chans), 4, 13)
+    ora = wt.synthesize([chans[c] for c in picks], 0.0, stop, FS,
+                        engine='numpy')
+    rec['oracle_channels'] = picks
+    rec['vs_oracle'] = rel_err(unperm[picks].cpu().numpy(), ora)
+    hi = wt.synthesize(chans, 0.0, stop, FS, precision='double',
+                       device='cuda')
+    rec['vs_hi'] = rel_err_t(unperm, hi)
+    del unperm, hi, grid, pgrid
+    torch.cuda.empty_cache()
+    rec['ok'] = bool(len(fail) == n_fail and rec['finite']
+                     and rec['sorted_grid_permuted_bit_equal']
+                     and rec['vs_plain'] <= TOL_PLAIN_HI
+                     and rec['vs_oracle'] <= TOL_ORACLE_HI
+                     and rec['vs_hi'] <= TOL_ORACLE_HI)
+    ok = ok and rec['ok']
+    cells['flagship_permuted'] = rec
+    log(rec, {k: rec[k] for k in (
+        'phase', 'stratum', 'grid', 'ok', 'wall_s', 'launches', 't1_ms',
+        'plain_ms', 'bound_ms', 'bound_by', 'zero_tile_share_host',
+        'vs_plain', 'sorted_grid_permuted_bit_equal', 'vs_oracle',
+        'vs_hi')})
 
     flag = cells['flagship']
     summary['trace_eval'].update(
@@ -1789,7 +1922,8 @@ def engine_torch(fail, summary):
     tape = trace_tape.tape_of((trace_tape.channel_key(wav),))
     plain = torch.empty((1, grid.shape[0]), dtype=torch.float32,
                         device='cuda')
-    kernels.trace_eval.plain(*tape.tensors('cpu'), grid, None, None, plain, 0)
+    kernels.trace_eval.plain(*tape.tensors('cpu'), grid, None, None, plain, 0,
+                             tape.real)
     rec = {'phase': 'engine_torch_f32', 'stratum': 'flagship',
            'channel': 0, 'dtype': str(got.dtype)[6:], 'wall_s': wall,
            'launches': counts, 'vs_plain': rel_err_t(got[None], plain),
@@ -4402,21 +4536,22 @@ def examples(fail):
 
 def ptxas_entries(lines):
     """{entry function (mangled): [registers, spill store bytes, spill
-    load bytes, shared memory bytes]} from nvcc's ``-Xptxas -v`` lines, in
-    build order."""
+    load bytes, shared memory bytes, stack frame bytes]} from nvcc's
+    ``-Xptxas -v`` lines, in build order."""
     out, name = {}, None
     for ln in lines:
         m = re.search(r"entry function '([^']+)'", ln)
         if m:
             name = m.group(1)
-            out[name] = [None, 0, 0, 0]
+            out[name] = [None, 0, 0, 0, 0]
             continue
         if name is None:
             continue
-        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
-                      ln)
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', ln)
         if m:
-            out[name][1:3] = [int(m.group(1)), int(m.group(2))]
+            out[name][4] = int(m.group(1))
+            out[name][1:3] = [int(m.group(2)), int(m.group(3))]
         m = re.search(r'Used (\d+) registers', ln)
         if m:
             out[name][0] = int(m.group(1))
@@ -4424,6 +4559,26 @@ def ptxas_entries(lines):
             out[name][3] = int(m.group(1)) if m else 0
             name = None
     return out
+
+
+_T1_ENTRY = re.compile(r'trace_eval_kernelI([df])(?:Lb([01])E)?Li([012])E')
+
+
+def t1_builds(entries):
+    """T1's builds among ptxas_entries': {'f64 real re': {'registers',
+    'stack_bytes', 'spill_stores', 'spill_loads'}, ...} by grid type, build
+    (real or general; none named in a source from before the real build)
+    and output mode (re, im, pairs)."""
+    out = {}
+    for name, v in entries.items():
+        m = _T1_ENTRY.search(name)
+        if m:
+            build = {'1': ['real'], '0': ['general'], None: []}[m.group(2)]
+            key = ' '.join(['f64' if m.group(1) == 'd' else 'f32', *build,
+                            ('re', 'im', 'pairs')[int(m.group(3))]])
+            out[key] = {'registers': v[0], 'stack_bytes': v[4],
+                        'spill_stores': v[1], 'spill_loads': v[2]}
+    return dict(sorted(out.items()))
 
 
 def ptxas_resources(entries, name):
@@ -4576,6 +4731,7 @@ def main():
     summary['trace_eval']['spill_bytes'] = max(
         (v[1] for k, v in rec['entries'].items()
          if 'trace_eval_kernel' in k), default=None)
+    summary['trace_eval']['builds'] = t1_builds(rec['entries'])
     pool = start_builds()
     try:
         for phase in (check_small, check_small_hi, check_small_seq,
@@ -4643,7 +4799,8 @@ def main():
             'state_only_max_abs_err_vs_full_call',
             'state_only_max_abs_err_vs_model', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms', 'registers', 'smem_bytes',
-            'dynamic_smem_bytes', 's1_kernels', 'spill_bytes', 'cells')
+            'dynamic_smem_bytes', 's1_kernels', 'spill_bytes', 'builds',
+            'cells')
     print(smi, flush=True)
     print(json.dumps({'kernels': [
         {k: e[k] for k in keys + ('launch_floor_ms',) if k in e}

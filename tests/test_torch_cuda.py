@@ -41,9 +41,13 @@ CUDA graph (a single shot: its eager shot, uncaptured) equals its host loop
 bit for bit.  The trace evaluator's kernel T1 is held to its plain
 version on the CPU (the same tape) within 1e-12 of each channel's peak in
 float64 (1e-6 on a float32 grid), and to the float64 oracle at the JAX
-suite's bounds, on every case of ``ops.trace_cases``; ``synthesize(engine=
-'torch')``, ``sample_waveform`` and the CLI's default path each launch it
-once a call and nothing else.
+suite's bounds, on every case of ``ops.trace_cases`` (among them grids
+that cross its tiles of 2,048 samples); on grids with NaN and infinite
+samples (NaN-equal, a NaN sample outside every segment unless the waveform
+is one unbounded segment) and on odd sample counts in every output mode and
+in float32; a permuted grid's output is the sorted grid's output permuted,
+bit for bit; ``synthesize(engine='torch')``, ``sample_waveform`` and the
+CLI's default path each launch it once a call and nothing else.
 """
 
 import dataclasses
@@ -1931,6 +1935,76 @@ def test_engine_torch_is_one_trace_launch(card):
     assert rel(f32.cpu(), torch_eval.sample_waveform(
         wav, dtype=np.float32, device='cpu')) <= TOL
     np.testing.assert_allclose(cli, wav.sample(), rtol=1e-9, atol=1e-12)
+
+
+def _nan_equal(got, want, tol):
+    """The same NaN samples, the rest within ``tol`` of the peak."""
+    g = torch.view_as_real(got) if got.is_complex() else got
+    w = torch.view_as_real(want) if want.is_complex() else want
+    nan = torch.isnan(w)
+    assert torch.equal(torch.isnan(g), nan)
+    assert rel_c(g.masked_fill(nan, 0).reshape(len(g), -1),
+                 w.masked_fill(nan, 0).reshape(len(w), -1)) <= tol
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+def test_trace_eval_nan_and_infinite_samples(card, dtype):
+    """A NaN sample lies outside every segment (0) unless the waveform is
+    one unbounded segment, which evaluates it, and +inf too (T1 at 4cdb121
+    put a NaN sample in the first segment, and +inf past a lone unbounded
+    one); T1 against its plain version on unsorted tiles (NaN, inf) and
+    sorted ones (-inf first)."""
+    chans = [wt.cos(3.0) + wt.square(2), wt.cos(3.0), wt.gaussian(2) >> 0.5,
+             wt.WaveVStack([wt.cos(3.0) + wt.square(2), wt.gaussian(1)])
+             >> 0.1, (wt.cos(1.0) * (wt.square(1.0) >> -2.0))
+             + 0.5 * wt.exp(-0.3 + 2j) * (wt.square(1) >> 2)]
+    grid = np.sort(np.random.default_rng(5).uniform(-4, 4, 6001))
+    grid[[7, 2500, 4100]] = np.nan
+    grid[[9, 2600]] = np.inf
+    grid[0] = -np.inf
+    g = torch.from_numpy(grid.astype(dtype))
+    tol = TOL_TRACE if dtype == np.float64 else TOL
+    for part in ('real', 'imag', 'complex'):
+        chs = _parts(chans, part)
+        got = torch_eval.evaluate_channels(chs, g.to(card), part).cpu()
+        _nan_equal(got, torch_eval.evaluate_channels(chs, g, part), tol)
+        if part == 'real':
+            assert (got[0, [7, 2500, 4100]] == 0).all()
+            assert torch.isnan(got[1, [7, 9, 2500]]).all()
+
+
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+@pytest.mark.parametrize('part', ['real', 'imag', 'complex'])
+def test_trace_eval_odd_sample_counts(card, part, dtype):
+    """Odd N (a ragged last tile, rows that start off 16-byte alignment,
+    mode 2's pairs), a real and a complex tape, against the plain
+    version."""
+    chans, grid, _ = trace_cases.cases(wt)['tiles-real-complex']
+    tol = TOL_TRACE if dtype == np.float64 else TOL
+    for n in (1, 3, 2047, 2049, 6161):
+        g = torch.from_numpy(np.ascontiguousarray(grid[:n].astype(dtype)))
+        for group in (chans[:1], chans):
+            got = torch_eval.evaluate_channels(group, g.to(card), part)
+            plain = torch_eval.evaluate_channels(group, g, part)
+            assert got.shape == plain.shape and got.dtype == plain.dtype
+            assert rel_c(got.cpu(), plain) <= tol, (n, len(group))
+
+
+def test_trace_eval_permuted_grid_is_the_sorted_grid_permuted(card):
+    """A sample's value depends on its t alone: T1 over a permuted grid
+    (every tile unsorted, searched per sample) is its output over the
+    sorted grid (tiles in one segment stored or evaluated without a
+    search) permuted, bit for bit."""
+    from waveforms_tpu_torch.schedules import build_schedule
+    chans = build_schedule()[:16]
+    grid = np.arange(0.0, 2e-4, 1 / 2e9)
+    perm = np.random.default_rng(0).permutation(len(grid))
+    for part in ('real', 'complex'):
+        ref = torch_eval.evaluate_channels(
+            chans, torch.from_numpy(grid).to(card), part)
+        got = torch_eval.evaluate_channels(
+            chans, torch.from_numpy(grid[perm]).to(card), part)
+        assert torch.equal(got, ref[:, torch.from_numpy(perm).to(card)])
 
 
 def test_trace_eval_complex_args_stay_on_the_card(card):

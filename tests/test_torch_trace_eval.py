@@ -180,6 +180,68 @@ def test_tape_layout():
                                  for s in c.seq)
     codes = P[o_uf::trace_tape.R_UF]
     assert codes.count(0) == 1      # one external slot
+    assert tape.real                # T1's real build
+    cx = trace_tape.tape_of((trace_tape.channel_key((1 + 1j) * chans[0]),))
+    assert not cx.real
+
+
+@pytest.mark.parametrize('name', CASES)
+def test_real_flag_agrees_with_the_plain_version(name, monkeypatch):
+    """``Tape.real`` (T1's real build) holds exactly where the plain
+    version computes no complex value, for a case's multi-channel tape and
+    each channel's own."""
+    from waveforms_tpu_torch.ops import reference_trace
+    seen = []
+    expr = reference_trace._Reader.expr
+
+    def spy(self, *args):
+        acc = expr(self, *args)
+        seen.append(acc.is_complex())
+        return acc
+    monkeypatch.setattr(reference_trace._Reader, 'expr', spy)
+    chans, grid, _ = trace_cases.cases(wt)[name]
+    g = torch.from_numpy(grid)
+    for group in [chans] + [[c] for c in chans]:
+        tape = trace_tape.tape_of(tuple(trace_tape.channel_key(c)
+                                        for c in group))
+        seen.clear()
+        trace_tape.run(tape, g, 'complex')
+        assert tape.real == (not any(seen))
+
+
+def test_plain_version_flagged_real_raises_on_a_complex_value():
+    tape = trace_tape.tape_of((trace_tape.channel_key(
+        (1 + 1j) * wt.gaussian(4)),))
+    prog, pool = tape.tensors('cpu')
+    g = torch.linspace(-1, 1, 11, dtype=torch.float64)
+    out = torch.empty((1, 11), dtype=torch.complex128)
+    with pytest.raises(ValueError, match='flagged real'):
+        kernels.trace_eval(prog, pool, g, None, None, out, 2, True)
+
+
+def test_nan_and_infinite_samples_match_xla():
+    """A NaN sample lies outside every segment (0) unless the waveform is
+    one unbounded segment, which evaluates it (NaN), in the plain version
+    and in JAX's evaluator alike; -inf lies in the first segment, and +inf
+    in a one-segment waveform evaluates it.  (T1 is held to the plain
+    version on the same samples on the card.)"""
+    def build(w):
+        return [w.cos(3.0) + w.square(2), w.cos(3.0), w.gaussian(2) >> 0.5,
+                w.WaveVStack([w.cos(3.0) + w.square(2), w.gaussian(1)])
+                >> 0.1]
+    grid = np.array([np.nan, 0.5, -np.inf, -3.0, 1.0, np.nan, 2.5])
+    got = torch_eval.evaluate_channels(build(wt), torch.from_numpy(grid))
+    got = got.numpy()
+    for row, ch in zip(got, build(wj)):
+        ref = np.asarray(jax_eval.evaluate(ch, jnp.asarray(grid)))
+        np.testing.assert_array_equal(np.isnan(row), np.isnan(ref))
+        ok = ~np.isnan(ref)
+        assert peak_err(row[ok], ref[ok]) <= TOL_JAX
+    assert got[0, 0] == 0 and got[0, 5] == 0     # the NaN samples
+    assert np.isnan(got[1, 0]) and np.isnan(got[1, 2])
+    whole = torch_eval.evaluate(wt.cos(3.0), torch.tensor([np.inf]))
+    ref = jax_eval.evaluate(wj.cos(3.0), jnp.asarray([np.inf]))
+    assert np.isnan(whole.numpy()).all() and np.isnan(np.asarray(ref)).all()
 
 
 def test_operations_count_follows_the_data():

@@ -10,26 +10,52 @@
 //   prog = header[8] | channels | waveforms | segments | terms
 //          | term factors | factors            (record layouts: trace_tape)
 //
-// Grid: blockIdx.y walks the channels, blockIdx.x the samples, a block
-// TRACE_THREADS threads of TRACE_SPT samples each.  At each sample a thread
-// reads t from the grid, finds its segment in each of the channel's
-// waveforms by a binary search on the bounds (so the grid need not be
-// sorted), evaluates only that segment's terms (a ZERO segment costs the
-// search), clips before the sum, and adds a WaveVStack's members to its
-// offset in the evaluator's order.  Values are complex only where the IR
-// makes them so (a complex coefficient, a complex external slot, or a
-// complex argument of exp, cos, cosh, sinh, sinc, gaussian or interp's
-// points); a real value carries no imaginary part.  The output is written
-// in place: the real part, the imaginary part, or interleaved (re, im)
-// pairs.
+// Grid: blockIdx.x walks tiles of TRACE_TILE (2,048) samples, blockIdx.y
+// groups of TRACE_GROUP (32) channels, or fewer where a short grid of many
+// channels would not fill the card (group_size).  A block stages its tile
+// of the grid in shared memory once (16-byte loads) for every channel of
+// its group,
+// and checks whether the tile is non-decreasing (t[i] <= t[i + 1] for
+// every pair, so a NaN fails it).  On a sorted tile, one thread a channel
+// finds the segments of the tile's first and last samples (for a
+// WaveVStack, each member's on t - shift, which stays sorted): every
+// sample of the tile lies between them.  A tile that lies in one ZERO
+// segment or outside every segment (of every member) is stored as
+// constants with 16-byte streaming stores (scalar ones at an unaligned
+// head and tail); otherwise each sample searches only that range of
+// segments, none where the range is one segment.  An unsorted tile
+// searches each sample over all the bounds, as a grid need not be sorted.
+// A sample that is NaN lies outside every segment (torch.searchsorted's
+// answer in the plain version), except in a waveform of one unbounded
+// segment, which evaluates every sample, NaN and +inf too (the plain
+// version's whole-grid case).  Each sample's value is then the segment's
+// terms in order, clipped before the sum, a WaveVStack's members added to
+// its offset in the evaluator's order; the real part, the imaginary part
+// or interleaved (re, im) pairs are written in place.
 //
-// What bounds it: at the flagship's occupancy, the store (2.048 GB of f64
-// at 128 x 2,000,000); at the dense stratum's, the FP64 transcendental
-// functions of each sample (a chirp's sin, a gaussian's exp).  The tape is
-// read through the read-only cache: every thread of a block walks the same
-// few records (one channel, mostly one segment), so a tape of any size is
-// read from global memory, never declined.  Speed is later work: no shared
-// memory staging, no wgmma or TMA.
+// Two builds of one evaluator (expr over Pick<T, REAL>::V): a tape with no
+// complex coefficient, complex slot or complex pool slice (Tape.real)
+// takes the real one, whose values are plain T; any other tape the
+// general one, whose values are Val<T>, complex only where the IR makes
+// them so (a complex coefficient, a complex external slot, or a complex
+// argument of exp, cos, cosh, sinh, sinc, gaussian or interp's points).
+// Both compute each sample's real part by the same operations, so they
+// agree to the bit; the real build of the imaginary part is a store of
+// zeros.
+//
+// What bounds it: at the flagship's occupancy (0.0073), the store of the
+// plane (2.048 GB of f64 at 128 x 2,000,000), which the zero tiles'
+// streaming stores serve: 99.6% of its (channel, tile) pairs are zero
+// tiles, and on an H100 (700 W) it runs at about 0.8 of the store's byte
+// bound; the grid crosses L2 once a channel group, not once a channel.
+// At the dense stratum's (every sample live), the FP64 evaluation of each
+// sample (a chirp's sin, a gaussian's exp) at the warps that 80 registers
+// allow (about 7x the byte bound there on an H100; scaling the chirp's
+// phase down 1000x leaves its time within 1%, so it is not the sin's
+// argument reduction); the design takes the search out of it (one
+// segment a tile), the complex flags for a real tape, and the call a
+// sample (the evaluation is inlined).  The tape is read through the
+// read-only cache: every thread of a block walks the same few records.
 //
 // Rounding: this file builds with -fmad=false, so each product and sum
 // rounds as the plain version's torch operations do, one at a time; the
@@ -124,6 +150,36 @@ __device__ __forceinline__ Val<T> vadd(Val<T> a, Val<T> b) {
   return {a.re + b.re, (a.cx ? a.im : (T)0) + (b.cx ? b.im : (T)0), true};
 }
 
+// the real build's products and sums, on plain T
+__device__ __forceinline__ double vmul(double a, double b) { return a * b; }
+__device__ __forceinline__ float vmul(float a, float b) { return a * b; }
+__device__ __forceinline__ double vadd(double a, double b) { return a + b; }
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+
+// a build's value type: T (real) or Val<T> (general)
+template <typename T, bool REAL> struct Pick { typedef Val<T> V; };
+template <typename T> struct Pick<T, true> { typedef T V; };
+
+template <typename T, bool REAL>
+__device__ __forceinline__ typename Pick<T, REAL>::V zero_val() {
+  if constexpr (REAL) return (T)0; else return real_val((T)0);
+}
+
+template <typename T> __device__ __forceinline__ T re_of(T v) { return v; }
+template <typename T> __device__ __forceinline__ T im_of(T) { return (T)0; }
+template <typename T> __device__ __forceinline__ T& re_ref(T& v) {
+  return v;
+}
+template <typename T> __device__ __forceinline__ T re_of(Val<T> v) {
+  return v.re;
+}
+template <typename T> __device__ __forceinline__ T im_of(Val<T> v) {
+  return v.cx ? v.im : (T)0;
+}
+template <typename T> __device__ __forceinline__ T& re_ref(Val<T>& v) {
+  return v.re;
+}
+
 template <typename T>
 __device__ __forceinline__ Val<T> vrecip(Val<T> a) {
   if (!a.cx) return real_val((T)1 / a.re);
@@ -164,22 +220,25 @@ __device__ Val<T> cpow(Val<T> z, T n) {
   return {e * m_cos(wi), e * m_sin(wi), true};
 }
 
-// vals ** n by the power's kind (trace_tape.POW_KINDS; 8 the general pow)
+// vals ** n by the power's kind (trace_tape.POW_KINDS; 8 the general pow),
+// of a real value, then of a Val
+template <typename T>
+__device__ __forceinline__ T vpow(T x, int kind, T n) {
+  switch (kind) {
+    case 1: return x;
+    case 2: return x * x;
+    case 3: return x * x * x;
+    case 4: return (T)1 / x;
+    case 5: return (T)1 / (x * x);
+    case 6: return m_sqrt(x);
+    case 7: return m_rsqrt(x);
+    default: return m_pow(x, n);
+  }
+}
+
 template <typename T>
 __device__ Val<T> vpow(Val<T> v, int kind, T n) {
-  if (!v.cx) {
-    T x = v.re;
-    switch (kind) {
-      case 1: return v;
-      case 2: return real_val(x * x);
-      case 3: return real_val(x * x * x);
-      case 4: return real_val((T)1 / x);
-      case 5: return real_val((T)1 / (x * x));
-      case 6: return real_val(m_sqrt(x));
-      case 7: return real_val(m_rsqrt(x));
-      default: return real_val(m_pow(x, n));
-    }
-  }
+  if (!v.cx) return real_val(vpow(v.re, kind, n));
   switch (kind) {
     case 1: return v;
     case 4: return vrecip(v);
@@ -459,40 +518,51 @@ struct Ctx {
   int o_wv, o_sg, o_tm, o_tf, o_uf;
 };
 
-template <typename T>
-__device__ Val<T> factor(const Ctx<T>& x, int uf, T t) {
+// a factor's value at t (a real build's tape has no complex slot or
+// argument)
+template <typename T, bool REAL>
+__device__ typename Pick<T, REAL>::V factor(const Ctx<T>& x, int uf, T t) {
   const int* u = x.p + x.o_uf + uf * R_UF;
   int code = ldi(u, 0), off = ldi(u, 1);
   if (code == 0) {   // an external slot: its plane's value at this sample
     long long at = (long long)ldi(u, 2) * x.N + x.n;
-    if (ldi(u, 3)) return {x.ext_re[at], x.ext_im[at], true};
-    return real_val(x.ext_re[at]);
+    if constexpr (REAL) return x.ext_re[at];
+    else if (ldi(u, 3)) return {x.ext_re[at], x.ext_im[at], true};
+    else return real_val(x.ext_re[at]);
   }
   T ts = t - ld<T>(x.d, off);
-  if (ldi(u, 3)) return basis_cx<T>(code, ts, x.d + off + 1, ldi(u, 2));
-  return real_val(basis<T>(code, ts, x.d + off + 1));
+  if constexpr (REAL) return basis<T>(code, ts, x.d + off + 1);
+  else if (ldi(u, 3)) return basis_cx<T>(code, ts, x.d + off + 1, ldi(u, 2));
+  else return real_val(basis<T>(code, ts, x.d + off + 1));
 }
 
 // one segment's expression: its terms summed in order, each the product of
 // its factors' powers times the coefficient
-template <typename T>
-__device__ Val<T> expr(const Ctx<T>& x, int tm0, int nt, T t) {
-  Val<T> acc = real_val((T)0);
+template <typename T, bool REAL>
+__device__ typename Pick<T, REAL>::V expr(const Ctx<T>& x, int tm0, int nt,
+                                          T t) {
+  typedef typename Pick<T, REAL>::V V;
+  V acc = zero_val<T, REAL>();
   for (int k = 0; k < nt; ++k) {
     const int* tm = x.p + x.o_tm + (tm0 + k) * R_TM;
     int f0 = ldi(tm, 0), nf = ldi(tm, 1), coff = ldi(tm, 2);
     int flags = ldi(tm, 3);
-    bool ccx = flags & COEF_COMPLEX;
-    Val<T> coef = {ld<T>(x.d, coff), ccx ? ld<T>(x.d, coff + 1) : (T)0, ccx};
-    Val<T> term;
+    V coef;
+    if constexpr (REAL) {
+      coef = ld<T>(x.d, coff);
+    } else {
+      bool ccx = flags & COEF_COMPLEX;
+      coef = {ld<T>(x.d, coff), ccx ? ld<T>(x.d, coff + 1) : (T)0, ccx};
+    }
+    V term;
     if (nf == 0) {
       term = coef;
     } else {
-      Val<T> prod;
+      V prod = zero_val<T, REAL>();
       for (int j = 0; j < nf; ++j) {
         const int* tf = x.p + x.o_tf + (f0 + j) * R_TF;
-        Val<T> v = factor(x, ldi(tf, 0), t);
-        v = vpow(v, ldi(tf, 1), ld<T>(x.d, ldi(tf, 2)));
+        V v = vpow(factor<T, REAL>(x, ldi(tf, 0), t), ldi(tf, 1),
+                   ld<T>(x.d, ldi(tf, 2)));
         prod = j == 0 ? v : vmul(prod, v);
       }
       term = (flags & COEF_ONE) ? prod : vmul(prod, coef);
@@ -502,7 +572,7 @@ __device__ Val<T> expr(const Ctx<T>& x, int tm0, int nt, T t) {
   return acc;
 }
 
-// a waveform's record, read once a thread
+// a waveform's record
 struct Wave {
   int s0, ns;                        // first segment, segment count
   const double* __restrict__ bounds;  // ns bounds, then the clip rails
@@ -515,109 +585,326 @@ __device__ __forceinline__ Wave wave_rec(const Ctx<T>& x, int w) {
   return {ldi(wv, 0), ldi(wv, 1), x.d + ldi(wv, 2), ldi(wv, 3) != 0};
 }
 
-// a live segment's value at t, clipped (out of line: most samples of a
-// sparse schedule find a ZERO segment and never call it)
 template <typename T>
-__device__ __noinline__ Val<T> segment(Ctx<T> x, Wave wv, int tm0, int nt,
-                                       T t) {
-  Val<T> v = expr(x, tm0, nt, t);
-  if (wv.clip) {   // torch.clamp: NaN stays NaN
+__device__ __forceinline__ int seg_terms(const Ctx<T>& x, const Wave& wv,
+                                         int s) {
+  return ldi(x.p + x.o_sg + (wv.s0 + s) * R_SG, 1);
+}
+
+// the count of bounds <= t among bounds [lo, hi) (lo bounds below them are
+// known to be <= t, those from hi on > t): t's segment
+template <typename T>
+__device__ __forceinline__ int seg_count(const double* __restrict__ b, T t,
+                                         int lo, int hi) {
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (ld<T>(b, mid) <= t) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// a live segment's value at t, clipped; inlined, in loops that are not
+// unrolled: as a call, the registers saved around it and the spills under
+// the register cap made dense slower (tools/ab_trace.py's `call` build)
+template <typename T, bool REAL>
+__device__ __forceinline__ typename Pick<T, REAL>::V segment(
+    Ctx<T> x, Wave wv, int tm0, int nt, T t) {
+  typename Pick<T, REAL>::V v = expr<T, REAL>(x, tm0, nt, t);
+  if (wv.clip) {   // torch.clamp, of the real part: NaN stays NaN
     T vmin = ld<T>(wv.bounds, wv.ns), vmax = ld<T>(wv.bounds, wv.ns + 1);
-    if (v.re == v.re) v.re = m_fmin(m_fmax(v.re, vmin), vmax);
+    T& re = re_ref(v);
+    if (re == re) re = m_fmin(m_fmax(re, vmin), vmax);
   }
   return v;
 }
 
-// one waveform at t: its segment by a binary search on the bounds, that
-// segment's expression, clipped; outside every segment or in a ZERO one, 0
+// the segments [lo, hi] (x, y) that a tile's samples lie in, from its
+// first and last samples where it is sorted: every segment where it is
+// not, and segment 0 for every sample (NaN and +inf too) of a waveform
+// that is one unbounded segment, as the plain version's whole-grid case
 template <typename T>
-__device__ __forceinline__ Val<T> wave(const Ctx<T>& x, const Wave& wv,
-                                       T t) {
-  int lo = 0, hi = wv.ns;   // the count of bounds <= t
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (ld<T>(wv.bounds, mid) <= t) lo = mid + 1; else hi = mid;
-  }
-  if (lo >= wv.ns) return real_val((T)0);
-  const int* sg = x.p + x.o_sg + (wv.s0 + lo) * R_SG;
-  int nt = ldi(sg, 1);
-  if (nt == 0) return real_val((T)0);
-  return segment(x, wv, ldi(sg, 0), nt, t);
+__device__ __forceinline__ int2 seg_range(const Wave& wv, bool sorted,
+                                          T t_first, T t_last) {
+  if (wv.ns == 1 && __ldg(wv.bounds) == (double)INFINITY)
+    return make_int2(0, 0);
+  if (!sorted) return make_int2(0, wv.ns);
+  const int lo = seg_count(wv.bounds, t_first, 0, wv.ns);
+  return make_int2(lo, seg_count(wv.bounds, t_last, lo, wv.ns));
 }
 
-// a block: TRACE_THREADS threads, TRACE_SPT samples each, neighbouring
-// threads on neighbouring samples (the channel's records read once a block)
+// whether a waveform is 0 at every sample of a range: one segment, ZERO
+// or past the last bound
+template <typename T>
+__device__ __forceinline__ bool seg_zero(const Ctx<T>& x, const Wave& wv,
+                                         int2 r) {
+  return r.x == r.y && (r.x >= wv.ns || seg_terms(x, wv, r.x) == 0);
+}
+
+// one waveform at t, whose segment lies in the range r (seg_range): found
+// by a binary search there, that segment's expression, clipped; outside
+// every segment or in a ZERO one, 0.  Searched, a NaN t lies outside every
+// segment (torch.searchsorted's answer in the plain version)
+template <typename T, bool REAL>
+__device__ __forceinline__ typename Pick<T, REAL>::V wave_at(
+    const Ctx<T>& x, const Wave& wv, T t, int2 r) {
+  const int s = r.x == r.y ? r.x
+                : t == t   ? seg_count(wv.bounds, t, r.x, r.y)
+                           : wv.ns;
+  if (s >= wv.ns) return zero_val<T, REAL>();
+  const int* sg = x.p + x.o_sg + (wv.s0 + s) * R_SG;
+  int nt = ldi(sg, 1);
+  if (nt == 0) return zero_val<T, REAL>();
+  return segment<T, REAL>(x, wv, ldi(sg, 0), nt, t);
+}
+
+// a block: TRACE_THREADS threads over a tile of TRACE_TILE samples (thread
+// i on samples i, i + TRACE_THREADS, ...) for each of TRACE_GROUP channels
 constexpr int TRACE_THREADS = 256, TRACE_SPT = 8;
-constexpr int TRACE_BLOCK = TRACE_THREADS * TRACE_SPT;
+constexpr int TRACE_TILE = TRACE_THREADS * TRACE_SPT;
+constexpr int TRACE_GROUP = 32;   // the most channels a block (s_range)
+// blocks an SM that the registers must allow: 3 caps them at 80
+// (tools/ab_trace.py times 2 and 4 blocks, 128 and 64 registers, beside
+// it)
+constexpr int TRACE_MIN_BLOCKS = 3;
+
+// 16 bytes of T, and a pattern of two values in it (v at the even
+// elements, w at the odd ones, from an even first element)
+template <typename T> struct Vec16;
+template <> struct Vec16<double> {
+  typedef double2 type;
+  static __device__ __forceinline__ double2 of(double v, double w) {
+    return make_double2(v, w);
+  }
+};
+template <> struct Vec16<float> {
+  typedef float4 type;
+  static __device__ __forceinline__ float4 of(float v, float w) {
+    return make_float4(v, w, v, w);
+  }
+};
+
+// out[e] for e in [e0, e0 + ne) by the block: v where e is even, w where
+// it is odd; 16-byte streaming stores (the plane is written once, not
+// read back) between scalar ones at the unaligned ends
+template <typename T>
+__device__ __forceinline__ void fill(T* __restrict__ out, long long e0,
+                                     long long ne, T v, T w) {
+  typedef typename Vec16<T>::type V16;
+  constexpr int V = 16 / sizeof(T);
+  T* q = out + e0;
+  long long head = (long long)((16 - ((uintptr_t)q & 15)) & 15) / sizeof(T);
+  if (head > ne) head = ne;
+  const long long nv = (ne - head) / V;
+  for (long long i = threadIdx.x; i < head; i += TRACE_THREADS)
+    q[i] = ((e0 + i) & 1) ? w : v;
+  const V16 pat = ((e0 + head) & 1) ? Vec16<T>::of(w, v) : Vec16<T>::of(v, w);
+  V16* qv = reinterpret_cast<V16*>(q + head);
+  for (long long j = threadIdx.x; j < nv; j += TRACE_THREADS)
+    __stcs(qv + j, pat);
+  for (long long i = head + nv * V + threadIdx.x; i < ne; i += TRACE_THREADS)
+    q[i] = ((e0 + i) & 1) ? w : v;
+}
+
+// n samples of a row, from sample `at` of the plane, all of value v (the
+// imaginary part 0)
+template <typename T, int MODE>
+__device__ __forceinline__ void fill_tile(T* __restrict__ out, long long at,
+                                          int n, T v) {
+  if (MODE == 0) fill(out, at, n, v, v);
+  else if (MODE == 1) fill(out, at, n, (T)0, (T)0);
+  else fill(out, 2 * at, 2 * (long long)n, v, (T)0);
+}
 
 template <typename T, int MODE>
-__global__ void __launch_bounds__(TRACE_THREADS)
+__device__ __forceinline__ void put(T* __restrict__ out, long long at, T re,
+                                    T im) {
+  if (MODE == 0) {
+    out[at] = re;
+  } else if (MODE == 1) {
+    out[at] = im;
+  } else {
+    out[2 * at] = re;
+    out[2 * at + 1] = im;
+  }
+}
+
+// the grid's n samples from g into shared memory: 16-byte loads where the
+// tile is whole and g aligned
+template <typename T>
+__device__ __forceinline__ void stage(T* s, const T* __restrict__ g, int n) {
+  typedef typename Vec16<T>::type V16;
+  constexpr int V = 16 / sizeof(T);
+  if (n == TRACE_TILE && ((uintptr_t)g & 15) == 0) {
+    for (int j = threadIdx.x; j < TRACE_TILE / V; j += TRACE_THREADS)
+      reinterpret_cast<V16*>(s)[j] = __ldg(reinterpret_cast<const V16*>(g) + j);
+  } else {
+    for (int i = threadIdx.x; i < n; i += TRACE_THREADS) s[i] = g[i];
+  }
+}
+
+// a WaveVStack's member grid: t less the shift
+template <typename T>
+__device__ __forceinline__ T shifted(T t, T shift) {
+  return shift != (T)0 ? t - shift : t;
+}
+
+// a channel's range over a tile, s_range: x FILL where the tile is one
+// constant, else a Waveform's seg_range (a WaveVStack's members each take
+// their own)
+constexpr int FILL = -1;
+
+template <typename T, bool REAL, int MODE>
+__global__ void __launch_bounds__(TRACE_THREADS, TRACE_MIN_BLOCKS)
 trace_eval_kernel(const int* __restrict__ p, const double* __restrict__ d,
                   const T* __restrict__ grid, long long N,
                   const T* __restrict__ ext_re, const T* __restrict__ ext_im,
-                  T* __restrict__ out, int n_ch) {
+                  T* __restrict__ out, int n_ch, int group) {
+  typedef typename Pick<T, REAL>::V Vt;
+  __shared__ __align__(16) T s_t[TRACE_TILE];
+  __shared__ int2 s_range[TRACE_GROUP];
   Ctx<T> x{p, d, ext_re, ext_im, 0, N, ldi(p, H_WV), ldi(p, H_SG),
            ldi(p, H_TM), ldi(p, H_TF), ldi(p, H_UF)};
-  int tape_ch = ldi(p, H_NCH), o_ch = ldi(p, H_CH);
-  for (int c = blockIdx.y; c < n_ch && c < tape_ch; c += gridDim.y) {
-    const int* ch = p + o_ch + c * R_CH;
-    int w0 = ldi(ch, 0), nw = ldi(ch, 1), coff = ldi(ch, 2);
-    bool stack = ldi(ch, 3) != 0;
-    T off_re = ld<T>(d, coff), off_im = ld<T>(d, coff + 1);
-    T shift = ld<T>(d, coff + 2);
-    const Wave first = nw ? wave_rec(x, w0) : Wave{0, 0, d, false};
-    const long long step = (long long)gridDim.x * TRACE_BLOCK;
-    for (long long base = (long long)blockIdx.x * TRACE_BLOCK; base < N;
-         base += step) {
-      // the block's samples of the grid first, all loads in flight at once
-      T tv[TRACE_SPT];
-#pragma unroll
-      for (int k = 0; k < TRACE_SPT; ++k) {
-        long long n = base + (long long)k * TRACE_THREADS + threadIdx.x;
-        tv[k] = n < N ? grid[n] : (T)0;
+  const int n_use = min(n_ch, ldi(p, H_NCH)), o_ch = ldi(p, H_CH);
+  // this block's channels, [c0, c0 + nc): one group a block, no loop over
+  // groups (which, with the group a runtime value, cost the evaluation
+  // spills: tools/ab_trace.py)
+  const int c0 = blockIdx.y * group;
+  if (c0 >= n_use) return;
+  const int nc = min(group, n_use - c0);
+  const long long n_tiles = (N + TRACE_TILE - 1) / TRACE_TILE;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long base = tile * TRACE_TILE;
+    const int n = (int)min((long long)TRACE_TILE, N - base);
+    __syncthreads();   // the last tile's samples and ranges are read
+    stage(s_t, grid + base, n);
+    __syncthreads();
+    bool up = true;
+    for (int i = threadIdx.x; i + 1 < n; i += TRACE_THREADS)
+      up = up && s_t[i] <= s_t[i + 1];
+    const bool sorted = __syncthreads_and(up) && s_t[0] == s_t[0];
+    const T t_first = s_t[0], t_last = s_t[n - 1];
+    // each channel's range over the tile, one thread a channel
+    for (int g = threadIdx.x; g < nc; g += TRACE_THREADS) {
+      const int* ch = p + o_ch + (c0 + g) * R_CH;
+      const int w0 = ldi(ch, 0), nw = ldi(ch, 1);
+      int2 r = make_int2(FILL, 0);
+      if (REAL && MODE == 1) {
+        // a real tape's imaginary part: 0 throughout
+      } else if (ldi(ch, 3) == 0) {   // a Waveform
+        const Wave wv = nw ? wave_rec(x, w0) : Wave{0, 0, d, false};
+        r = seg_range(wv, sorted, t_first, t_last);
+        if (seg_zero(x, wv, r)) r.x = FILL;
+      } else {   // a WaveVStack: constant where every member is 0
+        const T shift = ld<T>(d, ldi(ch, 2) + 2);
+        const bool srt = sorted && shift - shift == (T)0;   // finite
+        for (int w = 0; r.x == FILL && w < nw; ++w) {
+          const Wave wv = wave_rec(x, w0 + w);
+          if (!seg_zero(x, wv, seg_range(wv, srt, shifted(t_first, shift),
+                                         shifted(t_last, shift))))
+            r.x = 0;
+        }
       }
+      s_range[g] = r;
+    }
+    __syncthreads();
+    for (int g = 0; g < nc; ++g) {
+      const int c = c0 + g;
+      const int* ch = p + o_ch + c * R_CH;
+      const int w0 = ldi(ch, 0), nw = ldi(ch, 1), coff = ldi(ch, 2);
+      const bool stack = ldi(ch, 3) != 0;
+      const long long row = (long long)c * N + base;
+      const int2 r = s_range[g];
+      if (r.x == FILL) {   // a Waveform's 0; a WaveVStack's offset + 0
+        T v = (T)0;
+        if (stack) {
+          v = ld<T>(d, coff);
+          if (nw) v = v + (T)0;
+        }
+        fill_tile<T, MODE>(out, row, n, v);
+      } else if (!stack) {
+        const Wave wv = nw ? wave_rec(x, w0) : Wave{0, 0, d, false};
+#pragma unroll 1
+        for (int i = threadIdx.x; i < n; i += TRACE_THREADS) {
+          x.n = base + i;
+          Vt v = wave_at<T, REAL>(x, wv, s_t[i], r);
+          put<T, MODE>(out, row + i, re_of(v), im_of(v));
+        }
+      } else {   // the offset, then each member over the grid less the
+                 // shift, members outermost; the real part
+        const T shift = ld<T>(d, coff + 2);
+        const bool srt = sorted && shift - shift == (T)0;
+        T acc[TRACE_SPT];
 #pragma unroll
-      for (int k = 0; k < TRACE_SPT; ++k) {
-        long long n = base + (long long)k * TRACE_THREADS + threadIdx.x;
-        if (n < N) {
-          x.n = n;
-          Val<T> acc;
-          if (!stack) {
-            acc = wave(x, first, tv[k]);
-          } else {   // the offset, then each member over the grid less
-                     // the shift
-            T tt = shift != (T)0 ? tv[k] - shift : tv[k];
-            acc = {off_re, off_im, true};
-            for (int w = 0; w < nw; ++w)
-              acc = vadd(acc, wave(x, wave_rec(x, w0 + w), tt));
-            acc.cx = false;   // a WaveVStack evaluates to its real part
+        for (int k = 0; k < TRACE_SPT; ++k) acc[k] = ld<T>(d, coff);
+        for (int w = 0; w < nw; ++w) {
+          const Wave wv = wave_rec(x, w0 + w);
+          const int2 rw = seg_range(wv, srt, shifted(t_first, shift),
+                                    shifted(t_last, shift));
+#pragma unroll 1
+          for (int k = 0; k < TRACE_SPT; ++k) {
+            const int i = k * TRACE_THREADS + threadIdx.x;
+            if (i < n) {
+              x.n = base + i;
+              acc[k] = acc[k] + re_of(wave_at<T, REAL>(
+                                    x, wv, shifted(s_t[i], shift), rw));
+            }
           }
-          long long at = (long long)c * N + n;
-          if (MODE == 0) {
-            out[at] = acc.re;
-          } else if (MODE == 1) {
-            out[at] = acc.cx ? acc.im : (T)0;
-          } else {
-            out[2 * at] = acc.re;
-            out[2 * at + 1] = acc.cx ? acc.im : (T)0;
-          }
+        }
+#pragma unroll
+        for (int k = 0; k < TRACE_SPT; ++k) {
+          const int i = k * TRACE_THREADS + threadIdx.x;
+          if (i < n) put<T, MODE>(out, row + i, acc[k], (T)0);
         }
       }
     }
   }
 }
 
-template <typename T, int MODE>
+// channels a block: TRACE_GROUP, or as many fewer as a short grid of many
+// channels needs for its tiles x groups blocks to fill TRACE_WAVES waves
+// of the card (TRACE_MIN_BLOCKS a multiprocessor); at least 1, and at
+// least what keeps the groups within a grid's 65,535 rows
+constexpr int TRACE_WAVES = 2;
+constexpr long long GRID_Y = 65535;
+
+long long group_size(long long tiles, int n_ch) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+          != cudaSuccess)
+    sms = 132;   // an H100 SXM's
+  const long long want = (long long)sms * TRACE_MIN_BLOCKS * TRACE_WAVES;
+  const long long g = tiles * n_ch / want;
+  const long long least = (n_ch + GRID_Y - 1) / GRID_Y;
+  const long long fit = g < 1 ? 1 : g > TRACE_GROUP ? TRACE_GROUP : g;
+  return fit > least ? fit : least;
+}
+
+template <typename T, bool REAL, int MODE>
 int launch(const int* prog, const double* pool, const void* grid,
            long long n, const void* ext_re, const void* ext_im, void* out,
            int n_ch, cudaStream_t stream) {
-  long long blocks = (n + TRACE_BLOCK - 1) / TRACE_BLOCK;
-  dim3 g((unsigned)(blocks < 2147483647LL ? blocks : 2147483647LL),
-         (unsigned)(n_ch < 65535 ? n_ch : 65535));
-  trace_eval_kernel<T, MODE><<<g, TRACE_THREADS, 0, stream>>>(
+  const long long tiles = (n + TRACE_TILE - 1) / TRACE_TILE;
+  const long long group = group_size(tiles, n_ch);
+  if (group > TRACE_GROUP) return (int)cudaErrorInvalidValue;
+  const long long groups = (n_ch + group - 1) / group;
+  dim3 g((unsigned)(tiles < 2147483647LL ? tiles : 2147483647LL),
+         (unsigned)groups);
+  trace_eval_kernel<T, REAL, MODE><<<g, TRACE_THREADS, 0, stream>>>(
       prog, pool, (const T*)grid, n, (const T*)ext_re, (const T*)ext_im,
-      (T*)out, n_ch);
+      (T*)out, n_ch, (int)group);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool REAL>
+int launch_mode(int mode, const int* prog, const double* pool,
+                const void* grid, long long n, const void* ext_re,
+                const void* ext_im, void* out, int n_ch,
+                cudaStream_t stream) {
+  if (mode == 0) return launch<T, REAL, 0>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
+  if (mode == 1) return launch<T, REAL, 1>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
+  if (mode == 2) return launch<T, REAL, 2>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -625,20 +912,21 @@ int launch(const int* prog, const double* pool, const void* grid,
 extern "C" {
 
 // dtype: 0 float64, 1 float32 (the grid's, the planes' and the output's
-// real type); mode: 0 real part, 1 imaginary part, 2 interleaved (re, im)
+// real type); mode: 0 real part, 1 imaginary part, 2 interleaved (re, im);
+// real: 1 for a tape whose every value is real (trace_tape.Tape.real), the
+// real build, else 0
 int wf_trace_eval(const int* prog, const double* pool, const void* grid,
                   long long n, const void* ext_re, const void* ext_im,
-                  void* out, int n_ch, int dtype, int mode,
+                  void* out, int n_ch, int dtype, int mode, int real,
                   cudaStream_t stream) {
   if (n <= 0 || n_ch <= 0) return 0;
   if (dtype == 0) {
-    if (mode == 0) return launch<double, 0>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
-    if (mode == 1) return launch<double, 1>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
-    if (mode == 2) return launch<double, 2>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
-  } else if (dtype == 1) {
-    if (mode == 0) return launch<float, 0>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
-    if (mode == 1) return launch<float, 1>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
-    if (mode == 2) return launch<float, 2>(prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
+    if (real) return launch_mode<double, true>(mode, prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
+    return launch_mode<double, false>(mode, prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
+  }
+  if (dtype == 1) {
+    if (real) return launch_mode<float, true>(mode, prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
+    return launch_mode<float, false>(mode, prog, pool, grid, n, ext_re, ext_im, out, n_ch, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -210,7 +210,7 @@ def load_library():
         lib.wf_iir_df2t_chunk.restype = I
         lib.wf_iir_df2t_work_doubles.argtypes = [I, L, I]
         lib.wf_iir_df2t_work_doubles.restype = L
-        lib.wf_trace_eval.argtypes = [P, P, P, L, P, P, P, I, I, I, P]
+        lib.wf_trace_eval.argtypes = [P, P, P, L, P, P, P, I, I, I, I, P]
         for fn in (lib.wf_synth_dense, lib.wf_synth_dense_shard,
                    lib.wf_synth_dense_shots, lib.wf_synth_panel,
                    lib.wf_synth_sparse, lib.wf_synth_sparse_shots,
@@ -824,12 +824,13 @@ def _launch_iir_df2t(x, coef, zi, y, zf):
 _TRACE_DTYPES = {torch.float64: 0, torch.float32: 1}
 
 
-def _launch_trace_eval(prog, pool, grid, ext_re, ext_im, out, mode):
+def _launch_trace_eval(prog, pool, grid, ext_re, ext_im, out, mode, real):
     """Launch T1 on CUDA tensors: the tape (``prog`` int32, ``pool``
     float64) over ``grid`` (N,) float64 or float32 into ``out`` (C, N) --
     the grid's type for ``mode`` 0 (real part) and 1 (imaginary part), its
     complex type for 2 -- with the external slots' planes ``ext_re``
-    (n_ext, N) and ``ext_im`` (None where no slot is complex)."""
+    (n_ext, N) and ``ext_im`` (None where no slot is complex); ``real``
+    (the tape's ``Tape.real``) takes the real build."""
     if grid.dim() != 1 or grid.dtype not in _TRACE_DTYPES:
         raise ValueError("the grid is a 1-D float64 or float32 tensor")
     if prog.dtype != torch.int32 or pool.dtype != torch.float64:
@@ -857,7 +858,8 @@ def _launch_trace_eval(prog, pool, grid, ext_re, ext_im, out, mode):
         code = lib.wf_trace_eval(prog.data_ptr(), pool.data_ptr(),
                                  grid.data_ptr(), n, _ptr(ext_re),
                                  _ptr(ext_im), out.data_ptr(), n_ch,
-                                 _TRACE_DTYPES[grid.dtype], mode, _stream(out))
+                                 _TRACE_DTYPES[grid.dtype], mode,
+                                 int(bool(real)), _stream(out))
     _raise_on(code, 'trace_eval')
 
 
@@ -970,15 +972,15 @@ iir_df2t = _IirKernel(
     'waveforms_tpu/ops/iir.py:171', reference_iir.df2t,
     _launch_iir_df2t, out_at=3)
 
-#: T1: ``trace_eval(prog, pool, grid, ext_re, ext_im, out, mode)``: every
-#: channel of a trace tape (``ops.trace_tape``) over a float64 or float32
-#: grid in one launch; a port kernel with no Pallas counterpart (it replaces
-#: the XLA program that the JAX package's ``jax_eval.compile_waveform``
-#: jits, engine ``'xla'``)
+#: T1: ``trace_eval(prog, pool, grid, ext_re, ext_im, out, mode, real)``:
+#: every channel of a trace tape (``ops.trace_tape``) over a float64 or
+#: float32 grid in one launch, a real tape (``real``) in the real build; a
+#: port kernel with no Pallas counterpart (it replaces the XLA program that
+#: the JAX package's ``jax_eval.compile_waveform`` jits, engine ``'xla'``)
 trace_eval = _Kernel(
     'trace_eval', 'waveforms_tpu_torch/csrc/trace_eval.cu',
     'waveforms_tpu/ops/jax_eval.py:79', reference_trace.trace_eval,
-    _launch_trace_eval)
+    _launch_trace_eval, out_at=5)
 
 
 KERNELS = (synth_dense, synth_panel, synth_sparse, synth_stack,

@@ -28,9 +28,10 @@ def _complex_of(dtype):
 
 
 class _Reader(Records):
-    def __init__(self, prog, pool, ext_re, ext_im):
+    def __init__(self, prog, pool, ext_re, ext_im, real):
         super().__init__(prog, pool)
         self.ext_re, self.ext_im = ext_re, ext_im
+        self.real = real
 
     def factor(self, uf, t):
         code, shift, p = self.args(uf)
@@ -68,6 +69,8 @@ class _Reader(Records):
                      else t.dtype)
             acc = torch.as_tensor(acc, dtype=dtype,
                                   device=t.device).expand(t.shape)
+        if self.real and acc.is_complex():
+            raise ValueError("a tape flagged real produced a complex value")
         return acc
 
     def wave(self, w, t):
@@ -109,13 +112,15 @@ class _Reader(Records):
         return acc.real
 
 
-def trace_eval(prog, pool, grid, ext_re, ext_im, out, mode):
+def trace_eval(prog, pool, grid, ext_re, ext_im, out, mode, real):
     """T1's plain version: every channel of the tape (``prog``, ``pool``)
     over ``grid`` (N,) into ``out`` (C, N) -- ``mode`` 0 the real part, 1
     the imaginary part (0 for a real channel), 2 the complex value; the
     external slots' values are ``ext_re`` (n_ext, N) and ``ext_im`` (None
-    where no slot is complex).  Returns ``out``."""
-    r = _Reader(prog, pool, ext_re, ext_im)
+    where no slot is complex).  ``real``: the tape's ``Tape.real``, which
+    T1 takes as its build; raises if such a tape gives a complex value.
+    Returns ``out``."""
+    r = _Reader(prog, pool, ext_re, ext_im, real)
     for c in range(r.n_ch):
         v = r.channel(c, grid)
         if mode == 2:

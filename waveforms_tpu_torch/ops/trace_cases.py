@@ -12,8 +12,13 @@ an offset and a shift, a real and a complex user basis (external slots),
 an unsorted grid, a float32 grid, a tape of several channels of
 different structures, and built-ins with complex arguments (those that T1
 evaluates itself, and a linear chirp with a complex phase, an external
-slot filled on the grid's device).  :data:`JAX_DECLINES` names the cases
-that the JAX package's evaluator does not take.
+slot filled on the grid's device).  The cases over 6,161 samples cross
+T1's tiles of 2,048 samples (three tiles and a ragged tail): segment
+bounds on tile edges and on a tile's first and last sample, a sorted grid
+with repeated values and one descent in its middle tile, a shifted
+``WaveVStack``, and a real and a complex tape over the same grid.
+:data:`JAX_DECLINES` names the cases that the JAX package's evaluator
+does not take.
 """
 
 from __future__ import annotations
@@ -108,7 +113,37 @@ def _interp_complex(w):
             w.samplingPoints(1.0, 2.0, (0.25 - 0.5j,)) * w.cos(3.0)]
 
 
+def _tile_edges(w):
+    # the grid's samples are 0, 1, ..., 6160; T1's tiles start at 0, 2048,
+    # 4096 and 6144: bounds at 2047 / 4096, 2048 / 6144 and 4095 / 6160
+    a = w.cosPulse(2049.0) >> 3071.5
+    b = 0.5 * w.cos(0.003) * (w.square(4096.0) >> 4096.0)
+    c = w.square(2065.0) >> 5127.5
+    return [a, b, c, a + c + (w.gaussian(100.0) >> 6144.0) + b * w.t()]
+
+
+def _sorted_repeats_grid():
+    grid = np.repeat(np.linspace(-3, 9, 2054), 3)[:6161].copy()
+    grid[3000], grid[3003] = grid[3003], grid[3000]     # one descent
+    return grid
+
+
+def _vstack_tiles(w):
+    rng = np.random.default_rng(17)
+    members = [(0.5 * w.cosPulse(1.5) >> o) for o in rng.uniform(0, 58, 12)]
+    return [(w.WaveVStack(members) >> 0.37) + 0.25,
+            w.WaveVStack([w.gaussian(3) >> 20, w.cos(0.4) * w.square(8)
+                          >> 44]) >> -1.25]
+
+
+def _tiles_real_complex(w):
+    wav = (w.cosPulse(3.0) >> 4.0) * w.cos(2.0) + 0.3 * (w.gaussian(1.0)
+                                                         >> 10.0)
+    return [wav, (1 + 0.5j) * wav]
+
+
 LINSPACE = np.linspace(-6, 12, 4001)
+TILES = np.linspace(-2, 14, 6161)       # three of T1's tiles and 17 more
 DRAG_GRID = np.linspace(-10e-9, 50e-9, 2001)
 MIXING_GRID = np.linspace(-1e-6, 9e-6, 10001)
 _MULTI = dict(plateau=6e-9, delta=3e6, block_freq=(150e6, -80e6), phase=0.1)
@@ -181,6 +216,14 @@ CASES = {
                      (1e-9, 1e-12)),
     'interp-complex': (_interp_complex, np.linspace(-1, 11, 500),
                        (1e-9, 1e-12)),
+    'tile-edges': (_tile_edges, np.arange(6161.0), (1e-9, 1e-12)),
+    'sorted-repeats': (lambda w: [w.gaussian(2) >> 1,
+                                  w.cos(1.3) * w.square(4) >> 4,
+                                  w.cosPulse(0.5) >> 3.0],
+                       _sorted_repeats_grid(), (1e-9, 1e-12)),
+    'vstack-tiles': (_vstack_tiles, np.linspace(0, 60, 6161),
+                     (1e-9, 1e-12)),
+    'tiles-real-complex': (_tiles_real_complex, TILES, (1e-9, 1e-12)),
 }
 
 #: case -> why the JAX package's evaluator raises on it (the port and the

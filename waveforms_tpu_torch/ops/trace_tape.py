@@ -75,15 +75,19 @@ class Tape:
 
     ``complex[c]`` says whether ``evaluate`` returns channel c complex
     (a complex amplitude or a complex external slot in a live segment of a
-    ``Waveform``; a ``WaveVStack`` evaluates to its real part).  ``ext``
-    holds each external slot as (basis ID, arguments, the shifts its grid
-    takes, in order, complex)."""
+    ``Waveform``; a ``WaveVStack`` evaluates to its real part).  ``real``
+    says whether every value the tape can produce is real: no complex
+    coefficient, no complex external slot and no complex pool slice in any
+    channel or ``WaveVStack`` member (T1 then takes its real build).
+    ``ext`` holds each external slot as (basis ID, arguments, the shifts
+    its grid takes, in order, complex)."""
 
-    def __init__(self, prog, pool, complex_, ext):
+    def __init__(self, prog, pool, complex_, ext, real):
         self.prog = prog
         self.pool = pool
         self.complex = complex_
         self.ext = ext
+        self.real = real
         self._on = {}
 
     @property
@@ -218,9 +222,11 @@ class _Builder:
                           dtype=np.int64)
         if prog.max(initial=0) > 2**31 - 1 or len(self.pool) > 2**31 - 1:
             raise ValueError("the tape holds more than 2**31 - 1 words")
+        real = not any(self.tables['uf'][3::R_UF]) and not any(
+            f & COEF_COMPLEX for f in self.tables['tm'][3::R_TM])
         return Tape(prog.astype(np.int32),
                     np.asarray(self.pool, dtype=np.float64),
-                    tuple(complex_), tuple(self.ext))
+                    tuple(complex_), tuple(self.ext), real)
 
 
 class Records:
@@ -307,7 +313,8 @@ def run(tape, grid, mode) -> torch.Tensor:
     """Every channel of ``tape`` over the 1-D float64 or float32 ``grid``
     in one launch of T1 (on a CPU tensor its plain version) -> (C, N):
     the real part (``mode`` 'real'), the imaginary part ('imag', real
-    channels 0) in the grid's dtype, or the complex value ('complex')."""
+    channels 0) in the grid's dtype, or the complex value ('complex'); a
+    real tape (``tape.real``) in T1's real build."""
     from .. import kernels
     if grid.dtype not in (torch.float64, torch.float32):
         raise ValueError(f"the trace evaluator takes a float64 or float32 "
@@ -321,4 +328,4 @@ def run(tape, grid, mode) -> torch.Tensor:
         return out
     prog, pool = tape.tensors(grid.device)
     re, im = ext_planes(tape, grid)
-    return kernels.trace_eval(prog, pool, grid, re, im, out, m)
+    return kernels.trace_eval(prog, pool, grid, re, im, out, m, tape.real)
