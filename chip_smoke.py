@@ -3523,6 +3523,7 @@ def seq_station_chain(fail, summary):
     from waveforms_tpu_torch.parallel import (SequenceGraph, run_sequence,
                                               run_sequence_loop)
     from waveforms_tpu_torch.schedules import FS, station_channels
+    from waveforms_tpu_torch.utils.profiling import span_record
     from waveforms_tpu_torch.utils.signal import getFTMatrix
 
     rng = np.random.default_rng(11)      # the seq_station phase's draws
@@ -3561,12 +3562,18 @@ def seq_station_chain(fail, summary):
            'loop_wall_s': loop_wall,
            'loop_us_per_shot_wall': loop_wall * 1e6 / len(ks)}
     del loop
-    # the capture, then a run of replays alone, on the host's clock
-    t0 = time.perf_counter()
-    graph = SequenceGraph(seq, ks_dev, **kw)
-    torch.cuda.synchronize()
-    rec['build_s'] = time.perf_counter() - t0     # shot 0 eager + capture
-    rec['capture_ms'] = graph.capture_s * 1e3
+    # the capture, then a run of replays alone, on the host's clock; the
+    # capture's time is its span, which records under a profiler
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        t0 = time.perf_counter()
+        graph = SequenceGraph(seq, ks_dev, **kw)
+        torch.cuda.synchronize()
+        rec['build_s'] = time.perf_counter() - t0     # shot 0 eager + capture
+    spans = span_record()
+    rec['capture_ms'] = max(
+        (e - s for n, s, e in zip(spans.names, spans.starts, spans.ends)
+         if n == 'wf.sequence.capture' and s >= t0), default=0.0) * 1e3
     t0 = time.perf_counter()
     graph.run()
     torch.cuda.synchronize()
@@ -4336,7 +4343,7 @@ def profiling(fail):
     rows, their sum beside the call's events (K7's and S1's ratios
     recorded, not failed on); then one ``synthesize`` call traced inside
     ``annotate``, whose trace must hold the annotation on the host's
-    timeline and, inside its span on the card's, the call's kernel.  Where
+    timeline and the call's kernel launched inside it.  Where
     ``utils.profiling.ATTEMPTS`` traces hold no matching device event the
     phase fails; ``events_of_launches`` counts one further trace's."""
     import glob
@@ -4422,8 +4429,10 @@ def profiling(fail):
     torch.cuda.empty_cache()
 
     # a synthesize call inside annotate: the annotation in the trace, and
-    # the call's kernel inside the annotation's span on the card's timeline
-    # (traced again, as measure_device does, where a trace lost them)
+    # the call's kernel launched inside it (``launched_under``: the card's
+    # own annotation of a kernel is the innermost range open at its launch,
+    # the kernel's wf.launch.* span); traced again, as measure_device does,
+    # where a trace lost them
     label = 'chip_smoke.synthesize'
     for attempt in range(1, prof.ATTEMPTS + 1):
         with tempfile.TemporaryDirectory() as log_dir:
@@ -4439,9 +4448,7 @@ def profiling(fail):
             spans = [e for e in prof.device_events(
                 log_dir, ('gpu_user_annotation',)) if e['name'] == label]
             inside = [prof.kernel_name(e['name'])[:40]
-                      for e in prof.device_events(log_dir) for a in spans
-                      if a['ts'] <= e['ts']
-                      and e['ts'] + e['dur'] <= a['ts'] + a['dur']]
+                      for e in prof.launched_under(log_dir, label)]
         held = bool(host) and any(k.startswith('synth_sparse_kernel')
                                   for k in inside)
         if held:

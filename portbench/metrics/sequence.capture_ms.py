@@ -1,0 +1,17 @@
+"""``sequence.capture_ms``: the host milliseconds a call in the program's
+span ``wf.sequence.capture`` (the shot's CUDA graph capture, from before
+the graph's entry -- its synchronize and cache emptying -- to the
+instantiated graph), over the traced window's calls, on the host
+clock."""
+
+SPAN = 'wf.sequence.capture'
+
+
+def read(ctx):
+    from waveforms_tpu_torch.utils import profiling
+    between = getattr(profiling, 'spans_between', None)
+    if between is None:                 # a program that records no span
+        return None
+    win = ctx.window
+    durs, calls = between(win.t0, win.t1, lambda n: n == SPAN, win.issue)
+    return sum(durs) * 1e3 / calls if durs and calls else None

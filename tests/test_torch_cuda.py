@@ -51,6 +51,7 @@ CLI's default path each launch it once a call and nothing else.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -700,16 +701,93 @@ def test_run_sequence_graph_equals_the_host_loop(card, chain):
 
 def test_run_sequence_of_one_shot_is_not_captured(card):
     """A single shot is ``SequenceGraph``'s eager shot 0: nothing is
-    captured, and the result equals the host loop's, on every run."""
+    captured (no graph, and under a profiler no ``wf.sequence.capture``
+    span), and the result equals the host loop's, on every run."""
+    from torch.profiler import ProfilerActivity, profile
+
     from waveforms_tpu_torch.ops import Sequencer
     from waveforms_tpu_torch.parallel import SequenceGraph, run_sequence_loop
+    from waveforms_tpu_torch.utils.profiling import span_record
     seq = Sequencer(_seq_table(n_schedules=4), device=card)
     kw = {'demod_freqs': [-121.64e6, -67.52e6]}
     order = torch.tensor([7], device=card)
-    graph = SequenceGraph(seq, order, **kw)
-    assert graph.graph is None and graph.capture_s == 0.0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]):
+        graph = SequenceGraph(seq, order, **kw)
+    rec = span_record()
+    spans = [n for n, s in zip(rec.names, rec.starts) if s >= t0]
+    assert graph.graph is None and 'wf.sequence.capture' not in spans
+    assert 'wf.sequence.eager_shot' in spans
     want = run_sequence_loop(seq, [3], **kw)
     assert torch.equal(graph.run(), want) and torch.equal(graph.run(), want)
+
+
+def test_run_sequence_spans_cover_the_call(card, tmp_path, monkeypatch):
+    """A traced ``run_sequence`` of 7 shots, twice: one
+    ``wf.sequence.capture`` a call, which holds the whole of
+    ``torch.cuda.graph``'s entry and exit (its synchronize and cache
+    emptying) and so lasts at least the stretch from inside the entry to
+    the instantiated graph; and every device operation launched inside a
+    call is launched under a ``wf.*`` span -- all but the replays' under a
+    span other than ``wf.sequence.replay``."""
+    from waveforms_tpu_torch.distortion import exp_decay_filter
+    from waveforms_tpu_torch.ops import Sequencer
+    from waveforms_tpu_torch.parallel import run_sequence
+    from waveforms_tpu_torch.utils import profiling
+    seq = Sequencer(_seq_table(n_schedules=4), device=card)
+    kw = {'ba_filters': [exp_decay_filter(0.02, 3e-6, 2e9, inv=True)],
+          'demod_freqs': [-121.64e6, -67.52e6]}
+    order = torch.tensor([3, 0, 9, -1, 2, 1, 1], device=card)
+    run_sequence(seq, order, **kw)             # builds the kernels
+    torch.cuda.synchronize()
+
+    graphs = []
+    real = torch.cuda.graph
+
+    class timed(real):
+        """torch.cuda.graph, with the host's clock before its entry,
+        inside it, and after its exit."""
+        def __enter__(self):
+            graphs.append([time.perf_counter()])
+            out = super().__enter__()
+            graphs[-1].append(time.perf_counter())
+            return out
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            graphs[-1].append(time.perf_counter())
+            return out
+
+    monkeypatch.setattr(torch.cuda, 'graph', timed)
+    t0 = time.perf_counter()
+    calls = []
+    with profiling.trace(str(tmp_path)):
+        for _ in range(2):
+            a = time.perf_counter()
+            with torch.profiler.record_function('test.call'):
+                run_sequence(seq, order, **kw)
+            calls.append((a, time.perf_counter()))
+    rec = profiling.span_record()
+    captures = [(s, e) for n, s, e in zip(rec.names, rec.starts, rec.ends)
+                if n == 'wf.sequence.capture' and s >= t0]
+    assert len(captures) == len(graphs) == 2
+    for (a, b), (s, e), (before, inside, after) in zip(calls, captures,
+                                                       graphs):
+        assert a <= s <= before and after <= e <= b
+        assert e - s >= after - inside
+    # the trace: each device operation launched inside a call (its launch,
+    # the runtime call with its correlation id) is launched under a wf.*
+    # range
+    cats = profiling.KERNELS + profiling.COPIES
+
+    def ops(pattern):
+        return {(e['ts'], e['name'], (e.get('args') or {}).get('correlation'))
+                for e in profiling.launched_under(str(tmp_path), pattern,
+                                                  cats)}
+    in_calls = ops('test.call')
+    replayed = in_calls & ops('wf.sequence.replay')
+    assert in_calls <= ops('wf.*')
+    assert len(in_calls) > len(replayed) > 0
 
 
 def test_probe_health_kernel_doubles(card):

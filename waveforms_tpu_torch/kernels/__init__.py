@@ -31,11 +31,13 @@ kernel's plain version (:mod:`..ops.reference`, :mod:`..ops.reference_hi`,
 :mod:`..ops.reference_trace`); given CUDA
 tensors it launches the kernel, checks the launch's ``cudaGetLastError()``
 and raises on any failure -- it never falls back.  Each wrapper counts its
-kernel launches in ``launches``; K1's counts those with a window that starts
-after sample 0 again in ``windowed_launches``.  K1 and K7 also have a shot
-entry, ``synth_dense.shots`` and ``synth_sparse.shots``: one launch for a
-shot vector over a sequence table, whose kernel reads each shot's schedule
-index on the device (counted in ``launches`` and again in
+kernel launches in ``launches``, and opens the span ``wf.launch.<name>``
+(``wf.launch.<name>.shots`` for a shot entry) around each launch
+(:func:`..utils.profiling.annotate`); K1's counts those with a window that
+starts after sample 0 again in ``windowed_launches``.  K1 and K7 also have
+a shot entry, ``synth_dense.shots`` and ``synth_sparse.shots``: one launch
+for a shot vector over a sequence table, whose kernel reads each shot's
+schedule index on the device (counted in ``launches`` and again in
 ``shot_launches``).
 
 Output kinds: f32; int16 DAC codes with a per-channel f32 scale; bf16 and
@@ -59,6 +61,7 @@ import torch
 
 from ..ops import (reference, reference_hi, reference_iir,
                    reference_probes, reference_trace)
+from ..utils.profiling import annotate
 
 __all__ = ['synth_dense', 'synth_panel', 'synth_sparse', 'synth_stack',
            'synth_stack_seq', 'synth_dense_hi', 'synth_panel_hi',
@@ -294,8 +297,9 @@ def _raise_on(code, name):
 
 
 class _Kernel:
-    """A kernel wrapper with its launch count; ``out_at`` is the position of
-    the output among the arguments."""
+    """A kernel wrapper with its launch count and its launch's span
+    ``wf.launch.<name>``; ``out_at`` is the position of the output among
+    the arguments."""
 
     def __init__(self, name, source, replaces, plain, launch, out_at=-2):
         self.name = name
@@ -304,6 +308,7 @@ class _Kernel:
         self.plain = plain          # the plain PyTorch version
         self._launch = launch
         self._out_at = out_at
+        self._span = f'wf.launch.{name}'
         self.launches = 0
 
     def __call__(self, *args):
@@ -312,7 +317,8 @@ class _Kernel:
             return self.plain(*args)
         if out.device.type != 'cuda':
             raise ValueError(f"{self.name}: unsupported device {out.device}")
-        self._launch(*args)
+        with annotate(self._span):
+            self._launch(*args)
         self.launches += 1
         return out
 
@@ -321,12 +327,14 @@ class _ShotKernel(_Kernel):
     """A wrapper with a shot entry, :meth:`shots`: one launch of the
     kernel's shot variant ``launch_shots`` for a shot vector over a
     sequence table (plain version ``plain_shots``), counted in
-    ``launches`` and again in ``shot_launches``."""
+    ``launches`` and again in ``shot_launches``, its span
+    ``wf.launch.<name>.shots``."""
 
     def __init__(self, *args, plain_shots, launch_shots, **kw):
         super().__init__(*args, **kw)
         self.plain_shots = plain_shots
         self._launch_shots = launch_shots
+        self._shots_span = f'{self._span}.shots'
         self.shot_launches = 0
 
     def shots(self, *args):
@@ -336,7 +344,8 @@ class _ShotKernel(_Kernel):
         if out.device.type != 'cuda':
             raise ValueError(f"{self.name}: unsupported device {out.device}")
         if out.shape[0]:
-            self._launch_shots(*args)
+            with annotate(self._shots_span):
+                self._launch_shots(*args)
             self.launches += 1
             self.shot_launches += 1
         return out
@@ -375,7 +384,8 @@ class _IirKernel(_Kernel):
             return zf
         if zf.device.type != 'cuda':
             raise ValueError(f"{self.name}: unsupported device {zf.device}")
-        self._launch(x, coef, zi, None, zf)
+        with annotate(self._span):
+            self._launch(x, coef, zi, None, zf)
         self.launches += 1
         self.state_launches += 1
         return zf

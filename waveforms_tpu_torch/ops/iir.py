@@ -45,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from .reference_iir import MAX_STATE
 from .synth import resolve_device
 
@@ -477,15 +478,21 @@ def predistort_device(sig, filters=None, ker=None, initial: float = 0.0,
 
     Mirrors :func:`waveforms_tpu_torch.distortion.predistort` (steady-state
     ``initial`` handling included) with :func:`lfilter` (the recurrence
-    kernel S1 on the card) and ``torch.fft`` instead of scipy.
+    kernel S1 on the card) and ``torch.fft`` instead of scipy.  Spans:
+    ``wf.chain.coeffs`` (the combined filter and its steady state, on the
+    host), ``wf.chain.iir`` (the filter), ``wf.chain.fir`` (the FFT
+    convolution).
     """
     sig = _as_signal(sig, device)
     if filters is not None:
         from ..distortion import _steady_state_zi, combine_filters
-        b, a = combine_filters(filters)
-        zi = _steady_state_zi(b, a, initial, None, None)
-        sig, _ = lfilter(b, a, sig, zi=zi)
+        with annotate('wf.chain.coeffs'):
+            b, a = combine_filters(filters)
+            zi = _steady_state_zi(b, a, initial, None, None)
+        with annotate('wf.chain.iir'):
+            sig, _ = lfilter(b, a, sig, zi=zi)
     if ker is None:
         return sig
     from .fft import fft_convolve_centered
-    return fft_convolve_centered(sig, _like(ker, sig))
+    with annotate('wf.chain.fir'):
+        return fft_convolve_centered(sig, _like(ker, sig))

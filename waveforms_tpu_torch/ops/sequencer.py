@@ -54,6 +54,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from .lowering import (OP_DRAG_SIN, OP_DRAG_SINX, PALLAS_OPS, SEG_SENTINEL,
                        W_ARGS, LoweredSchedule, UnsupportedFactor)
 from .sparse_synth import (PANEL_ROWS, PanelWork, SparseWork,
@@ -257,8 +258,10 @@ class Sequencer:
         per-channel ``dac_scale``, ``torch.bfloat16`` / ``torch.float16``
         the f32 sum rounded once; pair-mode tables give complex64 and need
         f32."""
-        return self.play_many(self.shot_indices(k, 0), rows_per_tile,
-                              out_dtype=out_dtype, dac_scale=dac_scale)[0]
+        with annotate('wf.play.prepare'):
+            ks = self.shot_indices(k, 0)
+        return self.play_many(ks, rows_per_tile, out_dtype=out_dtype,
+                              dac_scale=dac_scale)[0]
 
     def play_many(self, ks, rows_per_tile: int | None = None,
                   sparse: bool = False, Rs: int = 32, out_dtype=None,
@@ -268,7 +271,9 @@ class Sequencer:
         entry (the worklist kernel's with ``sparse``), which reads each
         shot's index on the device and clamps it there.  A CUDA ``ks`` is
         never read on the host; with ``sparse`` the first play at an
-        ``Rs`` builds the table's worklists on the host."""
+        ``Rs`` builds the table's worklists on the host.  The host's work
+        before the launch -- checks, the DAC scale, the indices, the
+        output -- is the span ``wf.play.prepare``."""
         from .. import kernels
         C = self.shape[0]
         if sparse:
@@ -276,18 +281,20 @@ class Sequencer:
                 raise NotImplementedError(
                     "play_many(sparse=True) is f32-only (play_sparse has "
                     "no narrowed store); use sparse=False for out_dtype")
-            self._check_sparse()
+            with annotate('wf.play.prepare'):
+                self._check_sparse()
+                ks = self.shot_indices(ks, 1)
+                out = torch.zeros((ks.shape[0], C, self.n_samples),
+                                  dtype=torch.float32, device=self.device)
+                work = self._stacked_work(Rs)
+            return kernels.synth_sparse.shots(self, work, ks, out, None)
+        with annotate('wf.play.prepare'):
+            self._check_rows(rows_per_tile)
+            dt, scale = validate_out_mode(out_dtype, C, dac_scale,
+                                          self.device, pair=self.pair)
             ks = self.shot_indices(ks, 1)
-            out = torch.zeros((ks.shape[0], C, self.n_samples),
-                              dtype=torch.float32, device=self.device)
-            return kernels.synth_sparse.shots(self, self._stacked_work(Rs),
-                                              ks, out, None)
-        self._check_rows(rows_per_tile)
-        dt, scale = validate_out_mode(out_dtype, C, dac_scale, self.device,
-                                      pair=self.pair)
-        ks = self.shot_indices(ks, 1)
-        out = torch.empty((ks.shape[0], C, self.n_samples), dtype=dt,
-                          device=self.device)
+            out = torch.empty((ks.shape[0], C, self.n_samples), dtype=dt,
+                              device=self.device)
         return kernels.synth_dense.shots(self, ks, out, scale)
 
     # -- the worklist kernel (K7) ----------------------------------------

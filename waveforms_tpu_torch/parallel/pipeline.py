@@ -18,10 +18,10 @@ CUDA graph a shot (:class:`SequenceGraph`), JAX's ``jit`` of a
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
+
+from ..utils.profiling import annotate
 
 __all__ = ['make_step', 'run_step', 'run_sequence', 'run_sequence_loop',
            'SequenceGraph']
@@ -258,13 +258,15 @@ def _shot_body(seq, ba_filters, demod_freqs, rows_per_tile):
     """One shot of :func:`run_sequence`: ``one(k)`` plays schedule ``k``
     (an int or a 0-d tensor) through K1's shot entry, the optional
     pre-compensation IIR in float64 and the demodulation, with every
-    constant already on the table's device."""
-    filt = _make_postfilter(ba_filters, seq.device, seq.n_samples)
-    demod = None
-    if demod_freqs is not None:
-        from ..ops.demod import demod_matrix, demodulate
-        demod = demod_matrix(demod_freqs, seq.n_samples, seq.sample_rate,
-                             device=seq.device)
+    constant already on the table's device (made in the span
+    ``wf.sequence.constants``)."""
+    with annotate('wf.sequence.constants'):
+        filt = _make_postfilter(ba_filters, seq.device, seq.n_samples)
+        demod = None
+        if demod_freqs is not None:
+            from ..ops.demod import demod_matrix, demodulate
+            demod = demod_matrix(demod_freqs, seq.n_samples,
+                                 seq.sample_rate, device=seq.device)
 
     def one(k):
         sig = seq.play(k, rows_per_tile=rows_per_tile)
@@ -334,13 +336,16 @@ class SequenceGraph:
     ``outs.index_copy_`` at the counter and ``counter += 1`` -- runs once
     eagerly on a side stream as shot 0 (which builds the kernels and
     creates the BLAS handle before the capture).  With more shots it is
-    then captured once on that stream (``torch.cuda.graph``; ``capture_s``:
-    the host's seconds from the first captured call to the instantiated
-    graph) into a graph with its own memory pool, which holds one shot's
-    intermediates; a single shot is not captured (``graph`` None).
-    :meth:`run` replays the graph once a shot on the current stream: no
-    host read of an index, no host-side launch of a kernel, and the Python
-    kernel counters see the eager shot and the capture, not the replays.
+    then captured once on that stream (``torch.cuda.graph``) into a graph
+    with its own memory pool, which holds one shot's intermediates; a
+    single shot is not captured (``graph`` None).  :meth:`run` replays the
+    graph once a shot on the current stream: no host read of an index, no
+    host-side launch of a kernel, and the Python kernel counters see the
+    eager shot and the capture, not the replays.  Spans: the constants
+    and indices ``wf.sequence.constants``, shot 0
+    ``wf.sequence.eager_shot``, the capture ``wf.sequence.capture`` (from
+    before the graph's entry -- its synchronize and cache emptying -- to
+    the instantiated graph) and the replays ``wf.sequence.replay``.
     The object holds every tensor the graph reads that was made before the
     capture (the table, the indices, the counter, the filter's and the
     demodulation's constants in the shot body's closure): freed, their
@@ -353,11 +358,12 @@ class SequenceGraph:
         self._one = one = _shot_body(seq, ba_filters, demod_freqs,
                                      rows_per_tile)
         dev = seq.device
-        self.ks = seq.shot_indices(indices)
-        self.n_shots = self.ks.shape[0]
-        if not self.n_shots:
-            raise ValueError("run_sequence needs at least one shot")
-        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        with annotate('wf.sequence.constants'):
+            self.ks = seq.shot_indices(indices)
+            self.n_shots = self.ks.shape[0]
+            if not self.n_shots:
+                raise ValueError("run_sequence needs at least one shot")
+            self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
 
         def shot():
             return one(self.ks.index_select(0, self.counter).reshape(()))
@@ -367,20 +373,20 @@ class SequenceGraph:
             self.counter.add_(1)
 
         stream = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            first = shot()
-            self.outs = first.new_empty((self.n_shots,) + first.shape)
-            keep(first)
-        del first
-        self.graph, self.capture_s = None, 0.0
+        with annotate('wf.sequence.eager_shot'):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                first = shot()
+                self.outs = first.new_empty((self.n_shots,) + first.shape)
+                keep(first)
+            del first
+        self.graph = None
         if self.n_shots > 1:
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side):
-                t0 = time.perf_counter()
-                keep(shot())
-            self.capture_s = time.perf_counter() - t0
+            with annotate('wf.sequence.capture'):
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph, stream=side):
+                    keep(shot())
         stream.wait_stream(side)
         self._next = 1                  # shot 0 ran eagerly
 
@@ -389,9 +395,10 @@ class SequenceGraph:
         again after the first run) on the current stream -> ``outs``
         (n_shots, ...), which the next run overwrites."""
         if self.graph is not None:
-            if self._next == 0:
-                self.counter.zero_()
-            for _ in range(self._next, self.n_shots):
-                self.graph.replay()
+            with annotate('wf.sequence.replay'):
+                if self._next == 0:
+                    self.counter.zero_()
+                for _ in range(self._next, self.n_shots):
+                    self.graph.replay()
         self._next = 0
         return self.outs
