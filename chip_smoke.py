@@ -3503,9 +3503,10 @@ def seq_station_chain(fail, summary):
     200,000 samples), 1000 shots in the replay's seeded order given as a
     CUDA tensor, with the Z-settle pre-compensation and the two readout
     tones -> (1000, 2, 2): one CUDA graph a shot (K1's shot entry, S1's
-    kernels, the demodulation), captured once a call and replayed once a
-    shot.  Its IQ points bit-equal to the plain version (the host loop,
-    ``run_sequence_loop``) and 8 shots' against ``Sequencer.play`` plus
+    kernels, the demodulation), captured once and replayed once a shot;
+    a second call with other indices reuses the graph kept on the
+    Sequencer.  Its IQ points bit-equal to the plain version (the host
+    loop, ``run_sequence_loop``) and 8 shots' against ``Sequencer.play`` plus
     scipy's lfilter (from lfiltic's zero history) plus ``getFTMatrix`` on
     the host.  The Python counters see the eager first shot and the
     capture; the shots' kernel executions come from torch.profiler's trace
@@ -3552,12 +3553,20 @@ def seq_station_chain(fail, summary):
         ref = np.stack([sps.lfilter(b, a, r, zi=zi)[0] for r in sig]) @ ft
         got = iq[i].cpu().numpy()
         errs.append(float(np.abs(got - ref).max() / np.abs(ref).max()))
+    # a second call, other indices: the kept graph, no capture
+    ks2 = np.roll(ks, 1)
+    again_call = run_sequence(seq, torch.as_tensor(ks2, device='cuda'), **kw)
+    equal_reuse = bool(torch.equal(
+        again_call, run_sequence_loop(seq, ks2, **kw))) and (
+        seq.graph_misses, seq.graph_hits) == (1, 1)
+    del again_call
     rec = {'phase': 'seq_station_chain', 'table': seq.describe(),
            'route': 'SequenceGraph: one CUDA graph a shot',
            'shots': len(ks), 'shape': list(iq.shape),
            'dtype': str(iq.dtype)[6:], 'launches': cnt, 'wall_s': wall,
            'us_per_shot_wall': wall * 1e6 / len(ks),
            'equal_loop': bool(torch.equal(iq, loop)),
+           'equal_reuse': equal_reuse,
            'vs_host': max(errs), 'tol': TOL_DEMOD,
            'loop_wall_s': loop_wall,
            'loop_us_per_shot_wall': loop_wall * 1e6 / len(ks)}
@@ -3608,7 +3617,8 @@ def seq_station_chain(fail, summary):
         0.99 * rec['executions_expected'][n] <= v
         <= rec['executions_expected'][n] for n, v in execs.items())
     rec['ok'] = bool(rec['vs_host'] <= TOL_DEMOD and rec['equal_loop']
-                     and rec['equal_rerun'] and rec['executions_ok']
+                     and rec['equal_reuse'] and rec['equal_rerun']
+                     and rec['executions_ok']
                      and tuple(iq.shape) == (len(ks), 2, 2)
                      and bool(torch.isfinite(torch.view_as_real(iq)).all()))
     del iq, again, graph, seq

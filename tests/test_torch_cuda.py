@@ -699,6 +699,68 @@ def test_run_sequence_graph_equals_the_host_loop(card, chain):
     assert torch.equal(graph.run(), want)
 
 
+@pytest.mark.parametrize('chain', ['signals', 'filtered', 'iq'])
+def test_run_sequence_keeps_its_graph_across_calls(card, chain):
+    """Three ``run_sequence`` calls with other index vectors (a card
+    tensor, a host list, a card tensor of int32) and one key: one capture
+    among them (``graph_misses`` 1, the Python counters see only the
+    first call's eager shot and capture), each result bit-equal to the
+    host loop, and the first call's tensor unchanged by the later ones."""
+    from waveforms_tpu_torch.distortion import exp_decay_filter
+    from waveforms_tpu_torch.ops import Sequencer
+    from waveforms_tpu_torch.parallel import run_sequence, run_sequence_loop
+    seq = Sequencer(_seq_table(n_schedules=4), device=card)
+
+    def kw():
+        out = {}
+        if chain != 'signals':
+            out['ba_filters'] = [exp_decay_filter(a, t, 2e9, inv=True)
+                                 for a, t in ((0.02, 3e-6), (0.005, 20e-6))]
+        if chain == 'iq':
+            out['demod_freqs'] = [-121.64e6, -67.52e6]
+        return out
+    orders = [[3, 0, 9, -1, 2, 1, 1], [0, 0, 1, 2, 3, 3, 1],
+              [2, 3, 1, 0, 0, -5, 2]]
+    given = [torch.tensor(orders[0], device=card), orders[1],
+             torch.tensor(orders[2], device=card, dtype=torch.int32)]
+    n = (kernels.synth_dense.launches, kernels.iir_df2t.launches)
+    got = [run_sequence(seq, ks, **kw()) for ks in given]
+    torch.cuda.synchronize()
+    first = got[0].clone()
+    assert (seq.graph_misses, seq.graph_hits) == (1, 2)
+    assert (kernels.synth_dense.launches - n[0],
+            kernels.iir_df2t.launches - n[1]) == (
+        2, 0 if chain == 'signals' else 2)
+    for order, out in zip(orders, got):
+        want = run_sequence_loop(seq, order, **kw())
+        assert out.dtype == want.dtype and torch.equal(out, want)
+    assert torch.equal(got[0], first)
+
+
+def test_a_kept_graph_on_a_second_stream_follows_the_first_call(card):
+    """The first call queued behind a long spin on the current stream, the
+    second (a hit) issued at once on another stream: the second waits for
+    the first, so each call's result is its own indices' (bit-equal to the
+    host loop) and the first's is not overwritten."""
+    from waveforms_tpu_torch.ops import Sequencer
+    from waveforms_tpu_torch.parallel import run_sequence, run_sequence_loop
+    seq = Sequencer(_seq_table(n_schedules=4), device=card)
+    kw = {'demod_freqs': [-121.64e6, -67.52e6]}
+    orders = [[3, 0, 2, 1, 1], [0, 2, 2, 3, 0]]
+    ks = [torch.tensor(order, device=card) for order in orders]
+    other = torch.cuda.Stream(card)
+    run_sequence(seq, orders[1], **kw)               # capture
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)                   # ~0.1 s on the card
+    first = run_sequence(seq, ks[0], **kw)
+    with torch.cuda.stream(other):
+        second = run_sequence(seq, ks[1], **kw)
+    torch.cuda.synchronize()
+    assert (seq.graph_misses, seq.graph_hits) == (1, 2)
+    assert torch.equal(first, run_sequence_loop(seq, orders[0], **kw))
+    assert torch.equal(second, run_sequence_loop(seq, orders[1], **kw))
+
+
 def test_run_sequence_of_one_shot_is_not_captured(card):
     """A single shot is ``SequenceGraph``'s eager shot 0: nothing is
     captured (no graph, and under a profiler no ``wf.sequence.capture``
@@ -723,13 +785,14 @@ def test_run_sequence_of_one_shot_is_not_captured(card):
 
 
 def test_run_sequence_spans_cover_the_call(card, tmp_path, monkeypatch):
-    """A traced ``run_sequence`` of 7 shots, twice: one
-    ``wf.sequence.capture`` a call, which holds the whole of
-    ``torch.cuda.graph``'s entry and exit (its synchronize and cache
-    emptying) and so lasts at least the stretch from inside the entry to
-    the instantiated graph; and every device operation launched inside a
-    call is launched under a ``wf.*`` span -- all but the replays' under a
-    span other than ``wf.sequence.replay``."""
+    """A traced ``run_sequence`` of 7 shots, twice: the first call
+    captures (its key new), in one ``wf.sequence.capture``, which holds
+    the whole of ``torch.cuda.graph``'s entry and exit (its synchronize
+    and cache emptying) and so lasts at least the stretch from inside the
+    entry to the instantiated graph; the second reuses the kept graph, in
+    one ``wf.sequence.reuse`` and no capture; and every device operation
+    launched inside a call is launched under a ``wf.*`` span -- all but
+    the replays' under a span other than ``wf.sequence.replay``."""
     from waveforms_tpu_torch.distortion import exp_decay_filter
     from waveforms_tpu_torch.ops import Sequencer
     from waveforms_tpu_torch.parallel import run_sequence
@@ -738,7 +801,7 @@ def test_run_sequence_spans_cover_the_call(card, tmp_path, monkeypatch):
     kw = {'ba_filters': [exp_decay_filter(0.02, 3e-6, 2e9, inv=True)],
           'demod_freqs': [-121.64e6, -67.52e6]}
     order = torch.tensor([3, 0, 9, -1, 2, 1, 1], device=card)
-    run_sequence(seq, order, **kw)             # builds the kernels
+    run_sequence(seq, order[:6], **kw)         # builds the kernels
     torch.cuda.synchronize()
 
     graphs = []
@@ -770,11 +833,13 @@ def test_run_sequence_spans_cover_the_call(card, tmp_path, monkeypatch):
     rec = profiling.span_record()
     captures = [(s, e) for n, s, e in zip(rec.names, rec.starts, rec.ends)
                 if n == 'wf.sequence.capture' and s >= t0]
-    assert len(captures) == len(graphs) == 2
-    for (a, b), (s, e), (before, inside, after) in zip(calls, captures,
-                                                       graphs):
-        assert a <= s <= before and after <= e <= b
-        assert e - s >= after - inside
+    reuses = [s for n, s in zip(rec.names, rec.starts)
+              if n == 'wf.sequence.reuse' and s >= t0]
+    assert len(captures) == len(graphs) == 1
+    (a, b), (s, e), (before, inside, after) = calls[0], captures[0], graphs[0]
+    assert a <= s <= before and after <= e <= b
+    assert e - s >= after - inside
+    assert len(reuses) == 1 and calls[1][0] <= reuses[0] <= calls[1][1]
     # the trace: each device operation launched inside a call (its launch,
     # the runtime call with its correlation id) is launched under a wf.*
     # range

@@ -49,6 +49,8 @@ demodulation over a table is
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from types import SimpleNamespace
 
 import numpy as np
@@ -191,6 +193,12 @@ class Sequencer:
         self._packed_tensors_cache = None
         self._packed_plans = {}
         self._palettes = {}
+        # parallel.run_sequence's shot programs by key, the least recently
+        # used first, under their lock; graph_hits / graph_misses count
+        # its lookups
+        self._shot_programs = OrderedDict()
+        self._shot_programs_lock = threading.Lock()
+        self.graph_hits = self.graph_misses = 0
 
     def describe(self) -> str:
         """One-line table summary (debugging / logging aid)."""

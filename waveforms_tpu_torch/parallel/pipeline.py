@@ -12,11 +12,13 @@ added on one device, JAX's psum.  :func:`run_step` lowers and runs one such step
 :class:`~waveforms_tpu_torch.ops.Sequencer` (K1's shot entry for each shot)
 on one device through the same filter and demodulation: on the card as one
 CUDA graph a shot (:class:`SequenceGraph`), JAX's ``jit`` of a
-``lax.scan``; its plain version, the host loop, is
-:func:`run_sequence_loop`.
+``lax.scan``, kept on the Sequencer for the next call with the same key;
+its plain version, the host loop, is :func:`run_sequence_loop`.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -24,7 +26,7 @@ import torch
 from ..utils.profiling import annotate
 
 __all__ = ['make_step', 'run_step', 'run_sequence', 'run_sequence_loop',
-           'SequenceGraph']
+           'SequenceGraph', 'PROGRAMS_KEPT']
 
 
 def _postfilter_coeffs(ba_filters):
@@ -277,6 +279,46 @@ def _shot_body(seq, ba_filters, demod_freqs, rows_per_tile):
     return one
 
 
+#: shot programs a Sequencer keeps for :func:`run_sequence`
+PROGRAMS_KEPT = 4
+
+
+def _program_key(ba_filters, demod_freqs, rows_per_tile, n_shots):
+    """What :func:`run_sequence`'s shot program is built from or reads, by
+    value: the shot count, the filters' coefficients, the tones,
+    ``rows_per_tile`` and the post-filter builder in force."""
+    filters = tuple((np.asarray(b, np.float64).tobytes(),
+                     np.asarray(a, np.float64).tobytes())
+                    for b, a in ba_filters or ())
+    tones = None if demod_freqs is None else tuple(
+        float(f) for f in np.atleast_1d(np.asarray(demod_freqs, float)))
+    return n_shots, filters, tones, rows_per_tile, _make_postfilter
+
+
+def _kept(seq, key, build, renew=None):
+    """The shot program ``seq`` keeps under ``key``, ``renew``-ed in the
+    span ``wf.sequence.reuse`` (a hit), or ``build()``'s, kept in its
+    place (a miss), with the least recently used past
+    :data:`PROGRAMS_KEPT` released.  The caller holds
+    ``seq._shot_programs_lock``."""
+    programs = seq._shot_programs
+    program = programs.get(key)
+    if program is not None:
+        with annotate('wf.sequence.reuse'):
+            programs.move_to_end(key)
+            seq.graph_hits += 1
+            if renew is not None:
+                renew(program)
+        return program
+    seq.graph_misses += 1
+    program = programs[key] = build()
+    while len(programs) > PROGRAMS_KEPT:
+        _, old = programs.popitem(last=False)
+        if isinstance(old, SequenceGraph):
+            old.release()
+    return program
+
+
 def run_sequence(seq, indices, ba_filters=None, demod_freqs=None,
                  rows_per_tile: int | None = None) -> torch.Tensor:
     """Run a shot table through a
@@ -291,31 +333,50 @@ def run_sequence(seq, indices, ba_filters=None, demod_freqs=None,
     one shot's signal regardless of shot count.
 
     On a CUDA device the shot is one captured program, as JAX's ``jit`` of
-    a ``lax.scan`` is: a :class:`SequenceGraph`, captured once a call and
-    replayed once a shot, which reads the shot's index on the card (a CUDA
-    ``indices`` is never read on the host).  A capture that fails raises.
-    On the CPU, and as the graph's plain version, the host loop
+    a ``lax.scan`` is: a :class:`SequenceGraph`, captured once a key and
+    kept on the Sequencer, replayed once a shot, which reads the shot's
+    index on the card (a CUDA ``indices`` is never read on the host).  The
+    key is the shot count, the filters' coefficients, the tones,
+    ``rows_per_tile`` and the post-filter builder in force; a later call
+    with the same key copies its indices into the kept graph and replays
+    it, and a call on another stream than the last waits for the last.
+    The Sequencer keeps :data:`PROGRAMS_KEPT` programs, the least recently
+    used out first, and calls from threads that share it take turns
+    (``graph_hits`` and ``graph_misses`` count its lookups).  A capture
+    that fails raises.  On the CPU the Sequencer keeps the shot body under
+    the same key and runs the host loop, whose plain version is
     :func:`run_sequence_loop`; both give the same bits.
 
-    Returns ``iq`` of shape (n_shots, C, n_tones) complex64 when
-    ``demod_freqs`` is given, otherwise the stacked signals
+    Returns a fresh tensor: ``iq`` of shape (n_shots, C, n_tones)
+    complex64 when ``demod_freqs`` is given, otherwise the stacked signals
     (n_shots, C, N): f32, or float64 when filtered.
     """
     if seq.device.type != 'cuda':
-        return run_sequence_loop(seq, indices, ba_filters, demod_freqs,
-                                 rows_per_tile)
-    return SequenceGraph(seq, indices, ba_filters, demod_freqs,
-                         rows_per_tile).run()
+        ks = _host_indices(indices)
+        key = _program_key(ba_filters, demod_freqs, rows_per_tile, len(ks))
+        with seq._shot_programs_lock:
+            one = _kept(seq, key, lambda: _shot_body(
+                weakref.proxy(seq), ba_filters, demod_freqs, rows_per_tile))
+        return _host_loop(one, ks)
+    with annotate('wf.sequence.constants'):
+        ks = seq.shot_indices(indices)
+    key = _program_key(ba_filters, demod_freqs, rows_per_tile, ks.shape[0])
+    with seq._shot_programs_lock:
+        # the kept graph holds the Sequencer weakly: the Sequencer holds it
+        graph = _kept(seq, key, lambda: SequenceGraph(
+            weakref.proxy(seq), ks, ba_filters, demod_freqs, rows_per_tile),
+            lambda graph: graph.reindex(ks))
+        return graph.run()
 
 
-def run_sequence_loop(seq, indices, ba_filters=None, demod_freqs=None,
-                      rows_per_tile: int | None = None) -> torch.Tensor:
-    """:func:`run_sequence` as a loop on the host: each shot's index read
-    there, and its launches made one after another.  What a CPU device
-    runs, and the plain version that :class:`SequenceGraph` is held to."""
-    one = _shot_body(seq, ba_filters, demod_freqs, rows_per_tile)
-    ks = np.asarray(indices.cpu() if isinstance(indices, torch.Tensor)
-                    else indices).reshape(-1)
+def _host_indices(indices) -> np.ndarray:
+    return np.asarray(indices.cpu() if isinstance(indices, torch.Tensor)
+                      else indices).reshape(-1)
+
+
+def _host_loop(one, ks) -> torch.Tensor:
+    """Shot body ``one`` over the host indices ``ks``, one shot after
+    another, into one (n_shots, ...) tensor."""
     outs = None
     for i, k in enumerate(ks):
         out = one(int(k))
@@ -325,6 +386,16 @@ def run_sequence_loop(seq, indices, ba_filters=None, demod_freqs=None,
     if outs is None:
         raise ValueError("run_sequence needs at least one shot")
     return outs
+
+
+def run_sequence_loop(seq, indices, ba_filters=None, demod_freqs=None,
+                      rows_per_tile: int | None = None) -> torch.Tensor:
+    """:func:`run_sequence` as a loop on the host: each shot's index read
+    there, and its launches made one after another, with its constants
+    made for the call.  The plain version that :func:`run_sequence` is
+    held to, on the card's graph and on the CPU's kept shot body."""
+    return _host_loop(_shot_body(seq, ba_filters, demod_freqs,
+                                 rows_per_tile), _host_indices(indices))
 
 
 class SequenceGraph:
@@ -338,14 +409,17 @@ class SequenceGraph:
     creates the BLAS handle before the capture).  With more shots it is
     then captured once on that stream (``torch.cuda.graph``) into a graph
     with its own memory pool, which holds one shot's intermediates; a
-    single shot is not captured (``graph`` None).  :meth:`run` replays the
-    graph once a shot on the current stream: no host read of an index, no
-    host-side launch of a kernel, and the Python kernel counters see the
-    eager shot and the capture, not the replays.  Spans: the constants
-    and indices ``wf.sequence.constants``, shot 0
-    ``wf.sequence.eager_shot``, the capture ``wf.sequence.capture`` (from
-    before the graph's entry -- its synchronize and cache emptying -- to
-    the instantiated graph) and the replays ``wf.sequence.replay``.
+    single shot is not captured (``graph`` None) and runs eagerly again
+    on each later run.  :meth:`run` replays the graph once a shot on the
+    current stream: no host read of an index, no host-side launch of a
+    kernel, and the Python kernel counters see the eager shot and the
+    capture, not the replays.  :meth:`reindex` gives the next run other
+    indices, so :func:`run_sequence` captures once a key and keeps the
+    graph on the Sequencer.  Spans: the constants and indices
+    ``wf.sequence.constants``, shot 0 ``wf.sequence.eager_shot``, the
+    capture ``wf.sequence.capture`` (from before the graph's entry -- its
+    synchronize and cache emptying -- to the instantiated graph) and the
+    replays ``wf.sequence.replay``.
     The object holds every tensor the graph reads that was made before the
     capture (the table, the indices, the counter, the filter's and the
     demodulation's constants in the shot body's closure): freed, their
@@ -372,6 +446,7 @@ class SequenceGraph:
             self.outs.index_copy_(0, self.counter, out[None])
             self.counter.add_(1)
 
+        self._shot, self._keep = shot, keep
         stream = torch.cuda.current_stream(dev)
         with annotate('wf.sequence.eager_shot'):
             side = torch.cuda.Stream(dev)
@@ -388,17 +463,47 @@ class SequenceGraph:
                 with torch.cuda.graph(self.graph, stream=side):
                     keep(shot())
         stream.wait_stream(side)
+        self._stream = stream           # where the last work was queued
         self._next = 1                  # shot 0 ran eagerly
 
+    def _follow(self):
+        """Queue what follows on the current stream after the last run's
+        work, where that was queued on another stream."""
+        stream = torch.cuda.current_stream(self.counter.device)
+        if stream != self._stream:
+            stream.wait_stream(self._stream)
+            self._stream = stream
+
+    def reindex(self, indices):
+        """Take ``indices`` (as ``Sequencer.shot_indices`` takes them, one
+        a shot) as the next run's, copied on the current stream after the
+        last run's work."""
+        self._follow()
+        ks = self.seq.shot_indices(indices)
+        if ks.shape != self.ks.shape:
+            raise ValueError(f"expected {self.n_shots} indices, got "
+                             f"{ks.shape[0]}")
+        self.ks.copy_(ks)
+
     def run(self) -> torch.Tensor:
-        """Replay the graph for every shot not yet played (all of them
-        again after the first run) on the current stream -> ``outs``
-        (n_shots, ...), which the next run overwrites."""
-        if self.graph is not None:
-            with annotate('wf.sequence.replay'):
-                if self._next == 0:
-                    self.counter.zero_()
+        """Play every shot not yet played (all of them again after the
+        first run) on the current stream, after the last run's work ->
+        a fresh tensor (n_shots, ...) of the shots' results."""
+        self._follow()
+        with annotate('wf.sequence.replay'):
+            if self._next == 0:
+                self.counter.zero_()
+                if self.graph is None:
+                    self._keep(self._shot())
+            if self.graph is not None:
                 for _ in range(self._next, self.n_shots):
                     self.graph.replay()
-        self._next = 0
-        return self.outs
+            self._next = 0
+            return self.outs.clone()
+
+    def release(self):
+        """Wait for the last run's work, then free the graph and its
+        memory pool (a program the Sequencer no longer keeps)."""
+        self._stream.synchronize()
+        if self.graph is not None:
+            self.graph.reset()
